@@ -25,7 +25,7 @@ from afcm_tpu.infer.predictor import StandardPredictor, subject_id
 from afcm_tpu.utils.metrics import evaluate_3D, evaluate_slice
 from afcm_tpu.utils.nifti import read_nifti, write_nifti
 
-from .models import GANModel, build_gan_model
+from .models import GANModel, build_eval_model
 
 
 def normalize_uint8(a, lo: float, hi: float):
@@ -238,7 +238,7 @@ def main(argv=None):
                                   "(ROADMAP items A10-A11)")
     compute_dtype = configure_numerics(cfg)
 
-    model = build_gan_model(dict(cfg.model.G), compute_dtype=compute_dtype)
+    model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
     run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
     load_generator_ema(model, run_dir, checkpoint_tag(cfg))
     model.generator_ema.to(device)      # the weights move to the device once

@@ -1,17 +1,19 @@
-"""Model registry: config -> generator / GANModel (``afcm_tpu/models/__init__.py``).
+"""Model registry: config -> generator, discriminator, GANModel
+(``afcm_tpu/models/__init__.py``).
 
-Only the alias-free StyleGAN3 family is ported; CoModGAN is ROADMAP item
+Only the alias-free StyleGAN3 generator is ported; CoModGAN is ROADMAP item
 A10 and raises until it lands.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional
 
 import torch
 
-from ..nn import Stylegan3Generator
-from .gan_model import GANModel
+from ..nn import CoModDiscriminator, Stylegan3Generator
+from .gan_model import GANConfig, GANModel
 
 # The generator of configs/adni/stylegan3/cmsr.yml as afcm_tpu.config
 # resolves it (the shipped CMSR model; bench.py:_make_gen builds the same
@@ -67,15 +69,70 @@ def build_generator(g_cfg: Dict[str, Any],
         generator=generator)
 
 
-def build_gan_model(g_cfg: Dict[str, Any], compute_dtype: str = "float32",
-                    generator: Optional[torch.Generator] = None) -> GANModel:
-    """GANModel around a generator built from ``g_cfg`` in ``compute_dtype``
-    (the config's ``tpu.compute_dtype``)."""
+def build_discriminator(d_cfg: Dict[str, Any],
+                        generator: Optional[torch.Generator] = None):
+    """Discriminator from a ``model.D`` config dict
+    (``afcm_tpu/models/__init__.py:61-76``)."""
+    d_cfg = dict(d_cfg)
+    net_d = d_cfg.pop("netD")
+    if net_d != "comodgan":
+        raise NotImplementedError(
+            f"Discriminator model name [{net_d}] is not recognized")
+    return CoModDiscriminator(
+        c_dim=d_cfg.get("c_dim", 0),
+        img_resolution=d_cfg["img_resolution"],
+        img_channels=d_cfg["img_channels"],
+        channel_base=d_cfg.get("channel_base", 32768),
+        channel_max=d_cfg.get("channel_max", 512),
+        conv_clamp=d_cfg.get("conv_clamp"),
+        cmap_dim=d_cfg.get("cmap_dim"),
+        mapping_kwargs=dict(d_cfg.get("mapping_kwargs") or {}),
+        epilogue_kwargs=dict(d_cfg.get("epilogue_kwargs") or {}),
+        compute_dtype=d_cfg.get("compute_dtype", "float32"),
+        generator=generator)
+
+
+def build_gan_model(cfg, generator: Optional[torch.Generator] = None) -> GANModel:
+    """GANModel from a full config tree, as ``afcm_tpu/models/__init__.py:93-139``
+    assembles it: ``tpu.compute_dtype`` drives both nets, G_ema starts as a
+    copy of G. Random weights are drawn from ``generator``."""
+    if getattr(cfg.model, "name", "stylegan3") != "stylegan3":
+        raise NotImplementedError(f"model {cfg.model.name} is not ported yet "
+                                  "(ROADMAP items A10-A11)")
+    g_cfg = dict(cfg.model.G)
+    d_cfg = dict(cfg.model.D)
+    compute_dtype = cfg.tpu.compute_dtype
+    g_cfg["synthesis_kwargs"] = dict(g_cfg.get("synthesis_kwargs") or {},
+                                     compute_dtype=compute_dtype)
+    d_cfg.setdefault("compute_dtype", compute_dtype)
+    net_g = build_generator(g_cfg, generator=generator)
+    net_d = build_discriminator(d_cfg, generator=generator)
+    ema = cfg.scheduler.ema
+    config = GANConfig(
+        z_dim=g_cfg.get("z_dim", 512), c_dim=g_cfg.get("c_dim", 0),
+        batch_size=cfg.loaders.batch_size, combine_ab=cfg.model.combine_ab,
+        lambda_l1=cfg.loss.lambda_L1, lambda_r1=cfg.loss.lambda_r1,
+        r1_interval=int(cfg.loss.get("r1_interval", 1)),
+        lr_g=cfg.optimizer.lr_G, lr_d=cfg.optimizer.lr_D,
+        ema_enabled=ema.enabled, ema_kimgs=ema.ema_kimgs,
+        # the reference YAMLs write `ramp: None`, which YAML reads as a string
+        ema_ramp=None if ema.ramp in (None, "None") else ema.ramp,
+        blur_init_sigma=getattr(cfg.loss, "blur_init_sigma", 0.0),
+        blur_fade_kimg=getattr(cfg.loss, "blur_fade_kimg", 0.0),
+        shared_g_fwd=bool(cfg.tpu.get("shared_g_fwd", False)))
+    return GANModel(config, copy.deepcopy(net_g), net_g, net_d)
+
+
+def build_eval_model(g_cfg: Dict[str, Any], compute_dtype: str = "float32",
+                     generator: Optional[torch.Generator] = None) -> GANModel:
+    """Inference GANModel: only the EMA generator, built from ``g_cfg`` in
+    ``compute_dtype`` (the config's ``tpu.compute_dtype``)."""
     g_cfg = dict(g_cfg)
     g_cfg["synthesis_kwargs"] = dict(g_cfg.get("synthesis_kwargs") or {},
                                      compute_dtype=compute_dtype)
-    return GANModel(build_generator(g_cfg, generator=generator),
-                    z_dim=g_cfg.get("z_dim", 512), c_dim=g_cfg.get("c_dim", 0))
+    config = GANConfig(z_dim=g_cfg.get("z_dim", 512), c_dim=g_cfg.get("c_dim", 0))
+    return GANModel(config, build_generator(g_cfg, generator=generator))
 
 
-__all__ = ["CMSR_ADNI_G", "GANModel", "build_gan_model", "build_generator"]
+__all__ = ["CMSR_ADNI_G", "GANConfig", "GANModel", "build_discriminator",
+           "build_eval_model", "build_gan_model", "build_generator"]

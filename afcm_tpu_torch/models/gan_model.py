@@ -1,24 +1,197 @@
-"""Inference side of the conditional-GAN model (``afcm_tpu/models/gan_model.py``).
+"""The conditional-GAN model: training step and inference
+(``afcm_tpu/models/gan_model.py``).
 
-``eval_step`` is the EMA generator's forward (``:318-337``). Training —
-the D/G phases, R1, EMA updates — comes with the training slice.
+``train_step`` follows the JAX step (``:211-314``) phase for phase: the D
+phase on a detached fake (softplus losses, R1 through the blur), the D
+update, then the G phase through the updated D (softplus + blurred L1), the
+G update, then the EMA. The JAX package compiles the step into one XLA
+program over an immutable state; here PyTorch runs it eagerly and updates
+the modules, the Adam states and the EMA copy in place. On CUDA tensors the
+generator's forward runs kernel K1 and its backward kernel K2.
+
+Not ported: style mixing (``:162-192``; default off, ROADMAP A8) and remat.
+The StyleGAN3 step updates neither ``w_avg`` nor ``magnitude_ema``
+(``_run_g`` passes no ``update_emas``, ``:153-156``), and neither does this.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..ops import gaussian_blur2d
+from . import losses
+from .train_state import ema_beta, ema_update, make_optimizer, with_lr
+
+
+@dataclasses.dataclass(frozen=True)
+class GANConfig:
+    """Static training hyperparameters (``afcm_tpu/models/gan_model.py:36-83``,
+    same fields and defaults)."""
+
+    z_dim: int = 512
+    c_dim: int = 0
+    batch_size: int = 16
+    combine_ab: bool = True
+    lambda_l1: float = 100.0
+    lambda_r1: float = 10.0
+    r1_interval: int = 1
+    lr_g: float = 0.0025
+    lr_d: float = 0.002
+    adam_beta1: float = 0.0
+    adam_beta2: float = 0.99
+    adam_eps: float = 1e-8
+    ema_enabled: bool = True
+    ema_kimgs: float = 10.0
+    ema_ramp: Optional[float] = None
+    blur_init_sigma: float = 0.0
+    blur_fade_kimg: float = 0.0
+    style_mixing_prob: float = 0.0
+    shared_g_fwd: bool = False
+
 
 class GANModel:
-    """Holds the EMA generator of a trained GAN for inference."""
+    """The EMA generator for inference and, when ``generator`` and
+    ``discriminator`` are given, the trained pair with their optimizers."""
 
-    def __init__(self, generator_ema: nn.Module, z_dim: int, c_dim: int):
-        self.generator_ema = generator_ema
-        self.z_dim = z_dim
-        self.c_dim = c_dim
+    def __init__(self, config: GANConfig, generator_ema: nn.Module,
+                 generator: Optional[nn.Module] = None,
+                 discriminator: Optional[nn.Module] = None):
+        self.config = config
+        self.z_dim, self.c_dim = config.z_dim, config.c_dim
+        self.generator_ema = generator_ema.requires_grad_(False)
+        self.generator = generator
+        self.discriminator = discriminator
+        self.blur_max_radius = int(np.floor(config.blur_init_sigma * 3.0))
+        self.step = 0
+        if generator is not None:
+            self.opt_G = make_optimizer(generator.parameters(), config.lr_g,
+                                        config.adam_beta1, config.adam_beta2,
+                                        config.adam_eps)
+            self.opt_D = make_optimizer(discriminator.parameters(), config.lr_d,
+                                        config.adam_beta1, config.adam_beta2,
+                                        config.adam_eps)
+
+    def to(self, device) -> "GANModel":
+        """Move every network (and so the optimizers' parameters) to device."""
+        for net in (self.generator_ema, self.generator, self.discriminator):
+            if net is not None:
+                net.to(device)
+        return self
+
+    def with_lr(self, lr_g: float, lr_d: float) -> None:
+        with_lr(self.opt_G, lr_g)
+        with_lr(self.opt_D, lr_d)
+
+    # -- helpers -------------------------------------------------------------
+
+    def _cond(self, batch):
+        if self.c_dim > 0:
+            return batch["slice_idx"].reshape(-1, self.c_dim)
+        return torch.zeros((batch["A"].shape[0], 1), device=batch["A"].device)
+
+    def _d_input(self, a, b):
+        return torch.cat([a, b], dim=1) if self.config.combine_ab else b
+
+    def _blur(self, img, sigma):
+        if self.blur_max_radius <= 0:
+            return img
+        return gaussian_blur2d(img, sigma, max_radius=self.blur_max_radius)
+
+    def _run_d(self, img, c, sigma):
+        return self.discriminator(self._blur(img, sigma), c)
+
+    # -- the train step --------------------------------------------------------
+
+    def train_step(self, batch: Dict[str, torch.Tensor], cur_nimg: float,
+                   with_r1: bool = True, z: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One D + G + EMA step on ``batch`` ({"A", "B", "slice_idx"} on the
+        model's device); ``cur_nimg`` is the image count after this batch.
+        ``z`` [N, z_dim] and the co-modulation dropout masks are drawn from
+        ``generator`` (a ``torch.Generator`` on the device) unless ``z`` is
+        given. Returns the losses as 0-d tensors, left on the device."""
+        cfg = self.config
+        if cfg.style_mixing_prob > 0:
+            raise NotImplementedError("style mixing (style_mixing_prob > 0) is "
+                                      "not ported yet (ROADMAP item A8)")
+        gen, disc = self.generator, self.discriminator
+        real_a, real_b = batch["A"], batch["B"]
+        c = self._cond(batch)
+        if z is None:
+            z = torch.randn((real_a.shape[0], cfg.z_dim), generator=generator,
+                            device=real_a.device)
+        sigma = losses.blur_sigma_schedule(cur_nimg, cfg.blur_init_sigma,
+                                           cfg.blur_fade_kimg)
+        params_g = list(gen.parameters())
+        params_d = list(disc.parameters())
+
+        # ---- D phase (G frozen; reference stylegan3_model.py:117-125) ----
+        if cfg.shared_g_fwd:
+            # One forward serves both phases: its graph is kept and the G
+            # head's gradient flows back through it after the D update.
+            fake_shared = gen(z, c, real_a, train=True, generator=generator)
+            fake_d = fake_shared.detach()
+        else:
+            with torch.no_grad():
+                fake_d = gen(z, c, real_a, train=True, generator=generator)
+
+        real_ab = self._d_input(real_a, real_b)
+        r1_on = cfg.lambda_r1 > 0 and with_r1
+        if r1_on:
+            real_ab = real_ab.detach().requires_grad_(True)
+        fake_logits = self._run_d(self._d_input(real_a, fake_d), c, sigma)
+        real_logits = self._run_d(real_ab, c, sigma)
+        loss_d_fake, loss_d_real = losses.softplus_d_loss(fake_logits, real_logits)
+        loss_d = loss_d_fake + loss_d_real
+        loss_r1 = torch.zeros((), device=real_a.device)
+        if r1_on:
+            loss_r1 = losses.r1_penalty(real_logits, real_ab)
+            # Lazy R1 scales by the interval so the sum over steps matches
+            # the every-step schedule (interval 1 => the same loss).
+            loss_d = loss_d + loss_r1 * cfg.lambda_r1 * max(1, cfg.r1_interval)
+        self._step(self.opt_D, params_d, loss_d)
+
+        # ---- G phase, through the updated D (stylegan3_model.py:126-135) ----
+        fake_b = fake_shared if cfg.shared_g_fwd else \
+            gen(z, c, real_a, train=True, generator=generator)
+        gen_logits = self._run_d(self._d_input(real_a, fake_b), c, sigma)
+        loss_g_gan = losses.softplus_g_loss(gen_logits)
+        loss_g_l1 = losses.l1_loss(self._blur(fake_b, sigma),
+                                   self._blur(real_b, sigma)) * cfg.lambda_l1
+        # Gradients w.r.t. G's parameters only: D's weights get none from
+        # the G head, so nothing reaches D's optimizer.
+        self._step(self.opt_G, params_g, loss_g_gan + loss_g_l1)
+
+        # ---- EMA (reference train.py:67-77) ----
+        if cfg.ema_enabled:
+            beta = ema_beta(cfg.batch_size, cfg.ema_kimgs, cfg.ema_ramp, cur_nimg)
+            ema_update(self.generator_ema, gen, beta)
+        self.step += 1
+        metrics = {"G_GAN": loss_g_gan, "G_L1": loss_g_l1, "D_real": loss_d_real,
+                   "D_fake": loss_d_fake, "D_r1": loss_r1}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["blur_sigma"] = torch.tensor(sigma)
+        return metrics
+
+    @staticmethod
+    def _step(optimizer, params, loss):
+        """Gradients of ``loss`` w.r.t. ``params`` (zeros where a parameter
+        does not reach the loss, as JAX gives, so every Adam state steps
+        together), NaN/Inf scrubbing, one Adam step."""
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        losses.nan_to_num_grads(params)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+
+    # -- inference -----------------------------------------------------------
 
     def eval_step(self, cond_img, slice_idx, z=None,
                   generator: Optional[torch.Generator] = None):

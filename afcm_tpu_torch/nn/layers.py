@@ -3,8 +3,8 @@
 Weights are stored at ``randn * weight_init / lr_multiplier`` scale and
 multiplied by the equalized gain at call time, as in the JAX package and the
 reference, so ported state_dicts load unchanged. Random initialization draws
-from an explicit ``torch.Generator``. ``MinibatchStdLayer`` and ``CALayer``
-come with the discriminator and CoModGAN slices.
+from an explicit ``torch.Generator``. ``MinibatchStdLayer`` serves the
+discriminator; ``CALayer`` comes with the CoModGAN slice.
 """
 
 from __future__ import annotations
@@ -86,6 +86,27 @@ class Conv2dLayer(nn.Module):
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, None if self.bias is None else self.bias.to(x.dtype),
                         act=self.activation, gain=act_gain, clamp=act_clamp)
+
+
+class MinibatchStdLayer(nn.Module):
+    """Cross-sample stddev feature channel for the discriminator epilogue
+    (``afcm_tpu/nn/layers.py:102-121``)."""
+
+    def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
+        super().__init__()
+        self.group_size = group_size
+        self.num_channels = num_channels
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        g = min(self.group_size, n) if self.group_size is not None else n
+        f = self.num_channels
+        y = x.reshape(g, -1, f, c // f, h, w)
+        y = y - y.mean(dim=0)
+        y = torch.sqrt(torch.square(y).mean(dim=0) + 1e-8)
+        y = y.mean(dim=(2, 3, 4)).reshape(-1, f, 1, 1)
+        y = y.repeat(g, 1, h, w)
+        return torch.cat([x, y.to(x.dtype)], dim=1)
 
 
 def adaptive_avg_pool2d(x, output_size):

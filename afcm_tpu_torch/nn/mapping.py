@@ -1,7 +1,12 @@
 """Latent mapping network (``afcm_tpu/nn/mapping.py``): z-normalize, label
 embed + normalize + concat, lrelu MLP at lr_multiplier 0.01, broadcast to
-``num_ws`` and truncation toward the ``w_avg`` buffer. The w_avg EMA update
-belongs to training and comes with that slice.
+``num_ws`` and truncation toward the ``w_avg`` buffer.
+
+The discriminator's label-only mapper is the same class with ``z_dim`` 0,
+``num_ws`` None and ``w_avg_beta`` None (no ``w_avg`` buffer). Training
+never updates ``w_avg``: the JAX StyleGAN3 train step calls the generator
+without ``update_emas`` (``afcm_tpu/models/gan_model.py:153-156``), so the
+port does not either; the EMA update belongs to the CoModGAN family.
 """
 
 from __future__ import annotations

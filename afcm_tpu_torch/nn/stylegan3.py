@@ -7,7 +7,11 @@ alias-free SynthesisLayers whose affine styles condition on
 ``concat(w, global)``. All geometry (cutoffs, sampling rates, paddings,
 filter taps, skip wiring) is numpy at construction; the taps are plain numpy
 constants, never state. Every layer but toRGB ends in ``filtered_lrelu``,
-which runs kernel K1 on CUDA tensors.
+which runs kernel K1 on CUDA tensors and kernel K2 in their backward.
+
+Training never updates ``magnitude_ema``: the JAX train step calls the
+generator without ``update_emas`` (``afcm_tpu/models/gan_model.py:153-156``),
+so the buffer keeps its initial value of 1, as it does here.
 
 The layout below is a copy of ``afcm_tpu/nn/stylegan3.py:41-202``, which
 cannot be imported without flax; ``tests/test_torch_ops.py`` holds the two
@@ -352,7 +356,11 @@ class SynthesisNetwork(nn.Module):
             self.add_module(f"L{idx}_{spec.out_size}_{spec.out_channels}", layer)
             self.decoders.append(layer)
 
-    def forward(self, ws, img_in, train: bool = False):
+    def forward(self, ws, img_in, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``train`` turns on the co-modulation dropout, whose keep-mask is
+        drawn from ``generator`` (a ``torch.Generator`` on the device of
+        ``img_in``)."""
         layout = self.layout
         assert ws.shape[1:] == (self.num_ws, self.w_dim)
         ws = ws.float()
@@ -369,7 +377,7 @@ class SynthesisNetwork(nn.Module):
         # Global co-modulation head (reference: networks_stylegan3.py:635-638, 682-686).
         pooled = adaptive_avg_pool2d(self.e_16x16(x), (4, 4))
         pooled = self.fc_in(pooled.reshape(pooled.shape[0], -1).float())
-        img_global = F.dropout(pooled, p=self.dropout_rate, training=train)
+        img_global = self.dropout(pooled, train, generator)
 
         for idx, (layer, skip_key) in enumerate(zip(self.decoders,
                                                     layout.decoder_skips)):
@@ -381,6 +389,26 @@ class SynthesisNetwork(nn.Module):
         assert x.shape[1:] == (self.img_channels_out, self.img_resolution,
                                self.img_resolution)
         return x.float()
+
+    def dropout(self, x, train: bool, generator: Optional[torch.Generator],
+                keep_mask: Optional[torch.Tensor] = None):
+        """flax ``nn.Dropout`` (``afcm_tpu/nn/stylegan3.py:487``): keep with
+        probability 1 - rate, scale the kept values by 1 / (1 - rate). The
+        mask is ``keep_mask`` when given (the tests pass flax's), else drawn
+        from an explicit generator, never the global RNG, so a train step is
+        reproducible from its seed."""
+        rate = self.dropout_rate
+        if not train or rate == 0:
+            return x
+        if rate >= 1:
+            return torch.zeros_like(x)
+        if keep_mask is None:
+            if generator is None:
+                raise ValueError("train-mode dropout needs a generator or a "
+                                 "keep_mask")
+            keep_mask = torch.rand(x.shape, generator=generator,
+                                   device=x.device) < 1 - rate
+        return torch.where(keep_mask, x / (1 - rate), torch.zeros_like(x))
 
 
 class Stylegan3Generator(nn.Module):
@@ -403,7 +431,8 @@ class Stylegan3Generator(nn.Module):
             num_ws=self.synthesis.num_ws, generator=generator, **mapping_kwargs)
 
     def forward(self, z, c, cond_img, truncation_psi: float = 1.0,
-                truncation_cutoff=None, train: bool = False):
+                truncation_cutoff=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         ws = self.mapping(z, c, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
-        return self.synthesis(ws, cond_img, train=train)
+        return self.synthesis(ws, cond_img, train=train, generator=generator)

@@ -1,7 +1,8 @@
 """Signal-processing ops of the alias-free compute path (``afcm_tpu/ops``).
 
 Plain torch for the elementwise, FIR and conv ops; the fused filtered leaky
-ReLU runs kernel K1 (``ops/cuda``, sources in ``csrc/``) on CUDA tensors.
+ReLU runs kernel K1 (``ops/cuda``, sources in ``csrc/``) on CUDA tensors,
+and kernel K2 in its backward.
 """
 
 from .bias_act import activation_funcs, bias_act
@@ -9,10 +10,10 @@ from .conv2d_resample import conv2d_resample
 from .filter_design import design_lowpass_filter, filter_size, setup_filter
 from .filtered_lrelu import filtered_lrelu
 from .modulated_conv import conv2d, modulated_conv2d
-from .upfirdn2d import upfirdn2d
+from .upfirdn2d import gaussian_blur2d, upfirdn2d
 
 __all__ = [
     "activation_funcs", "bias_act", "conv2d", "conv2d_resample",
-    "design_lowpass_filter", "filter_size", "filtered_lrelu",
+    "design_lowpass_filter", "filter_size", "filtered_lrelu", "gaussian_blur2d",
     "modulated_conv2d", "setup_filter", "upfirdn2d",
 ]

@@ -7,8 +7,7 @@ upfirdn(f, down), with the reference's padding arithmetic
 
 from __future__ import annotations
 
-import torch.nn.functional as F
-
+from . import conv2d_gradfix
 from .filter_design import filter_size
 from .modulated_conv import conv2d
 from .upfirdn2d import parse_padding, upfirdn2d
@@ -39,7 +38,7 @@ def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
         x = upfirdn2d(x, f, padding=[px0, px1, py0, py1], flip_filter=flip_filter)
         if not flip_weight and (w.shape[2] > 1 or w.shape[3] > 1):
             w = w.flip([2, 3])
-        return F.conv2d(x, w.to(x.dtype), stride=down, groups=groups)
+        return conv2d_gradfix.conv2d(x, w.to(x.dtype), stride=down, groups=groups)
 
     x = upfirdn2d(x, f if up > 1 else None, up=up,
                   padding=[px0, px1, py0, py1], gain=up ** 2,

@@ -2,8 +2,10 @@
 (``afcm_tpu/ops/filtered_lrelu.py:105-162``).
 
 Dispatch is by device, not by a routing table: a CPU tensor takes the plain
-composition, a CUDA tensor takes kernel K1 (``ops/cuda/filtered_lrelu.py``),
-which raises on anything it cannot run rather than falling back.
+composition (and autograd's backward of it), a CUDA tensor takes the
+autograd Function of ``ops/cuda/filtered_lrelu.py`` (kernel K1 forward,
+kernel K2 backward) whether or not grad is enabled; it raises on anything
+the kernels cannot run rather than falling back.
 """
 
 from __future__ import annotations

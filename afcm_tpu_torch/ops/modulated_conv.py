@@ -1,7 +1,8 @@
 """Plain and style-modulated convolutions (``afcm_tpu/ops/modulated_conv.py``).
 
-The 3x3 convs stay on ``F.conv2d``, as the JAX package leaves them to
-``lax.conv`` outside any Pallas kernel. ``modulated_conv2d`` keeps the JAX
+The 3x3 convs stay on cuDNN (``F.conv2d`` through ``conv2d_gradfix``, whose
+derivatives are convs too), as the JAX package leaves them to ``lax.conv``
+outside any Pallas kernel. ``modulated_conv2d`` keeps the JAX
 package's scale-activations factorization (reference: the
 ``fused_modconv=False`` path), with demodulation computed without
 materializing per-sample weights:
@@ -17,7 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from . import conv2d_gradfix
 
 
 def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True):
@@ -29,7 +31,7 @@ def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True):
         padding = (int(padding[0]), int(padding[1]))
     if not flip_weight and (w.shape[2] > 1 or w.shape[3] > 1):
         w = w.flip([2, 3])
-    return F.conv2d(x, w.to(x.dtype), padding=padding, groups=groups)
+    return conv2d_gradfix.conv2d(x, w.to(x.dtype), padding=padding, groups=groups)
 
 
 def modulated_conv2d(x, w, s, demodulate: bool = True, padding=0,

@@ -3,10 +3,19 @@
 The forward conv path of ``afcm_tpu/ops/upfirdn2d.py`` (``:148-214``) in
 plain torch. ``lax.conv_general_dilated`` upsamples with ``lhs_dilation``,
 which ``F.conv2d`` lacks, so the port zero-stuffs explicitly; each
-separable pass is one depthwise ``F.conv2d(groups=C)``.
+separable pass is one depthwise conv (``depthwise_conv2d``).
+
+``gaussian_blur2d`` (``:306-333``) is the training blur fade on the
+discriminator's inputs and the L1 targets.
 
 Not ported: the banded-matmul route (``:110-145``, ``:176-181``), which is
-TPU routing, and the custom VJP, which serves training.
+TPU routing, and the custom VJP (``:217-270``). That VJP exists to keep the
+TPU compiler from lowering the transposed strided convs through data
+reversals (``:223-229``); torch autograd computes the same transpose. The
+depthwise convs go through ``conv2d_gradfix`` instead, for a reason of
+PyTorch's own: R1 differentiates the discriminator's resampling and the blur
+twice, and autograd's double backward of a grouped conv runs one conv per
+channel.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import conv2d_gradfix
 from .filter_design import filter_size
 
 
@@ -60,14 +70,17 @@ def _zero_stuff(x, up: int, axis: int):
     return out
 
 
-def _depthwise_fir(x, taps, *, stride):
-    """Depthwise correlation of every channel with ``taps`` (2-D numpy)."""
+def depthwise_conv2d(x, taps, stride=(1, 1), padding=(0, 0)):
+    """Correlate every channel of NCHW ``x`` with the 2-D ``taps`` (a tensor
+    or numpy array, never trained) through ``conv2d_gradfix``."""
     channels = x.shape[1]
     # copy(): a reversed 1x1 view keeps its negative strides through
     # np.ascontiguousarray, which torch rejects.
-    weight = torch.as_tensor(taps.copy(), dtype=x.dtype, device=x.device)
-    weight = weight[None, None].expand(channels, 1, *taps.shape)
-    return F.conv2d(x, weight, stride=stride, groups=channels)
+    taps = taps.copy() if isinstance(taps, np.ndarray) else taps.detach()
+    weight = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
+    weight = weight[None, None].expand(channels, 1, *taps.shape).contiguous()
+    return conv2d_gradfix.conv2d(x, weight, stride=stride, padding=padding,
+                                 groups=channels)
 
 
 def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
@@ -110,10 +123,28 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
         # own axis (zero rows from the H upsample commute with the W FIR).
         x = _zero_stuff(x, upx, 3)
         x = F.pad(x, (px0, px1, 0, 0))              # negative pads crop
-        x = _depthwise_fir(x, f[None, :], stride=(1, downx))
+        x = depthwise_conv2d(x, f[None, :], stride=(1, downx))
         x = _zero_stuff(x, upy, 2)
         x = F.pad(x, (0, 0, py0, py1))
-        return _depthwise_fir(x, f[:, None], stride=(downy, 1))
+        return depthwise_conv2d(x, f[:, None], stride=(downy, 1))
     x = _zero_stuff(_zero_stuff(x, upx, 3), upy, 2)
     x = F.pad(x, (px0, px1, py0, py1))
-    return _depthwise_fir(x, f, stride=(downy, downx))
+    return depthwise_conv2d(x, f, stride=(downy, downx))
+
+
+def gaussian_blur2d(x, sigma, max_radius: int):
+    """Gaussian blur of NCHW images with a tensor (or float) ``sigma`` under
+    the static footprint ``2 * max_radius + 1``: the taps beyond
+    ``floor(3 * sigma)`` are zero, which equals the reference's filter of
+    size ``2 * floor(3 * sigma) + 1`` and is the identity for sigma < 1/3
+    (``afcm_tpu/ops/upfirdn2d.py:306-333``). Differentiable in ``x`` to any
+    order (R1 differentiates through it)."""
+    t = torch.arange(-max_radius, max_radius + 1, dtype=torch.float32,
+                     device=x.device)
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+    blur_size = torch.floor(sigma * 3.0)
+    taps = torch.exp2(-torch.square(t / torch.clamp(sigma, min=1e-8)))
+    taps = torch.where(t.abs() <= blur_size, taps, torch.zeros_like(taps))
+    taps = taps / taps.sum()
+    x = depthwise_conv2d(x, taps[None, :], padding=(0, max_radius))
+    return depthwise_conv2d(x, taps[:, None], padding=(max_radius, 0))

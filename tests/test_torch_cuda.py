@@ -1,4 +1,5 @@
-"""Kernel K1 on the card: the CUDA filtered_lrelu against its plain version.
+"""Kernels K1 and K2 on the card: the CUDA filtered_lrelu forward and
+backward against their plain versions.
 
 Marked ``cuda``; every test skips without a CUDA device (the CPU tests hold
 the plain version against the JAX package in tests/test_torch_ops.py at
@@ -8,7 +9,11 @@ held against the JAX package's own composition,
 tests skip where jax is not installed.
 Run on the GPU machine with ``python -m pytest tests/test_torch_cuda.py``.
 Tolerances: fp32 atol/rtol 1e-4 (tests/test_pallas_mxu.py:56-57), with TF32
-off; bf16 PSNR >= 38 dB against the fp32 plain version (:104-126).
+off; bf16 PSNR >= 38 dB against the fp32 plain version (:104-126). K2's
+fp32 gradients are held at the same 1e-4, scaled by the largest gradient
+at the full-size shapes, where a 24-tap filter sums many terms. The last
+test holds ``ops.conv2d_gradfix`` (the discriminator's convs under R1) to
+F.conv2d's own autograd on cuDNN at the same 1e-4.
 """
 
 import os
@@ -132,14 +137,77 @@ def test_dispatch_sends_cuda_tensors_to_the_kernel(cuda):
     assert k1.launches == launches + 1
 
 
-def test_kernel_raises_under_autograd_and_on_bad_input(cuda):
+def test_kernel_raises_on_bad_input(cuda):
     x, b, kw = _case(CASES["A_u2d2"], cuda)
-    with pytest.raises(NotImplementedError, match="B2"):
-        k1.filtered_lrelu_cuda(x.requires_grad_(), b=b, **kw)
     with pytest.raises(ValueError, match="contiguous"):
-        k1.filtered_lrelu_cuda(x.detach().transpose(2, 3), b=b, **kw)
+        k1.filtered_lrelu_cuda(x.transpose(2, 3), b=b, **kw)
     with pytest.raises(ValueError, match="bias"):
-        k1.filtered_lrelu_cuda(x.detach(), b=b[:1], **kw)
+        k1.filtered_lrelu_cuda(x, b=b[:1], **kw)
+    y = k1.filtered_lrelu_cuda(x, b=b, **kw)
+    for fn, args in ((k1.filtered_lrelu_cuda, (x.cpu(),)),
+                     (k1.filtered_lrelu_bwd_cuda, (x.cpu(), y.cpu()))):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(*args, b=b.cpu(), **kw)
+    with pytest.raises(NotImplementedError, match="separable"):
+        k1.filtered_lrelu_bwd_cuda(x, y, b=b, **dict(kw, fd=np.ones((3, 3))))
+    with pytest.raises(ValueError, match="taps"):
+        k1.filtered_lrelu_bwd_cuda(x, y, b=b, **dict(kw, fu=np.ones(65)))
+    with pytest.raises(ValueError, match="dy of shape"):
+        k1.filtered_lrelu_bwd_cuda(x, y[:, :, 1:], b=b, **kw)
+
+
+def _bwd_case(name, device, seed=0):
+    x, b, kw = _case(CASES[name], device, seed)
+    y = k1.filtered_lrelu_plain(x, b=b, **kw)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn(y.shape, generator=gen, device=device)
+    return x, b, dy, kw
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bwd_kernel_matches_plain_fp32(cuda, name):
+    x, b, dy, kw = _bwd_case(name, cuda)
+    want_dx, want_db = k1.filtered_lrelu_bwd_plain(x, dy, b=b, **kw)
+    launches = k1.bwd_launches
+    dx, db = k1.filtered_lrelu_bwd_cuda(x, dy, b=b, **kw)
+    torch.cuda.synchronize()
+    assert k1.bwd_launches == launches + 1
+    assert dx.shape == x.shape and dx.dtype == torch.float32
+    np.testing.assert_allclose(dx.cpu().numpy(), want_dx.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    if b is None:
+        assert db is None
+    else:
+        np.testing.assert_allclose(db.cpu().numpy(), want_db.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["A_u2d2", "B_u2d4", "C_u4d2", "D_crop"])
+def test_bwd_kernel_bf16_psnr(cuda, name):
+    x, b, dy, kw = _bwd_case(name, cuda)
+    want, _ = k1.filtered_lrelu_bwd_plain(x, dy, b=b, **kw)
+    got, _ = k1.filtered_lrelu_bwd_cuda(x.bfloat16(), dy.bfloat16(),
+                                        b=b.bfloat16(), **kw)
+    assert got.dtype == torch.bfloat16
+    assert _psnr(got, want) >= 38
+
+
+def test_autograd_runs_k2(cuda):
+    """Under autograd the dispatch runs K1 forward and K2 backward, never
+    the plain backward, and takes a strided output gradient."""
+    x, b, dy, kw = _bwd_case("B_u2d4", cuda)
+    want_dx, want_db = k1.filtered_lrelu_bwd_plain(x, dy, b=b, **kw)
+    xg, bg = x.clone().requires_grad_(), b.clone().requires_grad_()
+    fwd, bwd = k1.launches, k1.bwd_launches
+    y = filtered_lrelu(xg, b=bg, **kw)
+    strided = dy.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous()
+    dx, db = torch.autograd.grad(y, (xg, bg), strided)
+    assert (k1.launches, k1.bwd_launches) == (fwd + 1, bwd + 1)
+    np.testing.assert_allclose(dx.cpu().numpy(), want_dx.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(db.cpu().numpy(), want_db.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("variant", sorted(FULL_SIZE))
@@ -169,3 +237,75 @@ def test_kernel_matches_jax_full_size(jax_ops, shipped_synthesis, cuda, variant)
     print(f"{variant}: max|diff| {np.abs(got - want).max():.3g}, "
           f"max|ref| {np.abs(want).max():.3g}")        # shown by pytest -rP
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("variant", sorted(FULL_SIZE))
+def test_bwd_kernel_matches_jax_full_size(jax_ops, shipped_synthesis, cuda,
+                                          variant):
+    """K2 against jax.vjp of afcm_tpu.ops.filtered_lrelu(impl="xla") on the
+    same numpy inputs at a full-size layer shape, batch 2."""
+    jax, ops = jax_ops
+    side, idx = FULL_SIZE[variant]
+    layer = getattr(shipped_synthesis, side + "s")[idx]
+    spec = layer.spec
+    rng = np.random.RandomState(1)
+    size = spec.in_size + 2
+    x = rng.randn(2, spec.out_channels, size, size).astype(np.float32)
+    b = rng.randn(spec.out_channels).astype(np.float32)
+    dy = rng.randn(2, spec.out_channels, spec.out_size,
+                   spec.out_size).astype(np.float32)
+    kw = dict(fu=layer.up_filter, fd=layer.down_filter, up=layer.up,
+              down=layer.down, padding=layer.padding, gain=float(np.sqrt(2)),
+              slope=0.2, clamp=layer.conv_clamp)
+    with jax.default_device(jax.devices("cpu")[0]), \
+            jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda x, b: ops.filtered_lrelu(
+            x, b=b, impl="xla", **kw), x, b)
+        want_dx, want_db = (np.asarray(g) for g in jax.jit(vjp)(dy))
+    dx, db = k1.filtered_lrelu_bwd_cuda(
+        torch.from_numpy(x).to(cuda), torch.from_numpy(dy).to(cuda),
+        b=torch.from_numpy(b).to(cuda), **kw)
+    # Where the pre-activation is within rounding of the kink, JAX's and the
+    # kernel's slopes may differ (slope_ambiguous); those pixels are counted
+    # and their dx, and their share of db, taken from the kernel.
+    ok = ~k1.slope_ambiguous(torch.from_numpy(x).to(cuda),
+                             b=torch.from_numpy(b).to(cuda), **{
+                                 k: v for k, v in kw.items()
+                                 if k not in ("fd", "down")}).cpu().numpy()
+    dx, db = dx.cpu().numpy(), db.cpu().numpy()
+    want_db = want_db + np.where(ok, 0, dx - want_dx).sum((0, 2, 3))
+    print(f"{variant}: dx max|diff| {np.abs(dx - want_dx)[ok].max():.3g} "
+          f"(all: {np.abs(dx - want_dx).max():.3g}, {int((~ok).sum())} pixels "
+          f"at the kink), max|ref| {np.abs(want_dx).max():.3g}; db max|diff| "
+          f"{np.abs(db - want_db).max():.3g}, max|ref| {np.abs(want_db).max():.3g}")
+    assert ok.mean() > 0.95
+    np.testing.assert_allclose(dx[ok], want_dx[ok], rtol=1e-4,
+                               atol=1e-4 * np.abs(want_dx).max())
+    np.testing.assert_allclose(db, want_db, rtol=1e-4,
+                               atol=1e-4 * np.abs(want_db).max())
+
+
+@pytest.mark.parametrize("groups,stride,kernel", [
+    (1, 1, (3, 3)),          # D's conv0
+    (1, 2, (3, 3)),          # D's conv1 after its FIR
+    (64, 2, (1, 4)),         # a FIR pass of D's resampling, constant taps
+])
+def test_conv2d_gradfix_matches_autograd(cuda, groups, stride, kernel):
+    """ops.conv2d_gradfix on cuDNN against F.conv2d's own autograd, fp32
+    with TF32 off, at a discriminator-sized conv: the value, R1's input
+    gradient and its second-order gradients w.r.t. x and the weight."""
+    from afcm_tpu_torch.ops import conv2d_gradfix
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((4, 64, 128, 128), generator=gen, device=cuda)
+    w = torch.randn((64, 64 // groups, *kernel), generator=gen, device=cuda)
+    x.requires_grad_(True)
+    inputs = (x, w.requires_grad_(True)) if groups == 1 else (x,)
+    padding = (kernel[0] // 2, kernel[1] // 2) if stride == 1 else (0, 0)
+    results = []
+    for conv in (torch.nn.functional.conv2d, conv2d_gradfix.conv2d):
+        y = conv(x, w, stride=stride, padding=padding, groups=groups)
+        (dx,) = torch.autograd.grad(torch.tanh(y).sum(), x, create_graph=True)
+        results.append((y, dx, *torch.autograd.grad(dx.square().sum(), inputs)))
+    for got, want in zip(results[1], results[0]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)

@@ -22,7 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from afcm_tpu.models import build_generator as jax_build_generator  # noqa: E402
 from afcm_tpu.nn import Stylegan3Generator as JaxGenerator  # noqa: E402
 from afcm_tpu.utils.port import variables_to_state_dict  # noqa: E402
-from afcm_tpu_torch.models import (CMSR_ADNI_G, build_gan_model,  # noqa: E402
+from afcm_tpu_torch.models import (CMSR_ADNI_G, build_eval_model,  # noqa: E402
                                    build_generator)
 from afcm_tpu_torch.nn import Stylegan3Generator  # noqa: E402
 from afcm_tpu_torch.utils.port import load_jax_variables  # noqa: E402
@@ -132,7 +132,7 @@ def test_build_gan_model_eval_step(tiny):
     """eval_step: c from slice_idx, z drawn from an explicit generator."""
     jgen, variables = tiny
     _, c, cond = _inputs()
-    model = build_gan_model({"netG": "stylegan3", **TINY})
+    model = build_eval_model({"netG": "stylegan3", **TINY})
     load_jax_variables(model.generator_ema, variables)
     z = torch.randn((2, 32), generator=torch.Generator().manual_seed(3))
     got = model.eval_step(torch.from_numpy(cond), torch.from_numpy(c),

@@ -24,7 +24,7 @@ from afcm_tpu.nn import Stylegan3Generator as JaxGenerator  # noqa: E402
 from afcm_tpu_torch.data.demo import phantom_test_loader  # noqa: E402
 from afcm_tpu_torch.evaluate import (DeviceResult, make_forward_fn,  # noqa: E402
                                      serve_and_score)
-from afcm_tpu_torch.models import build_gan_model  # noqa: E402
+from afcm_tpu_torch.models import build_eval_model  # noqa: E402
 from afcm_tpu_torch.utils.port import load_jax_variables  # noqa: E402
 
 torch.set_num_threads(1)
@@ -49,7 +49,7 @@ def weights():
     variables = jax.tree.map(np.asarray, jgen.init(
         jax.random.PRNGKey(0), np.zeros((1, 32), np.float32),
         np.zeros((1, 1), np.float32), cond))
-    model = build_gan_model({"netG": "stylegan3", **GEN})
+    model = build_eval_model({"netG": "stylegan3", **GEN})
     load_jax_variables(model.generator_ema, variables)
     return jgen, variables, model
 
@@ -147,7 +147,10 @@ def test_port_imports_without_jax():
         "    afcm_tpu_torch.__path__, 'afcm_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert 'afcm_tpu_torch.evaluate' in names, names\n"
+        "for name in ('evaluate', 'train', 'nn.discriminator', 'models.losses',\n"
+        "             'models.train_state', 'models.schedulers',\n"
+        "             'ops.conv2d_gradfix', 'utils.checkpoint', 'data.demo'):\n"
+        "    assert 'afcm_tpu_torch.' + name in names, names\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
@@ -155,7 +158,7 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 23
 
 
 def test_evaluate_cli_writes_scores(tmp_path):
@@ -174,8 +177,8 @@ def test_evaluate_cli_writes_scores(tmp_path):
             "loaders.test.file_paths", f"['{tmp_path}/data/test']",
             "checkpoints_dir", str(tmp_path / "checkpoints")]
     cfg = default_argument_parser([a for a in argv if a not in ("--device", "cpu")])
-    model = build_gan_model(dict(cfg.model.G),
-                            generator=torch.Generator().manual_seed(0))
+    model = build_eval_model(dict(cfg.model.G),
+                             generator=torch.Generator().manual_seed(0))
     run_dir = tmp_path / "checkpoints" / "demo_tiny"
     run_dir.mkdir(parents=True)
     torch.save(model.generator_ema.state_dict(), run_dir / "latest_net_G_ema.pth")
