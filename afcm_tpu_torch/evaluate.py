@@ -1,13 +1,15 @@
 """Evaluation entry point of the port (``afcm_tpu/evaluate.py:131-354``).
 
     python -m afcm_tpu_torch.evaluate --config-file configs/adni/stylegan3/cmsr.yml \
-        [--device cuda] [epoch latest] [KEY VALUE ...]
+        [--device cpu] [epoch latest] [KEY VALUE ...]
 
 Loads ``<checkpoints_dir>/<name>/<tag>_net_G_ema.pth`` (a torch state_dict
 under the reference's file naming), runs the patch-stitched predictor per
 test subject with the EMA generator on the device, and reports 3-D and
-per-slice PSNR/SSIM into ``evaluate.txt``. The config, data pipeline,
-predictor and metrics are ``afcm_tpu``'s own framework-free code.
+per-slice PSNR/SSIM into ``evaluate.txt``. It runs on the CUDA device and
+raises when there is none, unless ``--device cpu`` asks for the CPU (where
+every kernel's plain version runs). ``tpu.conv_int8 True`` routes the gated
+3x3 convs through the int8 conv kernel (``ops/cuda/conv_int8.py``).
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from afcm_tpu.data import get_test_loaders
-from afcm_tpu.infer.predictor import StandardPredictor, subject_id
-from afcm_tpu.utils.metrics import evaluate_3D, evaluate_slice
-from afcm_tpu.utils.nifti import read_nifti, write_nifti
-
+from .data import get_test_loaders
+from .data.h5_dataset import _is_standard_pipeline
+from .infer.predictor import StandardPredictor, subject_id
 from .models import GANModel, build_eval_model
+from .ops.modulated_conv import set_conv_impl
+from .utils.metrics import evaluate_3D, evaluate_slice
+from .utils.nifti import read_nifti, write_nifti
 
 
 def normalize_uint8(a, lo: float, hi: float):
@@ -109,15 +112,29 @@ def set_matmul_precision(compute_dtype: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA device when none is named. The port runs on
+    the card: without one it raises unless the caller asked for the CPU."""
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("torch sees no CUDA device; pass --device cpu to "
+                           "run on the CPU")
+    return device
+
+
 def configure_numerics(cfg) -> str:
-    """Check the config's device knobs, set the matmul precision of
-    ``tpu.compute_dtype`` and return it."""
-    if getattr(cfg.tpu, "conv_int8", False):
-        raise NotImplementedError("tpu.conv_int8: the int8 conv kernel is not "
-                                  "ported yet (ROADMAP items B3/B4)")
+    """Check the config's device knobs, set the conv implementation from
+    ``tpu.conv_int8`` (``afcm_tpu/evaluate.py:138-142``) and the matmul
+    precision of ``tpu.compute_dtype``, and return the compute dtype."""
     if getattr(cfg.tpu, "fetch_dtype", "float32") not in (None, "float32"):
         raise NotImplementedError("tpu.fetch_dtype bfloat16 is not ported yet "
                                   "(ROADMAP item A5)")
+    if getattr(cfg.tpu, "conv_int8", False):
+        set_conv_impl("int8", getattr(cfg.tpu, "conv_int8_variant", "dots"),
+                      getattr(cfg.tpu, "conv_int8_min_ch", 64))
+        print("conv: int8 kernel routing enabled")
+    else:
+        set_conv_impl("xla")
     compute_dtype = cfg.tpu.compute_dtype
     set_matmul_precision(compute_dtype)
     if compute_dtype == "float32":
@@ -131,7 +148,6 @@ def pipeline_norm_range(cfg):
     (``afcm_tpu/evaluate.py:72-83``)."""
     if getattr(cfg.tpu, "transfer_dtype", "float32") != "uint8":
         return None
-    from afcm_tpu.data.h5_dataset import _is_standard_pipeline
     return _is_standard_pipeline(cfg.loaders.test.transformer.raw)
 
 
@@ -220,15 +236,11 @@ def serve_and_score(forward_fn, loaders, out_path: str, modality: str,
 
 
 def main(argv=None):
-    # The config layer needs yaml; only this CLI imports it.
-    from afcm_tpu.config import default_argument_parser
-    from afcm_tpu.config.config import pop_flag
+    # The config layer needs yaml; only the CLIs import it.
+    from .config import default_argument_parser, pop_flag
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = torch.device(pop_flag(argv, "--device") or
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device")
+    device = resolve_device(pop_flag(argv, "--device"))
     cfg = default_argument_parser(argv)
     print(cfg.dump())
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
@@ -237,20 +249,24 @@ def main(argv=None):
         raise NotImplementedError(f"model {cfg.model.name} is not ported yet "
                                   "(ROADMAP items A10-A11)")
     compute_dtype = configure_numerics(cfg)
+    try:
+        model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
+        run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
+        load_generator_ema(model, run_dir, checkpoint_tag(cfg))
+        model.generator_ema.to(device)  # the weights move to the device once
 
-    model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
-    run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
-    load_generator_ema(model, run_dir, checkpoint_tag(cfg))
-    model.generator_ema.to(device)      # the weights move to the device once
+        out_path = os.path.join(run_dir, "evaluate")
+        os.makedirs(out_path, exist_ok=True)
+        forward = make_forward_fn(model, device,
+                                  norm_range=pipeline_norm_range(cfg),
+                                  eval_z=getattr(cfg.tpu, "eval_z", "per-batch"))
+        return serve_and_score(forward, get_test_loaders(cfg), out_path,
+                               cfg.loaders.raw_internal_path_out[-1], config=cfg,
+                               patch_halo=cfg.predictor.patch_halo,
+                               ori_file_path=cfg.loaders.test.ori_file_path)
+    finally:
+        set_conv_impl("xla")    # the knob is this run's, not the process's
 
-    out_path = os.path.join(run_dir, "evaluate")
-    os.makedirs(out_path, exist_ok=True)
-    forward = make_forward_fn(model, device, norm_range=pipeline_norm_range(cfg),
-                              eval_z=getattr(cfg.tpu, "eval_z", "per-batch"))
-    return serve_and_score(forward, get_test_loaders(cfg), out_path,
-                           cfg.loaders.raw_internal_path_out[-1], config=cfg,
-                           patch_halo=cfg.predictor.patch_halo,
-                           ori_file_path=cfg.loaders.test.ori_file_path)
 
 if __name__ == "__main__":
     main()

@@ -1,8 +1,11 @@
 """Plain and style-modulated convolutions (``afcm_tpu/ops/modulated_conv.py``).
 
-The 3x3 convs stay on cuDNN (``F.conv2d`` through ``conv2d_gradfix``, whose
-derivatives are convs too), as the JAX package leaves them to ``lax.conv``
-outside any Pallas kernel. ``modulated_conv2d`` keeps the JAX
+The convs run on cuDNN (``F.conv2d`` through ``conv2d_gradfix``, whose
+derivatives are convs too), as the JAX package leaves them to ``lax.conv``,
+unless ``set_conv_impl`` routes the eligible 3x3 convs to the int8 conv
+kernel (``ops/cuda/conv_int8.py``, kernels K3 and K4), as
+``afcm_tpu/ops/modulated_conv.py:99-102,122-143`` routes them to its Pallas
+kernel. ``modulated_conv2d`` keeps the JAX
 package's scale-activations factorization (reference: the
 ``fused_modconv=False`` path), with demodulation computed without
 materializing per-sample weights:
@@ -10,8 +13,9 @@ materializing per-sample weights:
     conv(x, w * s[n,i] * d[n,o])  ==  d[n,o] * conv(x * s[n,i], w)
     d[n,o] = rsqrt( (s^2)[n,:] @ (sum_k w^2)[:, o] + 1e-8 )
 
-Not ported: the lane channel-pad (``:104-118``, TPU layout) and the int8
-route (``:99-102``, ``:122-143``; ROADMAP items B3/B4).
+Not ported: the lane channel-pad (``:104-118``, TPU layout). The int8 route
+has no backend test and no force hook: dispatch is by the tensor's device
+(a CPU tensor takes the kernel's plain version).
 """
 
 from __future__ import annotations
@@ -20,6 +24,44 @@ import numpy as np
 import torch
 
 from . import conv2d_gradfix
+from .cuda.conv_int8 import conv3x3_int8_ste, int8_routable
+
+# Quantized inference path: 'int8' routes the 3x3 convs of the gate below to
+# the int8 conv kernel; 'int8_all' routes every eligible conv (experiments);
+# 'xla' is the float conv (the name the shared configs and docs use for it).
+# Training is safe under int8 (straight-through fp32 backward), but the knob
+# is meant for inference and only the evaluate CLI sets it.
+_CONV_IMPL = "xla"
+_CONV_INT8_MIN_CH = 64
+
+
+def _int8_gate(x_shape, w_shape) -> bool:
+    """Which convs mode 'int8' quantizes: the small-spatial big-channel
+    class, ``min(O, I) >= 256 and H <= 56``. It is the JAX package's
+    predicate (``afcm_tpu/ops/modulated_conv.py:46-54``) kept as it is,
+    because the gate decides which layers are quantized and with them the
+    output under a given config."""
+    o, i = int(w_shape[0]), int(w_shape[1])
+    return min(o, i) >= 256 and int(x_shape[2]) <= 56
+
+
+def set_conv_impl(impl: str, variant: str = None, min_ch: int = None):
+    """Select the conv implementation: 'xla' (default, the float conv),
+    'int8' (the gate above) or 'int8_all' (every eligible conv). ``variant``
+    ('dots' | 'im2col') names an inner loop of the TPU kernel; the port has
+    one kernel, checks the value and computes the same either way."""
+    global _CONV_IMPL, _CONV_INT8_MIN_CH
+    if impl not in ("xla", "int8", "int8_all"):
+        raise ValueError(f"conv impl {impl!r}")
+    _CONV_IMPL = impl
+    if variant not in (None, "dots", "im2col"):
+        raise ValueError(f"conv_int8 variant {variant!r}")
+    if min_ch is not None:
+        _CONV_INT8_MIN_CH = int(min_ch)
+
+
+def get_conv_impl() -> str:
+    return _CONV_IMPL
 
 
 def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True):
@@ -31,7 +73,29 @@ def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True):
         padding = (int(padding[0]), int(padding[1]))
     if not flip_weight and (w.shape[2] > 1 or w.shape[3] > 1):
         w = w.flip([2, 3])
+    if _CONV_IMPL in ("int8", "int8_all") and groups == 1:
+        y = _try_conv_int8(x, w, padding)
+        if y is not None:
+            return y
     return conv2d_gradfix.conv2d(x, w.to(x.dtype), padding=padding, groups=groups)
+
+
+def _try_conv_int8(x, w, padding):
+    """Route an eligible conv to the int8 conv kernel, else None.
+
+    Eligibility is static, as in the JAX package: equal padding 0..2 on
+    both axes, a 3x3 kernel on a square input, channels at or above the
+    routing floor, and the gate under mode 'int8'. A conv that is eligible
+    runs the kernel or raises; nothing declines because the kernel failed."""
+    if padding[0] != padding[1]:
+        return None
+    if min(w.shape[0], w.shape[1]) < _CONV_INT8_MIN_CH:
+        return None
+    if _CONV_IMPL == "int8" and not _int8_gate(x.shape, w.shape):
+        return None
+    if not int8_routable(x.shape, w.shape, padding[0]):
+        return None
+    return conv3x3_int8_ste(x, w.float(), padding[0]).to(x.dtype)
 
 
 def modulated_conv2d(x, w, s, demodulate: bool = True, padding=0,

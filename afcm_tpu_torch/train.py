@@ -1,14 +1,15 @@
 """Training entry point of the port (``afcm_tpu/train.py``).
 
     python -m afcm_tpu_torch.train --config-file configs/adni/stylegan3/cmsr.yml \
-        [--device cuda] [KEY VALUE ...]
+        [--device cpu] [KEY VALUE ...]
 
 The loop of ``afcm_tpu/train.py:76-229``: epochs with the per-epoch LR
 factor, one ``GANModel.train_step`` per batch (lazy R1 chosen on the host),
 periodic loss printing, periodic validation (PSNR/SSIM) with best-by-SSIM
 checkpoints, ``max_iters`` (in images, as there) and, at the end,
-``latest_net_G_ema.pth`` for ``afcm_tpu_torch.evaluate``. The config, data
-loaders, metrics and visualizer are ``afcm_tpu``'s framework-free code.
+``latest_net_G_ema.pth`` for ``afcm_tpu_torch.evaluate``. It runs on the
+CUDA device and raises when there is none, unless ``--device cpu`` asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -22,13 +23,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from afcm_tpu.utils.metrics import evaluate_2D
-from afcm_tpu.utils.visualizer import Visualizer
-
-from .evaluate import set_matmul_precision
+from .data import get_train_loaders
+from .evaluate import resolve_device, set_matmul_precision
 from .models import GANModel, build_gan_model
 from .models.schedulers import LRScheduler
 from .utils import checkpoint as ckpt
+from .utils.metrics import evaluate_2D
+from .utils.visualizer import Visualizer
 
 
 def _slice_idx_of(batch) -> np.ndarray:
@@ -67,21 +68,12 @@ def validate(model: GANModel, val_loader, device,
     return {"psnr": float(np.mean(c_psnr)), "ssim": float(np.mean(c_ssim))}
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` (default: cuda when torch sees a card, else cpu); asking
-    for cuda without a card raises rather than running on the CPU."""
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but torch sees no CUDA device")
-    return device
-
-
 def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
           on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None
           ) -> Dict[str, float]:
     """Train the model of ``cfg``; returns the last validation scores.
 
-    ``loaders`` replaces ``afcm_tpu.data.get_train_loaders(cfg)`` (a
+    ``loaders`` replaces ``data.get_train_loaders(cfg)`` (a
     ``{"train", "val"}`` dict, e.g. ``data.demo.phantom_train_loaders``);
     ``on_step(step, metrics)`` is called after every train step, with the
     step's losses still on the device."""
@@ -91,7 +83,6 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
     random.seed(seed)
     np.random.seed(seed)
     if loaders is None:
-        from afcm_tpu.data import get_train_loaders
         loaders = get_train_loaders(cfg, seed=seed)
     print(f"The number of training images = {len(loaders['train'].dataset)}")
 
@@ -189,9 +180,8 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
 
 
 def main(argv=None):
-    # The config layer needs yaml; only this CLI imports it.
-    from afcm_tpu.config import default_argument_parser
-    from afcm_tpu.config.config import pop_flag
+    # The config layer needs yaml; only the CLIs import it.
+    from .config import default_argument_parser, pop_flag
 
     argv = list(sys.argv[1:] if argv is None else argv)
     device = resolve_device(pop_flag(argv, "--device"))

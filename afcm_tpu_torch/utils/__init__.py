@@ -1,1 +1,2 @@
-"""Utilities of the port; the framework-free ones come from ``afcm_tpu.utils``."""
+"""Utilities of the port: checkpoints, weight loading, and the port's own
+copies of the host-side metrics, NIfTI I/O and visualizer."""

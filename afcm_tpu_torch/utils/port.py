@@ -1,21 +1,57 @@
 """Load ``afcm_tpu`` variable trees and train states into the port.
 
 Module and buffer names mirror the JAX package's, which mirror the
-reference state_dict, so ``afcm_tpu.utils.port.variables_to_state_dict``
-(framework-free, imported not copied) is the whole translation of weights;
+reference state_dict, so ``variables_to_state_dict`` (the port's own copy
+of the JAX package's, numpy only) is the whole translation of weights;
 ``load_jax_train_state`` also carries optax's Adam state into
 ``torch.optim.Adam``, so that both packages can step from one state.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-from afcm_tpu.utils.port import variables_to_state_dict
+# CALayer Dense kernels of the JAX package -> the torch 1x1 convs they
+# mirror, keyed on the flax path tail under the (always
+# "ca"-named) CALayer module so the plain ConvNorm also named "down" in RCAB
+# (leaves weight/bias, not kernel/bias under "ca") cannot collide.
+_CA_UNRENAMES = {
+    ("ca", "down", "kernel"): ("ca", "conv_du", "0", "weight"),
+    ("ca", "down", "bias"): ("ca", "conv_du", "0", "bias"),
+    ("ca", "up", "kernel"): ("ca", "conv_du", "2", "weight"),
+    ("ca", "up", "bias"): ("ca", "conv_du", "2", "bias"),
+}
+
+
+def variables_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Flatten ``afcm_tpu`` variables (``params``, ``moments``, ``constants``)
+    into a reference-style state_dict: dotted module paths, CALayer Dense
+    kernels transposed back to [out,in,1,1] conv_du weights. The port's own
+    copy of ``afcm_tpu/utils/port.py:variables_to_state_dict``."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            parts = prefix + [k]
+            if isinstance(v, Mapping):
+                walk(v, parts)
+                continue
+            v = np.asarray(v)
+            tail = tuple(parts[-3:])
+            if tail in _CA_UNRENAMES:
+                if parts[-1] == "kernel":
+                    v = v.T[:, :, None, None]  # [in,out] -> [out,in,1,1]
+                parts = parts[:-3] + list(_CA_UNRENAMES[tail])
+            out[".".join(parts)] = v
+
+    walk(variables.get("params", {}), [])
+    walk(variables.get("moments", {}), [])
+    walk(variables.get("constants", {}), [])
+    return out
 
 
 def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:

@@ -4,13 +4,15 @@
     python3 chip_smoke.py [--trace DIR]
 
 Drives the port's main paths — CMSR serving with the shipped ADNI alias-free
-generator, and the CMSR training step of that generator and its
-discriminator, both at full width and depth (random weights from a seed) —
-and checks the hand-written kernels on them, K1 and K2 (the fused filtered
-leaky ReLU forward and backward):
+generator, the CMSR training step of that generator and its discriminator,
+and the int8 serving path (tpu.conv_int8 True), all at full width and depth
+(random weights from a seed) — and checks the hand-written kernels on them:
+K1 and K2 (the fused filtered leaky ReLU forward and backward) and K3 (the
+int8 3x3 conv with its dequantizing epilogue; K4, its straight-through
+autograd Function, has no kernel of its own):
 
 1. the device, and nvidia-smi's name and power limit;
-2. builds K1 and K2 from csrc/ with nvcc, both at once, and prints the
+2. builds K1, K2 and K3 from csrc/ with nvcc, all at once, and prints the
    build times;
 3. K1 against its plain PyTorch version for the four filter variants of the
    generator at full-size layer shapes (batch 2): fp32 with TF32 off within
@@ -23,11 +25,12 @@ leaky ReLU forward and backward):
    serve_and_score) at batch 16 in bf16 and fp32: the stitched volume is
    finite and of the right shape, PSNR/SSIM are finite, and K1 launched
    exactly 28 times per batch;
-6. times the generator forward at bf16 b16, bf16 b32 and fp32 b16 (median of
-   3 windows and the spread). With --trace DIR it also traces each leg with
-   torch.profiler and writes the gzipped chrome trace and a breakdown
-   (summary_<leg>.json) under DIR: device time by kernel, K1's time per
-   layer, and the device-busy share of the traced window;
+6. times the generator forward at bf16 b16, bf16 b32, fp32 b16 and bf16 b16
+   under conv impl 'int8' (median of 3 windows and the spread). With
+   --trace DIR it also traces each leg with torch.profiler and writes the
+   gzipped chrome trace and a breakdown (summary_<leg>.json) under DIR:
+   device time by kernel, K1's time per layer, and the device-busy share of
+   the traced window;
 7. training: (a) K2 against its plain version (autograd of the plain
    composition) at the four variant shapes, batch 2, fp32 with TF32 off
    within 1e-4 * max|plain| + 1e-4 and bf16 at PSNR >= 38 dB, both timed;
@@ -44,14 +47,35 @@ leaky ReLU forward and backward):
    steps and their peak memory (a phase line says so if they do not fit
    the card); (d) the trained EMA generator, saved as
    latest_net_G_ema.pth, served through serve_and_score. With --trace DIR
-   one bf16 train step is traced too.
+   one bf16 train step is traced too;
+8. the int8 path: (a) K3 against its plain version on quantized inputs made
+   with numpy from the seed, batch 2, at the path's shapes (512 -> 512 at
+   36^2 and 52^2, padding 2, and 38^2 without padding), at 362 -> 512 148^2,
+   91 -> 128 and 64 -> 64 at 276^2, and with padding 1 and 0 and an
+   extra_scale: the bf16 outputs are equal bit for bit (the count of
+   unequal elements is printed and must be 0), and the whole quantized conv
+   is >= 50 dB from the fp32 conv of the unquantized inputs; (b) timing at
+   batch 16 of every distinct 3x3 conv shape of the generator: K3 alone,
+   quantize + K3, the float conv the path makes with the knob off
+   (conv2d_gradfix.conv2d in bf16), cuDNN's bf16 conv of the same quantized
+   integers, and the plain version, beside the bound; (c) K4's dx and dw
+   against the plain path's within 1e-4 * max + 1e-5; (d) the generator
+   under 'int8' at batch 2, fp32, TF32 off: the kernel path (K1 and K3)
+   equals the path with K3's plain version bit for bit, is within
+   1e-2 * max|plain| of the path with both plain versions (K1's last-bit
+   differences flip single quantization steps), and >= 30 dB from the float
+   generator; (e) the phantom served under a config with tpu.conv_int8 True
+   at bf16 b16, the conv implementation set by configure_numerics: finite
+   volume and scores, 28 K1 and 11 K3 launches per batch; then the knob off
+   and no K3 launch in the next forward.
 
-Then prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
-Any failure raises and exits non-zero; without CUDA nothing is printed.
+Then prints the kernels' JSON line (per kernel: launches on its main paths,
+error, time, plain version's time, the bound from the bytes and operations
+of the timed inputs, the library call's time where there is one) and, last,
+{"ok": true, "device": ...}. Any failure raises and exits non-zero; without CUDA nothing is printed.
 Needs torch with CUDA, nvcc, numpy, scipy and yaml (the training config);
-no h5py or JAX (it fails if anything loaded jax, flax or optax). It imports
-only the port, afcm_tpu_torch, which reuses afcm_tpu's framework-free host
-code (config, data, predictor, metrics) by import.
+no h5py or JAX: it imports only the port, afcm_tpu_torch, and fails if
+anything loaded jax, flax, optax or the JAX package afcm_tpu.
 """
 
 import argparse
@@ -73,10 +97,14 @@ import torch
 # Fails outside a checkout of the repository, before anything is printed.
 from afcm_tpu_torch import train as train_cli
 from afcm_tpu_torch.data.demo import phantom_test_loader, phantom_train_loaders
-from afcm_tpu_torch.evaluate import (load_generator_ema, make_forward_fn,
-                                     serve_and_score, set_matmul_precision)
+from afcm_tpu_torch.evaluate import (configure_numerics, load_generator_ema,
+                                     make_forward_fn, serve_and_score,
+                                     set_matmul_precision)
 from afcm_tpu_torch.models import CMSR_ADNI_G, build_eval_model, build_generator
+from afcm_tpu_torch.ops import (conv2d_gradfix, get_conv_impl, modulated_conv,
+                                set_conv_impl)
 from afcm_tpu_torch.ops.cuda import _build
+from afcm_tpu_torch.ops.cuda import conv_int8 as k3
 from afcm_tpu_torch.ops.cuda import filtered_lrelu as k1
 
 SEED = 0
@@ -90,6 +118,13 @@ VARIANT_LAYERS = {
 }
 SERVE_BATCH = 16
 LAYERS_WITH_KERNEL = 28        # 29 layers; toRGB is elementwise
+# Convs that mode 'int8' routes to K3: 512 -> 512 at 36^2 (6 layers) and
+# 52^2 (4), padding 2, and the bottleneck conv e_16x16 at 38^2, padding 0.
+INT8_ROUTED = 11
+# Published peaks of one H100 SXM (dense): the rates the bounds are taken at.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+INT8_OP_PER_S = 1979e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 TRAIN_CONFIG = os.path.join(REPO, "configs/adni/stylegan3/cmsr.yml")
 TRAIN_BATCH = 16
@@ -115,6 +150,13 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def cuda_median_ms(fn, repeats=10, warmup=2):
+    """Median device time of fn() in ms over `repeats` single timed calls."""
+    for _ in range(warmup):
+        fn()
+    return float(np.median([cuda_ms(fn, iters=1, warmup=0) for _ in range(repeats)]))
+
+
 def psnr(got, want):
     err = float(torch.mean((got.float() - want.float()) ** 2))
     data_range = float(want.max() - want.min())
@@ -135,6 +177,28 @@ def plain_filtered_lrelu():
         dispatch.filtered_lrelu_cuda = saved
 
 
+@contextlib.contextmanager
+def plain_conv_int8():
+    """Route CUDA tensors through K3's plain version (same quantizers, the
+    integer conv in float64)."""
+    saved = k3.conv3x3_int8_cuda
+    k3.conv3x3_int8_cuda = k3.conv3x3_int8_plain
+    try:
+        yield
+    finally:
+        k3.conv3x3_int8_cuda = saved
+
+
+@contextlib.contextmanager
+def conv_impl(impl):
+    """The conv implementation for the block, then the float conv again."""
+    set_conv_impl(impl)
+    try:
+        yield
+    finally:
+        set_conv_impl("xla")
+
+
 @functools.lru_cache(maxsize=None)
 def shipped_model(compute_dtype: str):
     """The shipped ADNI CMSR generator on the card; every dtype gets the
@@ -145,11 +209,45 @@ def shipped_model(compute_dtype: str):
     return model
 
 
+def filtered_lrelu_bound_ms(x, out_size, kw, backward=False):
+    """The least time the card could take for one filtered_lrelu call (or
+    its backward) on x: the larger of the bytes it must move (x and the
+    bias read, y written; backward: x and dy read, dx written) over the HBM
+    rate and its FMAs over the fp32 rate, with which of the two binds. The
+    FMAs are those of the separable polyphase form: per plane the up-FIR
+    touches ceil(ntu / up) taps per sample (W pass over the input rows, H
+    pass over the mid window the output needs), the down-FIR ntd taps (H
+    then W pass); the backward recomputes the up passes and runs both
+    transposed."""
+    n, c, in_size = x.shape[0], x.shape[1], x.shape[2]
+    up, down = kw["up"], kw["down"]
+    ntu = 1 if kw["fu"] is None else len(kw["fu"])
+    ntd = 1 if kw["fd"] is None else len(kw["fd"])
+    mid = (out_size - 1) * down + ntd
+    up_fmas = (in_size * mid + mid * mid) * -(-ntu // up)
+    down_fmas = (out_size * mid + out_size * out_size) * ntd
+    fmas = n * c * ((2 * up_fmas + down_fmas) if backward else (up_fmas + down_fmas))
+    x_bytes = x.numel() * x.element_size()
+    y_bytes = n * c * out_size * out_size * x.element_size()
+    nbytes = (2 * x_bytes + y_bytes) if backward else \
+        (x_bytes + c * x.element_size() + y_bytes)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * 2 * fmas / FP32_FLOP_PER_S
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def add_bound(total, bound):
+    """Sum of per-call bounds; bound_by is that of the largest term."""
+    ms, by, largest = total
+    return ms + bound[0], (bound[1] if bound[0] > largest else by), max(largest, bound[0])
+
+
 def check_variants(device):
     """Phase 3: K1 against its plain version at full-size layer shapes."""
     synthesis = shipped_model("float32").generator_ema.synthesis
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst, total_ms, total_plain_ms = 0.0, 0.0, 0.0
+    total_bound = (0.0, "bytes", 0.0)
     for label, (side, idx) in VARIANT_LAYERS.items():
         layer = (synthesis.decoders if side == "decoder" else synthesis.encoders)[idx]
         spec = layer.spec
@@ -170,8 +268,11 @@ def check_variants(device):
         xb, bb = x.bfloat16(), b.bfloat16()
         got_bf16 = k1.filtered_lrelu_cuda(xb, b=bb, **kw)
         db = psnr(got_bf16, want)
+        least = filtered_lrelu_bound_ms(x, spec.out_size, kw)
+        total_bound = add_bound(total_bound, least)
         row = dict(variant=label, shape=list(shape), out=spec.out_size,
                    fp32_max_abs_err=err, fp32_bound=bound, bf16_psnr_db=db,
+                   bound_ms_fp32=least[0], bound_by=least[1],
                    ms_fp32=cuda_ms(lambda: k1.filtered_lrelu_cuda(x, b=b, **kw)),
                    plain_ms_fp32=cuda_ms(lambda: k1.filtered_lrelu_plain(x, b=b, **kw)),
                    ms_bf16=cuda_ms(lambda: k1.filtered_lrelu_cuda(xb, b=bb, **kw)),
@@ -184,7 +285,7 @@ def check_variants(device):
         worst = max(worst, err)
         total_ms += row["ms_fp32"]
         total_plain_ms += row["plain_ms_fp32"]
-    return worst, total_ms, total_plain_ms
+    return worst, total_ms, total_plain_ms, total_bound[:2]
 
 
 def check_generator(device):
@@ -216,7 +317,7 @@ def check_generator(device):
         raise AssertionError(f"generator bf16 PSNR {db:.2f} dB < 30")
 
 
-def serve_phantom(device, compute_dtype):
+def serve_phantom(device, compute_dtype, phase_name="5 serve phantom"):
     """Phase 5 (one dtype): the phantom through the evaluate CLI's loop."""
     loader = phantom_test_loader(depth=24, size=256, batch_size=SERVE_BATCH,
                                  seed=SEED)
@@ -230,7 +331,8 @@ def serve_phantom(device, compute_dtype):
     (subject,) = scores["subjects"].values()
     ok = subject["shape"] == (24, 256, 256) and subject["finite"]
     metrics = [scores[k] for k in ("psnr", "ssim", "psnr_slice", "ssim_slice")]
-    phase("5 serve phantom", compute_dtype=compute_dtype, batch=SERVE_BATCH,
+    phase(phase_name, compute_dtype=compute_dtype, conv_impl=get_conv_impl(),
+          batch=SERVE_BATCH,
           batches=len(loader), volume=list(subject["shape"]), finite=ok,
           psnr=metrics[0], ssim=metrics[1], psnr_slice=metrics[2],
           ssim_slice=metrics[3], seconds=seconds,
@@ -260,6 +362,7 @@ def variant_case(label, device, seed):
 def check_backward_variants(device):
     """Phase 7a: K2 against its plain version at full-size layer shapes."""
     worst, total_ms, total_plain_ms = 0.0, 0.0, 0.0
+    total_bound = (0.0, "bytes", 0.0)
     for label in VARIANT_LAYERS:
         x, b, kw, spec, gen = variant_case(label, device, SEED + 3)
         dy = torch.randn((2, spec.out_channels, spec.out_size, spec.out_size),
@@ -289,7 +392,10 @@ def check_backward_variants(device):
         xb, bb, dyb = x.bfloat16(), b.bfloat16(), dy.bfloat16()
         dx_bf16, _ = k1.filtered_lrelu_bwd_cuda(xb, dyb, b=bb, **kw)
         dx_psnr = psnr(dx_bf16, want_dx)
+        least = filtered_lrelu_bound_ms(x, spec.out_size, kw, backward=True)
+        total_bound = add_bound(total_bound, least)
         row = dict(variant=label, x=list(x.shape), dy=list(dy.shape),
+                   bound_ms_fp32=least[0], bound_by=least[1],
                    fp32_dx_max_abs_err=err, dx_bound=bound,
                    fp32_db_max_abs_err=db_err, db_bound=db_bound,
                    kink_pixels=int(kink.sum()), kink_share=float(kink.float().mean()),
@@ -309,7 +415,7 @@ def check_backward_variants(device):
         worst = max(worst, err, db_err)
         total_ms += row["ms_fp32"]
         total_plain_ms += row["plain_ms_fp32"]
-    return worst, total_ms, total_plain_ms
+    return worst, total_ms, total_plain_ms, total_bound[:2]
 
 
 def check_generator_backward(device):
@@ -353,7 +459,7 @@ def train_config(out_dir, compute_dtype):
     """The shipped CMSR training config (configs/adni/stylegan3/cmsr.yml:
     b16, shared G forward, R1 every step, blur sigma 10 fading over 100
     kimg) with its periodic display, printing and saving turned off."""
-    from afcm_tpu.config import default_argument_parser
+    from afcm_tpu_torch.config import default_argument_parser
     never = str(10 ** 9)
     return default_argument_parser([
         "--config-file", TRAIN_CONFIG, "tpu.compute_dtype", compute_dtype,
@@ -486,6 +592,234 @@ def serve_trained(device, run_dir):
         raise AssertionError(f"bad stitched volume {subject} from the trained G_ema")
 
 
+def int8_case(n, i, o, h, p, extra, seed):
+    """Seeded numpy (x, w, extra_scale) of one conv on the card, and the
+    quantized operands: integer values, scale, packed int8 tensors."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(n, i, h, h).astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.randn(o, i, 3, 3) / np.sqrt(9 * i)).astype(np.float32)).cuda()
+    es = torch.from_numpy((rng.rand(n, o) + 0.5).astype(np.float32)).cuda() if extra else None
+    xq, x_scale = k3.quantize_activations(x)
+    wq, w_scale = k3.quantize_weights(w)
+    scale = k3.dequant_scale(x_scale, w_scale, es)
+    return x, w, es, xq, wq, scale, k3.pack_activations(xq, p), k3.pack_weights(wq)
+
+
+def check_conv_int8():
+    """Phase 8a: K3 against its plain version, bit for bit."""
+    cases = [(512, 512, 36, 2, False), (512, 512, 52, 2, False),
+             (512, 512, 38, 0, False), (362, 512, 148, 2, False),
+             (91, 128, 276, 2, False), (64, 64, 276, 2, False),
+             (181, 256, 84, 1, True), (91, 181, 40, 0, True)]
+    set_matmul_precision("float32")
+    unequal_total, worst = 0, 0.0
+    for idx, (i, o, h, p, extra) in enumerate(cases):
+        x, w, es, xq, wq, scale, xp, wp = int8_case(2, i, o, h, p, extra, SEED + 10 + idx)
+        got = k3.int8_conv_cuda(xp, wp, scale, o)
+        torch.cuda.synchronize()
+        want = k3.int8_conv_plain(xq, wq, scale, p)
+        size = h + 2 * p - 2
+        if got.shape != want.shape or tuple(got.shape) != (2, o, size, size) \
+                or got.dtype != torch.bfloat16:
+            raise AssertionError(f"K3 gave {tuple(got.shape)} {got.dtype}, plain "
+                                 f"{tuple(want.shape)}")
+        unequal = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        err = float((got.float() - want.float()).abs().max())
+        # the whole op through its wrapper, against the float conv it stands for
+        full = k3.conv3x3_int8(x, w, p, es)
+        ref = torch.nn.functional.conv2d(x, w, padding=p)
+        if extra:
+            ref = ref * es[:, :, None, None]
+        db = psnr(full, ref)
+        phase("8a K3 vs plain", channels=[i, o], size=h, padding=p,
+              extra_scale=extra, out=list(got.shape), unequal_elements=unequal,
+              max_abs_err=err, wrapper_equal=bool(torch.equal(full, got)),
+              psnr_vs_fp32_conv_db=db)
+        if unequal or not torch.equal(full, got):
+            raise AssertionError(f"K3 {i}->{o} at {h}^2 p{p}: {unequal} elements "
+                                 "differ from the plain version")
+        if not db >= 50:
+            raise AssertionError(f"int8 conv {i}->{o} at {h}^2: {db:.2f} dB < 50")
+        unequal_total += unequal
+        worst = max(worst, err)
+    return unequal_total, worst
+
+
+def conv3x3_shapes(synthesis):
+    """Distinct (in_channels, out_channels, input size, padding) of the
+    generator's 3x3 convs that the int8 kernel takes, with the count of
+    each, in first-use order: 27 layers (full padding; the first encoder
+    layer has 4 input channels and is not eligible) and the bottleneck conv
+    e_16x16."""
+    shapes = {}
+    for layer in list(synthesis.encoders) + list(synthesis.decoders):
+        spec = layer.spec
+        key = (spec.in_channels, spec.out_channels, spec.in_size, 2)
+        if not spec.is_torgb and k3.int8_routable(
+                (1, key[0], key[2], key[2]), (key[1], key[0], 3, 3), 2):
+            shapes[key] = shapes.get(key, 0) + 1
+    c = synthesis.layout.bottleneck_channels
+    key = (c, c, synthesis.encoders[-1].spec.out_size + 2, 0)
+    shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def time_conv_int8():
+    """Phase 8b: every distinct conv shape at batch 16. Returns K3's sums
+    over the shapes mode 'int8' routes (the serving path's)."""
+    synthesis = shipped_model("bfloat16").generator_ema.synthesis
+    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=(0.0, "operations", 0.0))
+    gated = 0
+    for idx, ((i, o, h, p), count) in enumerate(conv3x3_shapes(synthesis).items()):
+        x, w, _, xq, wq, scale, xp, wp = int8_case(SERVE_BATCH, i, o, h, p, False,
+                                                    SEED + 30 + idx)
+        size = h + 2 * p - 2
+        ops = 2 * 9 * o * i * size * size * SERVE_BATCH
+        moved = sum(t.numel() * t.element_size() for t in (xp, wp, scale)) + \
+            SERVE_BATCH * o * size * size * 2
+        by_ops, by_bytes = 1e3 * ops / INT8_OP_PER_S, 1e3 * moved / HBM_BYTES_PER_S
+        least = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
+        xb, wb = x.bfloat16(), w.bfloat16()
+        xqb, wqb = xq.bfloat16(), wq.bfloat16()     # the integers are exact in bf16
+        routed = modulated_conv._int8_gate(x.shape, w.shape)   # what mode 'int8' takes
+        row = dict(channels=[i, o], size=h, padding=p, batch=SERVE_BATCH, layers=count,
+                   routed_by_int8_gate=routed, g_ops=ops / 1e9, mbytes=moved / 1e6,
+                   k3_ms=cuda_median_ms(lambda: k3.int8_conv_cuda(xp, wp, scale, o)),
+                   quantize_k3_ms=cuda_median_ms(lambda: k3.conv3x3_int8_cuda(x, w, p)),
+                   float_conv_bf16_ms=cuda_median_ms(
+                       lambda: conv2d_gradfix.conv2d(xb, wb, padding=p)),
+                   library_ms=cuda_median_ms(
+                       lambda: torch.nn.functional.conv2d(xqb, wqb, padding=p)),
+                   plain_ms=cuda_median_ms(
+                       lambda: k3.int8_conv_plain(xq, wq, scale, p), repeats=3, warmup=1),
+                   bound_ms=least[0], bound_by=least[1])
+        row["k3_top_per_s"] = ops / row["k3_ms"] / 1e9
+        phase("8b conv shapes", **row)
+        if routed:
+            gated += count
+            for key in ("ms", "plain_ms", "library_ms"):
+                sums[key] += row["k3_ms" if key == "ms" else key]
+            sums["bound"] = add_bound(sums["bound"], least)
+        del x, w, xq, wq, xp, wp, xb, wb, xqb, wqb
+    if gated != INT8_ROUTED:
+        raise AssertionError(f"the gate takes {gated} convs of the layout, want {INT8_ROUTED}")
+    return sums
+
+
+def check_ste_backward():
+    """Phase 8c: K4's dx and dw against the plain path's (plain forward, the
+    same conv backward), 512 -> 512 at 36^2, batch 2, fp32, TF32 off."""
+    set_matmul_precision("float32")
+    x, w = int8_case(2, 512, 512, 36, 2, False, SEED + 20)[:2]
+    g = torch.randn((2, 512, 38, 38), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED + 21))
+
+    def grads():
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = k3.conv3x3_int8_ste(xg, wg, 2)
+        (torch.sin(y.float()) * g).sum().backward()
+        return y.detach(), xg.grad, wg.grad
+
+    before = k3.launches
+    y, dx, dw = grads()
+    launched = k3.launches - before
+    with plain_conv_int8():
+        want_y, want_dx, want_dw = grads()
+    if launched != 1 or k3.launches - before != 1:
+        raise AssertionError(f"K4's forward launched K3 {launched} times, the plain "
+                             f"run {k3.launches - before - launched}")
+    errs = {}
+    for name, got, want in (("dx", dx, want_dx), ("dw", dw, want_dw)):
+        errs[name] = float((got - want).abs().max())
+        errs[name + "_bound"] = 1e-4 * float(want.abs().max()) + 1e-5
+    phase("8c K4 backward", channels=[512, 512], size=36, batch=2,
+          forward_equal=bool(torch.equal(y, want_y)), **errs)
+    if not (torch.equal(y, want_y) and errs["dx"] <= errs["dx_bound"]
+            and errs["dw"] <= errs["dw_bound"]):
+        raise AssertionError(f"K4 backward against the plain path: {errs}")
+
+
+def check_generator_int8(device):
+    """Phase 8d: the generator under conv impl 'int8'. The kernel path (K1
+    and K3) against the same path with K3's plain version: equal bit for
+    bit, since K3 is exact. Against the path with both plain versions:
+    within 1e-2 * max|plain|. That is looser than phase 4's 1e-3: K1 and its
+    plain version differ by ~1e-6 relative, which carries some activations
+    across a rounding boundary of the next quantizer, and each such flip is
+    a step of 1/127 of that layer's range at one element."""
+    model = shipped_model("float32")
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    z = torch.randn((2, 512), generator=gen, device=device)
+    c = torch.rand((2, 1), generator=gen, device=device)
+    cond = torch.randn((2, 4, 256, 256), generator=gen, device=device).clamp(-1, 1)
+    set_matmul_precision("float32")
+    float_out = model.eval_step(cond, c, z=z)
+    counts = (k1.launches, k3.launches)
+    with conv_impl("int8"):
+        got = model.eval_step(cond, c, z=z)
+        launched = (k1.launches - counts[0], k3.launches - counts[1])
+        with plain_conv_int8():
+            same_k1 = model.eval_step(cond, c, z=z)
+        k1_again = k1.launches - counts[0] - launched[0]
+        with plain_filtered_lrelu(), plain_conv_int8():
+            want = model.eval_step(cond, c, z=z)
+    if launched != (LAYERS_WITH_KERNEL, INT8_ROUTED) or k1_again != LAYERS_WITH_KERNEL or \
+            (k1.launches - counts[0], k3.launches - counts[1]) != \
+            (2 * LAYERS_WITH_KERNEL, INT8_ROUTED):
+        raise AssertionError(f"K1/K3 launches {launched} in one int8 forward, want "
+                             f"{(LAYERS_WITH_KERNEL, INT8_ROUTED)}; the plain runs "
+                             "must launch no K3 and the last no K1")
+    unequal = int((got != same_k1).sum())
+    err = float((got - want).abs().max())
+    bound = 1e-2 * float(want.abs().max())
+    db = psnr(got, float_out)
+    phase("8d generator int8 kernel vs plain", batch=2, shape=list(got.shape),
+          unequal_elements_vs_plain_k3=unequal,
+          fp32_max_abs_err_vs_both_plain=err, bound=bound,
+          max_abs_plain=float(want.abs().max()),
+          k1_launches=launched[0], k3_launches=launched[1],
+          psnr_vs_float_generator_db=db, finite=bool(torch.isfinite(got).all()))
+    if unequal:
+        raise AssertionError(f"int8 generator: {unequal} elements differ between "
+                             "K3 and its plain version")
+    if not (torch.isfinite(got).all() and err <= bound):
+        raise AssertionError(f"int8 generator fp32 max|diff| {err} > {bound}")
+    if not (np.isfinite(db) and db >= 30):
+        raise AssertionError(f"int8 generator {db:.2f} dB from the float one, < 30")
+
+
+def serve_phantom_int8(device):
+    """Phase 8e: the phantom served under a config with tpu.conv_int8 True;
+    the conv implementation comes from configure_numerics, as in the CLI.
+    Returns the (K1, K3) launches of the int8 serving path."""
+    from afcm_tpu_torch.config import default_argument_parser
+    argv = ["--config-file", TRAIN_CONFIG, "tpu.compute_dtype", "bfloat16"]
+    try:
+        compute_dtype = configure_numerics(
+            default_argument_parser(argv + ["tpu.conv_int8", "True"]))
+        if get_conv_impl() != "int8":
+            raise AssertionError(f"configure_numerics left conv impl {get_conv_impl()}")
+        k1.launches = k1.bwd_launches = k3.launches = 0   # the int8 path's run starts here
+        batches = serve_phantom(device, compute_dtype, phase_name="8e serve phantom int8")
+        launches = (k1.launches, k3.launches)
+        configure_numerics(default_argument_parser(argv))
+        if get_conv_impl() != "xla":
+            raise AssertionError("configure_numerics did not reset the conv impl")
+        cond, c, z = forward_inputs(SERVE_BATCH, device)
+        shipped_model(compute_dtype).eval_step(cond, c, z=z)
+        after = (k1.launches - launches[0], k3.launches - launches[1])
+    finally:
+        set_conv_impl("xla")
+    phase("8e int8 launches", batches=batches, k1=launches[0], k3=launches[1],
+          knob_off_next_forward={"k1": after[0], "k3": after[1]})
+    if launches != (LAYERS_WITH_KERNEL * batches, INT8_ROUTED * batches):
+        raise AssertionError(f"{launches} K1/K3 launches for {batches} int8 batches; "
+                             f"want {LAYERS_WITH_KERNEL} and {INT8_ROUTED} per batch")
+    if after != (LAYERS_WITH_KERNEL, 0):
+        raise AssertionError(f"knob off: {after} K1/K3 launches in the next forward")
+    return launches
+
+
 def forward_inputs(batch, device):
     """The timed forward's seeded (cond, slice_idx, z)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -589,9 +923,11 @@ def summarize_trace(prof, key, span_name, iters, out_dir, layers, phase_name,
 def time_forward(device, trace_dir=None):
     """Phase 6: generator forward slices/s, the legs of bench.py:150."""
     legs = {}
-    for dtype, batch in (("bfloat16", 16), ("bfloat16", 32), ("float32", 16)):
+    for dtype, batch, impl in (("bfloat16", 16, "xla"), ("bfloat16", 32, "xla"),
+                               ("float32", 16, "xla"), ("bfloat16", 16, "int8")):
         model = shipped_model(dtype)
         set_matmul_precision(dtype)
+        set_conv_impl(impl)
         torch.cuda.reset_peak_memory_stats()
         cond, c, z = inputs = forward_inputs(batch, device)
         model.eval_step(cond, c, z=z)
@@ -603,7 +939,7 @@ def time_forward(device, trace_dir=None):
                 model.eval_step(cond, c, z=z)
             torch.cuda.synchronize()
             rates.append(batch * iters / (time.perf_counter() - t0))
-        key = f"{dtype}_b{batch}"
+        key = f"{dtype}_b{batch}" + ("" if impl == "xla" else f"_{impl}")
         legs[key] = float(np.median(rates))
         phase("6 generator forward", leg=key, slices_per_s=legs[key],
               spread=sorted(rates), ms_per_batch=1e3 * batch / legs[key],
@@ -611,6 +947,7 @@ def time_forward(device, trace_dir=None):
         if trace_dir is not None:
             trace_leg(model, inputs, key, 2 if dtype == "float32" else 5,
                       trace_dir)
+        set_conv_impl("xla")
     return legs
 
 
@@ -631,38 +968,51 @@ def main(argv=None):
           "nvidia-smi name, power limit:")
     print(smi)
 
-    builds = _build.load_libraries(["filtered_lrelu", "filtered_lrelu_bwd"])
+    builds = _build.load_libraries(["filtered_lrelu", "filtered_lrelu_bwd",
+                                    "conv_int8"])
     for kernel, (_, info) in builds.items():
         ptxas = [line.strip() for line in info["log"].splitlines()
                  if "registers" in line or "spill" in line]
         phase("2 build", kernel=kernel, seconds=info["seconds"],
               library=os.path.relpath(info["path"], REPO), ptxas=ptxas)
 
-    worst, ms, plain_ms = check_variants(device)
+    worst, ms, plain_ms, bound = check_variants(device)
     check_generator(device)
 
-    k1.launches = k1.bwd_launches = 0    # the serving path's run starts here
+    k1.launches = k1.bwd_launches = k3.launches = 0    # the serving path's run starts here
     batches = sum(serve_phantom(device, dt)
                   for dt in ("bfloat16", "float32"))
-    serve_launches = (k1.launches, k1.bwd_launches)
-    if serve_launches != (LAYERS_WITH_KERNEL * batches, 0):
-        raise AssertionError(f"{serve_launches} K1/K2 launches for {batches} "
+    serve_launches = (k1.launches, k1.bwd_launches, k3.launches)
+    if serve_launches != (LAYERS_WITH_KERNEL * batches, 0, 0):
+        raise AssertionError(f"{serve_launches} K1/K2/K3 launches for {batches} "
                              f"batches; want {LAYERS_WITH_KERNEL} K1 per batch")
     time_forward(device, args.trace)
 
-    bwd_worst, bwd_ms, bwd_plain_ms = check_backward_variants(device)
+    bwd_worst, bwd_ms, bwd_plain_ms, bwd_bound = check_backward_variants(device)
     check_generator_backward(device)
     run_dir, train_launches = train_shipped(device, args.trace)
     serve_trained(device, run_dir)
     shutil.rmtree(os.path.dirname(run_dir), ignore_errors=True)
+
+    unequal, int8_worst = check_conv_int8()
+    int8_sums = time_conv_int8()
+    check_ste_backward()
+    check_generator_int8(device)
+    int8_launches = serve_phantom_int8(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
-                                     "filtered_lrelu_bwd": serve_launches[1]},
-          train=train_launches)
+                                     "filtered_lrelu_bwd": serve_launches[1],
+                                     "conv_int8": serve_launches[2]},
+          train=train_launches,
+          serve_int8={"filtered_lrelu": int8_launches[0],
+                      "conv_int8": int8_launches[1]})
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
+    if not int8_launches[1]:
+        raise AssertionError("the int8 serving path launched no K3")
 
     jax_loaded = [m for m, mod in sys.modules.items()
-                  if mod is not None and m.split(".")[0] in ("jax", "flax", "optax")]
+                  if mod is not None and m.split(".")[0] in ("jax", "flax", "optax",
+                                                             "afcm_tpu")]
     if jax_loaded:
         raise AssertionError(f"the port's path loaded {jax_loaded[:5]}")
 
@@ -670,13 +1020,30 @@ def main(argv=None):
         {"name": "filtered_lrelu", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/filtered_lrelu.cu",
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:273",
-         "launches": serve_launches[0] + train_launches["filtered_lrelu"],
-         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms},
+         "launches": serve_launches[0] + train_launches["filtered_lrelu"]
+         + int8_launches[0],
+         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+         "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
         {"name": "filtered_lrelu_bwd", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/filtered_lrelu_bwd.cu",
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:292",
          "launches": train_launches["filtered_lrelu_bwd"],
-         "max_abs_err": bwd_worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}))
+         "max_abs_err": bwd_worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
+         "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
+        {"name": "conv_int8", "route": "cuda",
+         "source": "afcm_tpu_torch/csrc/conv_int8.cu",
+         "replaces": "afcm_tpu/ops/pallas/conv_int8.py:129",
+         "launches": int8_launches[1],
+         "max_abs_err": int8_worst, "unequal_elements": unequal,
+         "ms": int8_sums["ms"], "plain_ms": int8_sums["plain_ms"],
+         "bound_ms": int8_sums["bound"][0], "bound_by": int8_sums["bound"][1],
+         "library_ms": int8_sums["library_ms"],
+         "library": "cuDNN's bf16 conv (F.conv2d) of the same quantized integers",
+         "timed_at": "the int8 path's three conv shapes (512 -> 512 at 36^2 and "
+                     "52^2 p2, 38^2 p0), batch 16, one call each, summed",
+         "autograd": "K4 = conv3x3_int8_ste: K3 forward, fp32 conv adjoint backward"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

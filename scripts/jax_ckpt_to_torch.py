@@ -24,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from afcm_tpu.utils.checkpoint import (checkpoint_exists,  # noqa: E402
                                        load_generator_only)
-from afcm_tpu.utils.port import variables_to_state_dict  # noqa: E402
+from afcm_tpu_torch.utils.port import variables_to_state_dict  # noqa: E402
 
 
 def _write(variables, path: str) -> str:

@@ -309,3 +309,99 @@ def test_conv2d_gradfix_matches_autograd(cuda, groups, stride, kernel):
     for got, want in zip(results[1], results[0]):
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+# --- K3 and K4: the int8 3x3 conv and its straight-through Function ---------
+
+INT8_CASES = {        # (in channels, out channels, size, padding, extra_scale)
+    "path_512_36_p2": (512, 512, 36, 2, False),
+    "bottleneck_512_38_p0": (512, 512, 38, 0, False),
+    "odd_91_181_p1_extra": (91, 181, 40, 1, True),
+    "narrow_64_64_ragged_p2": (64, 64, 75, 2, False),
+}
+
+
+def _int8_case(name, device, n=2, seed=0):
+    i, o, h, p, extra = INT8_CASES[name]
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, i, h, h).astype(np.float32)
+    w = (rng.randn(o, i, 3, 3) / np.sqrt(9 * i)).astype(np.float32)
+    es = (rng.rand(n, o) + 0.5).astype(np.float32) if extra else None
+    to = lambda a: None if a is None else torch.from_numpy(a).to(device)  # noqa: E731
+    return (x, w, es), (to(x), to(w), to(es)), p
+
+
+@pytest.mark.parametrize("name", sorted(INT8_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_int8_kernel_equals_plain_bitwise(cuda, name, dtype):
+    """Integer accumulation has no rounding: K3 and its plain version give
+    the same bf16 bits on the same inputs."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    _, (x, w, es), p = _int8_case(name, cuda)
+    x = x.to(dtype)
+    want = k3.conv3x3_int8_plain(x, w, p, es)
+    launches = k3.launches
+    got = k3.conv3x3_int8(x, w, p, es)
+    torch.cuda.synchronize()
+    assert k3.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert int((got.view(torch.int16) != want.view(torch.int16)).sum()) == 0
+    ref = torch.nn.functional.conv2d(x.float(), w, padding=p)
+    if es is not None:
+        ref = ref * es[:, :, None, None]
+    assert _psnr(got, ref) > (50 if dtype == torch.float32 else 45)
+
+
+def test_conv_int8_kernel_matches_jax_full_size(cuda, jax_ops):
+    """K3 at the serving path's shape (512 -> 512 at 36^2, padding 2)
+    against the JAX package's kernel in interpret mode on JAX's CPU backend:
+    within 1 bf16 ulp (the fp32 scale product may be ordered differently)."""
+    jax, _ = jax_ops
+    jk3 = pytest.importorskip("afcm_tpu.ops.pallas.conv_int8")
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    (x, w, _), (xt, wt, _), p = _int8_case("path_512_36_p2", cuda, n=1)
+    with jax.default_device(jax.devices("cpu")[0]):
+        want = np.asarray(jk3.conv3x3_int8(jax.numpy.asarray(x), jax.numpy.asarray(w),
+                                           padding=p, interpret=True), np.float32)
+    got = k3.conv3x3_int8(xt, wt, p).float().cpu().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert got.shape == want.shape == (1, 512, 38, 38)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def test_conv_int8_raises_instead_of_falling_back(cuda):
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    x = torch.randn(1, 64, 16, 16, device=cuda)
+    w = torch.randn(64, 64, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="int8_routable"):
+        k3.conv3x3_int8(x, w, padding=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.int8_conv_cuda(torch.zeros(1, 18, 18, 64, dtype=torch.int8, device=cuda),
+                          torch.zeros(9, 128, 64, dtype=torch.int8),
+                          torch.ones(1, 64, device=cuda), 64)
+
+
+def test_conv_int8_ste_backward(cuda):
+    """K4: K3 forward (one launch), and the gradients of the fp32 conv at
+    the unquantized x and w: against the plain path's and against
+    F.conv2d's autograd at 1e-4 of the largest gradient."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    _, (x, w, _), p = _int8_case("path_512_36_p2", cuda)
+    g = torch.randn((2, 512, 38, 38), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def grads(fn):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        (fn(xg, wg).float() * g).sum().backward()
+        return xg.grad, wg.grad
+
+    launches = k3.launches
+    dx, dw = grads(lambda a, b: k3.conv3x3_int8_ste(a, b, p))
+    assert k3.launches == launches + 1
+    g_seen = g.bfloat16().float()       # the bf16 output's gradient arrives in bf16
+    want_dx, want_dw = torch.autograd.grad(
+        (torch.nn.functional.conv2d(xr := x.clone().requires_grad_(True),
+                                    wr := w.clone().requires_grad_(True),
+                                    padding=p) * g_seen).sum(), (xr, wr))
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-5
