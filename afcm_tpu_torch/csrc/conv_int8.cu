@@ -16,7 +16,9 @@
 // operations over 39 and 76 MB, thousands of operations per byte. The design is
 // the simple one for such a product: an implicit GEMM (M = output channels,
 // N = output pixels of one sample, K = 9 taps x input channels) on the
-// tensor cores through mma.sync.m16n8k32 (s8 x s8 -> s32). wgmma, TMA,
+// tensor cores through mma.sync.m16n8k32 (s8 x s8 -> s32; the product, the
+// cp.async staging and the fragment loads are in mma_s8.cuh, shared with
+// probe_int8.cu). wgmma, TMA,
 // ldmatrix, a multi-stage pipeline and a fused quantizer are later work.
 //
 // Layout (made by the Python wrapper's quantizer, so that K is contiguous
@@ -46,6 +48,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma_s8.cuh"
+
 #define AFCM_C8_BM 128        // output channels per CTA
 #define AFCM_C8_TH 8          // output rows per CTA
 #define AFCM_C8_TW 16         // output columns per CTA
@@ -71,30 +75,9 @@ constexpr int OUT_STRIDE = BN + 8;             // bf16 per staged output row
 static_assert(BM * OUT_STRIDE * 2 <= SMEM_BYTES, "the output tile reuses the staging memory");
 static_assert(BM == 128 && BN == 128 && THREADS == 256, "warp layout: 2 x 4 warps of 64 x 32");
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// D += A (16 x 32, row-major s8) * B (32 x 8, column-major s8), s32 accumulate.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
+using afcm::cp_async16;
+using afcm::cp_async_wait_all;
+using afcm::mma_s8;
 
 __global__ void __launch_bounds__(THREADS, 2)
 conv3x3_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
@@ -153,18 +136,13 @@ conv3x3_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             uint32_t a[4][4], b[4][2];
 #pragma unroll
             for (int mt = 0; mt < 4; ++mt) {
-                const unsigned char* p = ws + (tap * BM + wm * 64 + mt * 16 + g) * ROW + t * 4;
-                a[mt][0] = lds32(p);                    // row g,     k  0..15
-                a[mt][1] = lds32(p + 8 * ROW);          // row g + 8, k  0..15
-                a[mt][2] = lds32(p + 16);               // row g,     k 16..31
-                a[mt][3] = lds32(p + 8 * ROW + 16);     // row g + 8, k 16..31
+                afcm::load_frag_a(a[mt], ws + (tap * BM + wm * 64 + mt * 16 + g) * ROW + t * 4,
+                                  ROW);
             }
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt) {
                 const int pr = wn * 2 + (nt >> 1), pc = (nt & 1) * 8 + g;
-                const unsigned char* p = xs + ((pr + dy) * PW + pc + dx) * ROW + t * 4;
-                b[nt][0] = lds32(p);                    // pixel g, k  0..15
-                b[nt][1] = lds32(p + 16);               // pixel g, k 16..31
+                afcm::load_frag_b(b[nt], xs + ((pr + dy) * PW + pc + dx) * ROW + t * 4);
             }
 #pragma unroll
             for (int mt = 0; mt < 4; ++mt)

@@ -1,0 +1,335 @@
+// Stream, copy and window-load probes for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU probe kernels of three scripts (no tap math in any):
+//   scripts/probe_fir_roofline.py   build_copy :81, build_wr4x :94,
+//                                   build_rd4x :112, build_chain :130
+//   scripts/probe_stream_diag.py    copy3d :39, copy2d :49
+//   scripts/probe_element_windows.py  the four pl.Element calls :41-104
+// They exist to measure what hand-written loads and stores reach at the
+// FIR layers' shapes, beside the fused filtered_lrelu kernel's time:
+//   copy  : y = x                                   (read 1x, write 1x)
+//   wr4x  : y[c][k] = x[c] * 2^-k, k = 0..3         (read 1x, write 4x)
+//   rd4x  : y[c] = (x[c][0] + x[c][1]) + (x[c][2] + x[c][3])  (4x, 1x)
+//   chain : x -> four scaled copies in shared memory -> leaky ReLU 0.2
+//           -> pairwise sum -> y; device memory sees x in, y out
+//   copy_rows : y = x, row by row, a block of rows per CTA
+//   windows : out[ty][tx][c] = scale * (zero-padded x)[c, ty*sh - lo_h + (0..win_h),
+//             tx*sw - lo_w + (0..win_w)]: overlapping, unaligned,
+//             zero-filled input windows, channels zero-padded to c_out
+// bf16 in and out for all but `windows` (fp32). Every product and sum is
+// rounded to bf16 as the TPU kernels round them, with the card's own bf16x2
+// operations (one rounding each, the same result as a float operation on
+// two bf16 values rounded once: 24 >= 2 * 8 + 2 bits); a scale by a power of
+// two is exact, and no product is contracted with a sum into an FMA. The
+// results equal the plain versions bit for bit.
+//
+// What bounds them: bytes. Design: 16-byte loads and stores wherever the
+// address allows. A plane of h * w bf16 is a multiple of 16 bytes at every
+// layer size of the generator (276^2, 148^2, 84^2, 52^2, 256^2), so the flat
+// kernels use 16-byte accesses throughout and fall back to 2-byte accesses
+// for other plane sizes; `copy_rows` keeps the row structure (rows of 276
+// bf16 are 552 bytes: a head and a tail around the 16-byte body of every
+// other row) so that its cost shows. Flat kernels are persistent: 8 CTAs of
+// 256 threads per SM walk the items with a grid stride. `chain` gives each
+// CTA a tile of `tile` 16-byte items of x, 4 * tile * 16 bytes of shared
+// memory (512 items, 32 KB by default, seven CTAs per SM; up to 3584 items
+// fill the 227 KB one CTA can have), and every thread reads back items
+// another thread wrote, so the shared round trip is real.
+//
+// Interface: plain C, loaded with ctypes; launches on the caller's stream
+// and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+#define AFCM_PS_THREADS 256
+#define AFCM_PS_MAX_BLOCKS (132 * 8)
+
+namespace {
+
+constexpr int THREADS = AFCM_PS_THREADS;
+
+// Two bf16 in a word. The card's own bf16 multiply, add and maximum round
+// once to nearest even; the _rn forms are never contracted into an FMA.
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t w) {
+    return *reinterpret_cast<const __nv_bfloat162*>(&w);
+}
+__device__ __forceinline__ uint32_t as_word(__nv_bfloat162 h) {
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t scale_w(uint32_t w, float f) {
+    return as_word(__hmul2_rn(as_bf2(w), __float2bfloat162_rn(f)));
+}
+__device__ __forceinline__ uint32_t add_w(uint32_t a, uint32_t b) {
+    return as_word(__hadd2_rn(as_bf2(a), as_bf2(b)));
+}
+// where(t > 0, t, 0.2 * t) with 0.2 rounded to bf16, as the bf16 kernel's
+// constant is: for t > 0 the product is below t, for t < 0 above it, so the
+// maximum of the two is the same selection (and -0 stays -0).
+__device__ __forceinline__ uint32_t lrelu_w(uint32_t w) {
+    const __nv_bfloat162 t = as_bf2(w);
+    return as_word(__hmax2(t, __hmul2_rn(t, __float2bfloat162_rn(0.2f))));
+}
+
+// An item is eight bf16 (16 bytes) or, for sizes that do not allow it, one.
+template <typename V> struct Ops;
+
+template <> struct Ops<uint4> {
+    static __device__ __forceinline__ uint4 scale(uint4 v, float f) {
+        return make_uint4(scale_w(v.x, f), scale_w(v.y, f), scale_w(v.z, f), scale_w(v.w, f));
+    }
+    static __device__ __forceinline__ uint4 add(uint4 a, uint4 b) {
+        return make_uint4(add_w(a.x, b.x), add_w(a.y, b.y), add_w(a.z, b.z), add_w(a.w, b.w));
+    }
+    static __device__ __forceinline__ uint4 lrelu(uint4 v) {
+        return make_uint4(lrelu_w(v.x), lrelu_w(v.y), lrelu_w(v.z), lrelu_w(v.w));
+    }
+};
+
+template <> struct Ops<unsigned short> {
+    static __device__ __forceinline__ unsigned short scale(unsigned short v, float f) {
+        return static_cast<unsigned short>(scale_w(v, f));
+    }
+    static __device__ __forceinline__ unsigned short add(unsigned short a, unsigned short b) {
+        return static_cast<unsigned short>(add_w(a, b));
+    }
+    static __device__ __forceinline__ unsigned short lrelu(unsigned short v) {
+        return static_cast<unsigned short>(lrelu_w(v));
+    }
+};
+
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+copy_kernel(const V* __restrict__ x, V* __restrict__ y, long long items) {
+    const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+    for (long long i = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x; i < items;
+         i += stride)
+        y[i] = x[i];
+}
+
+// x [c][pv], y [c][4][pv] in items.
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+wr4x_kernel(const V* __restrict__ x, V* __restrict__ y, long long items, int pv) {
+    const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+    for (long long i = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x; i < items;
+         i += stride) {
+        const long long c = i / pv;
+        V* o = y + (i - c * pv) + 4 * c * pv;
+        const V v = x[i];
+        o[0] = v;
+        o[pv] = Ops<V>::scale(v, 0.5f);
+        o[2 * static_cast<long long>(pv)] = Ops<V>::scale(v, 0.25f);
+        o[3 * static_cast<long long>(pv)] = Ops<V>::scale(v, 0.125f);
+    }
+}
+
+// x [c][4][pv], y [c][pv] in items.
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+rd4x_kernel(const V* __restrict__ x, V* __restrict__ y, long long items, int pv) {
+    const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+    for (long long i = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x; i < items;
+         i += stride) {
+        const long long c = i / pv;
+        const V* p = x + (i - c * pv) + 4 * c * pv;
+        const V a = p[0], b = p[pv], d = p[2 * static_cast<long long>(pv)],
+                e = p[3 * static_cast<long long>(pv)];
+        y[i] = Ops<V>::add(Ops<V>::add(a, b), Ops<V>::add(d, e));
+    }
+}
+
+// Elementwise over `items`; each CTA walks tiles of `tile` items with the
+// four scaled copies [4][tile] in shared memory.
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+chain_kernel(const V* __restrict__ x, V* __restrict__ y, long long items, int tile) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    V* tmp = reinterpret_cast<V*>(smem_raw);
+    const long long tiles = (items + tile - 1) / tile;
+    for (long long tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+        const long long base = tl * tile;
+        for (int j = threadIdx.x; j < tile; j += THREADS) {
+            if (base + j < items) {
+                const V v = x[base + j];
+                tmp[j] = v;
+                tmp[tile + j] = Ops<V>::scale(v, 0.5f);
+                tmp[2 * tile + j] = Ops<V>::scale(v, 0.25f);
+                tmp[3 * tile + j] = Ops<V>::scale(v, 0.125f);
+            }
+        }
+        __syncthreads();
+        for (int j = threadIdx.x; j < tile; j += THREADS) {
+            const int r = tile - 1 - j;                 // an item another thread wrote
+            if (base + r < items) {
+                const V a = Ops<V>::lrelu(tmp[r]), b = Ops<V>::lrelu(tmp[tile + r]);
+                const V d = Ops<V>::lrelu(tmp[2 * tile + r]), e = Ops<V>::lrelu(tmp[3 * tile + r]);
+                y[base + r] = Ops<V>::add(Ops<V>::add(a, b), Ops<V>::add(d, e));
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// y = x for [rows][row_elems] bf16, rows_per_cta rows per CTA, a warp per
+// row: 2-byte accesses up to the first 16-byte boundary, 16-byte accesses,
+// 2-byte accesses for the rest. x and y share their alignment.
+__global__ void __launch_bounds__(THREADS)
+copy_rows_kernel(const unsigned short* __restrict__ x, unsigned short* __restrict__ y,
+                 long long rows, int row_elems, int rows_per_cta) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_cta;
+    for (int r = warp; r < rows_per_cta; r += THREADS / 32) {
+        const long long row = row0 + r;
+        if (row >= rows) break;
+        const unsigned short* src = x + row * row_elems;
+        unsigned short* dst = y + row * row_elems;
+        int head = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / 2);
+        if (head > row_elems) head = row_elems;
+        const int body = (row_elems - head) / 8, tail = row_elems - head - 8 * body;
+        if (lane < head) dst[lane] = src[lane];
+        const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+        uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+        for (int v = lane; v < body; v += 32) d4[v] = s4[v];
+        if (lane < tail) dst[head + 8 * body + lane] = src[head + 8 * body + lane];
+    }
+}
+
+// out [n_th][n_tw][c_out][win_h][win_w] fp32; a warp per output row, lanes
+// along the window; loads are predicated, outside x the value is zero.
+__global__ void __launch_bounds__(THREADS)
+windows_kernel(const float* __restrict__ x, float* __restrict__ out, int C, int H, int W,
+               int c_out, int win_h, int win_w, int n_tw, long long rows, int sh, int sw,
+               int lo_h, int lo_w, float scale) {
+    const int lane = threadIdx.x & 31;
+    const long long warps = static_cast<long long>(gridDim.x) * (THREADS / 32);
+    for (long long row = blockIdx.x * static_cast<long long>(THREADS / 32) + (threadIdx.x >> 5);
+         row < rows; row += warps) {
+        const int r = static_cast<int>(row % win_h);
+        const long long rest = row / win_h;
+        const int c = static_cast<int>(rest % c_out);
+        const int tile = static_cast<int>(rest / c_out);
+        const int ty = tile / n_tw, tx = tile - ty * n_tw;
+        const int gy = ty * sh - lo_h + r, gx0 = tx * sw - lo_w;
+        const bool row_in = c < C && gy >= 0 && gy < H;
+        const float* src = x + (static_cast<size_t>(c) * H + gy) * W;
+        float* dst = out + row * win_w;
+        for (int q = lane; q < win_w; q += 32) {
+            const int gx = gx0 + q;
+            float v = 0.f;
+            if (row_in && gx >= 0 && gx < W) v = src[gx];
+            dst[q] = scale * v;
+        }
+    }
+}
+
+int blocks_for(long long items) {
+    const long long want = (items + THREADS - 1) / THREADS;
+    return static_cast<int>(want < AFCM_PS_MAX_BLOCKS ? (want < 1 ? 1 : want) : AFCM_PS_MAX_BLOCKS);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+}  // namespace
+
+extern "C" {
+
+// y = x, `elems` bf16, flat.
+int afcm_probe_copy(const void* x, void* y, long long elems, void* stream) {
+    if (elems < 1) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (elems % 8 == 0 && aligned16(x) && aligned16(y))
+        copy_kernel<uint4><<<blocks_for(elems / 8), THREADS, 0, st>>>(
+            static_cast<const uint4*>(x), static_cast<uint4*>(y), elems / 8);
+    else
+        copy_kernel<unsigned short><<<blocks_for(elems), THREADS, 0, st>>>(
+            static_cast<const unsigned short*>(x), static_cast<unsigned short*>(y), elems);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// which: 0 = wr4x (x [c][plane] -> y [c][4][plane]), 1 = rd4x (x [c][4][plane]
+// -> y [c][plane]); bf16.
+int afcm_probe_x4(const void* x, void* y, long long c, int plane, int which, void* stream) {
+    if (c < 1 || plane < 1 || which < 0 || which > 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool vec = plane % 8 == 0 && aligned16(x) && aligned16(y);
+    const int pv = vec ? plane / 8 : plane;
+    const long long items = c * pv;
+    const int blocks = blocks_for(items);
+    if (vec) {
+        const uint4* xv = static_cast<const uint4*>(x);
+        uint4* yv = static_cast<uint4*>(y);
+        if (which == 0) wr4x_kernel<uint4><<<blocks, THREADS, 0, st>>>(xv, yv, items, pv);
+        else rd4x_kernel<uint4><<<blocks, THREADS, 0, st>>>(xv, yv, items, pv);
+    } else {
+        const unsigned short* xs = static_cast<const unsigned short*>(x);
+        unsigned short* ys = static_cast<unsigned short*>(y);
+        if (which == 0) wr4x_kernel<unsigned short><<<blocks, THREADS, 0, st>>>(xs, ys, items, pv);
+        else rd4x_kernel<unsigned short><<<blocks, THREADS, 0, st>>>(xs, ys, items, pv);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// y = chain(x), `elems` bf16; `tile` items (16 bytes, or 2 where elems % 8)
+// of x per CTA step, a multiple of 256; shared memory 4 * tile items.
+int afcm_probe_chain(const void* x, void* y, long long elems, int tile, void* stream) {
+    if (elems < 1 || tile < THREADS || tile % THREADS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const bool vec = elems % 8 == 0 && aligned16(x) && aligned16(y);
+    const long long items = vec ? elems / 8 : elems;
+    const size_t smem = static_cast<size_t>(4) * tile * (vec ? 16 : 2);
+    if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+    const long long tiles = (items + tile - 1) / tile;
+    const int blocks = static_cast<int>(tiles < AFCM_PS_MAX_BLOCKS ? tiles : AFCM_PS_MAX_BLOCKS);
+    cudaError_t err = vec
+        ? cudaFuncSetAttribute(chain_kernel<uint4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem))
+        : cudaFuncSetAttribute(chain_kernel<unsigned short>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (vec)
+        chain_kernel<uint4><<<blocks, THREADS, smem, st>>>(
+            static_cast<const uint4*>(x), static_cast<uint4*>(y), items, tile);
+    else
+        chain_kernel<unsigned short><<<blocks, THREADS, smem, st>>>(
+            static_cast<const unsigned short*>(x), static_cast<unsigned short*>(y), items, tile);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// y = x for bf16 [rows][row_elems], rows_per_cta rows per CTA.
+int afcm_probe_copy_rows(const void* x, void* y, long long rows, int row_elems,
+                         int rows_per_cta, void* stream) {
+    if (rows < 1 || row_elems < 1 || rows_per_cta < 1 ||
+        (reinterpret_cast<uintptr_t>(x) & 15) != (reinterpret_cast<uintptr_t>(y) & 15))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long blocks = (rows + rows_per_cta - 1) / rows_per_cta;
+    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    copy_rows_kernel<<<static_cast<int>(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned short*>(x), static_cast<unsigned short*>(y), rows, row_elems,
+        rows_per_cta);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// out fp32 [n_th][n_tw][c_out][win_h][win_w] of x fp32 [c][h][w].
+int afcm_probe_windows(const void* x, void* out, int c, int h, int w, int c_out, int win_h,
+                       int win_w, int n_th, int n_tw, int sh, int sw, int lo_h, int lo_w,
+                       float scale, void* stream) {
+    if (c < 1 || h < 1 || w < 1 || c_out < c || win_h < 1 || win_w < 1 || n_th < 1 || n_tw < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long rows = static_cast<long long>(n_th) * n_tw * c_out * win_h;
+    const long long want = (rows + THREADS / 32 - 1) / (THREADS / 32);
+    const int blocks = static_cast<int>(want < AFCM_PS_MAX_BLOCKS ? want : AFCM_PS_MAX_BLOCKS);
+    windows_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), c, h, w, c_out, win_h, win_w,
+        n_tw, rows, sh, sw, lo_h, lo_w, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

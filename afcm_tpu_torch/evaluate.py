@@ -9,7 +9,9 @@ test subject with the EMA generator on the device, and reports 3-D and
 per-slice PSNR/SSIM into ``evaluate.txt``. It runs on the CUDA device and
 raises when there is none, unless ``--device cpu`` asks for the CPU (where
 every kernel's plain version runs). ``tpu.conv_int8 True`` routes the gated
-3x3 convs through the int8 conv kernel (``ops/cuda/conv_int8.py``).
+3x3 convs through the int8 conv kernel (``ops/cuda/conv_int8.py``);
+``tpu.fetch_dtype bfloat16`` rounds each prediction batch on the device so
+that the copy to the host moves half the bytes.
 """
 
 from __future__ import annotations
@@ -64,12 +66,26 @@ class DeviceResult:
         self.copy_to_host_async()
         if self._event is not None:
             self._event.synchronize()
-        arr = self._host.numpy()
+        host = self._host
+        if host.dtype == torch.bfloat16:    # numpy has no bf16; widening is exact
+            host = host.float()
+        arr = host.numpy()
         return arr if dtype is None else arr.astype(dtype, copy=False)
 
 
+def fetch_dtype_or_none(fetch_dtype):
+    """``tpu.fetch_dtype`` -> the dtype the output is cast to on the device
+    before the copy to the host; None leaves it float32
+    (``afcm_tpu/evaluate.py:46-49``)."""
+    if fetch_dtype in (None, "float32"):
+        return None
+    if fetch_dtype != "bfloat16":
+        raise ValueError(f"tpu.fetch_dtype {fetch_dtype!r}: float32 or bfloat16")
+    return torch.bfloat16
+
+
 def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
-                    eval_z: str = "per-batch"):
+                    eval_z: str = "per-batch", fetch_dtype=None):
     """(A, slice_idx) numpy batch -> ``DeviceResult`` of the EMA generator.
 
     ``eval_z="per-batch"`` draws a fresh z for every batch from one seeded
@@ -77,10 +93,13 @@ def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
     ``"fixed"`` draws z once and reuses it, i.e. one z per batch position
     for the whole run — the JAX package's behaviour, kept as it is (ROADMAP
     fault C1; fixed in both packages together). uint8 batches are normalized
-    on the device with ``norm_range``."""
+    on the device with ``norm_range``. ``fetch_dtype="bfloat16"`` rounds the
+    prediction batch on the device (``afcm_tpu/evaluate.py:217-232``); the
+    predictor accumulates float32 either way."""
     if eval_z not in ("per-batch", "fixed"):
         raise ValueError(f"eval_z {eval_z!r}")
     device = torch.device(device)
+    out_dtype = fetch_dtype_or_none(fetch_dtype)
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
     fixed_z = {}
@@ -100,7 +119,8 @@ def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
             z = fixed_z[n]
         else:
             z = torch.randn((n, model.z_dim), generator=rng, device=device)
-        return DeviceResult(model.eval_step(a, s, z=z))
+        out = model.eval_step(a, s, z=z)
+        return DeviceResult(out if out_dtype is None else out.to(out_dtype))
     return forward
 
 
@@ -126,9 +146,7 @@ def configure_numerics(cfg) -> str:
     """Check the config's device knobs, set the conv implementation from
     ``tpu.conv_int8`` (``afcm_tpu/evaluate.py:138-142``) and the matmul
     precision of ``tpu.compute_dtype``, and return the compute dtype."""
-    if getattr(cfg.tpu, "fetch_dtype", "float32") not in (None, "float32"):
-        raise NotImplementedError("tpu.fetch_dtype bfloat16 is not ported yet "
-                                  "(ROADMAP item A5)")
+    fetch_dtype_or_none(getattr(cfg.tpu, "fetch_dtype", None))     # raises on a bad value
     if getattr(cfg.tpu, "conv_int8", False):
         set_conv_impl("int8", getattr(cfg.tpu, "conv_int8_variant", "dots"),
                       getattr(cfg.tpu, "conv_int8_min_ch", 64))
@@ -160,6 +178,36 @@ def load_generator_ema(model: GANModel, run_dir: str, tag: str):
     path = os.path.join(run_dir, f"{tag}_net_G_ema.pth")
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.generator_ema.load_state_dict(state, strict=True)
+
+
+def ensure_volumetric(cfg, entry_point: str) -> None:
+    """The volumetric predictor flow has no meaning for the pix2pix
+    image-folder baseline (``afcm_tpu/evaluate.py:168-177``)."""
+    if getattr(cfg.model, "name", "stylegan3") == "pix2pix":
+        raise NotImplementedError(
+            f"{entry_point} is the volumetric predictor flow; the pix2pix "
+            "image-folder baseline is trained/validated via the train CLI "
+            "(PSNR/SSIM on the val split), matching the reference's scope.")
+
+
+def build_serving_forward(cfg, device):
+    """What the evaluate and serve CLIs share: set the numerics of the
+    config (the caller resets the conv implementation when it ends), build
+    the model, load ``<tag>_net_G_ema.pth`` strictly, move the weights to
+    the device once and return ``(forward, run_dir)``."""
+    if getattr(cfg.model, "name", "stylegan3") != "stylegan3":
+        raise NotImplementedError(f"model {cfg.model.name} is not ported yet "
+                                  "(ROADMAP items A10-A11)")
+    compute_dtype = configure_numerics(cfg)
+    model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
+    run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
+    load_generator_ema(model, run_dir, checkpoint_tag(cfg))
+    model.generator_ema.to(device)      # the weights move to the device once
+    forward = make_forward_fn(model, device,
+                              norm_range=pipeline_norm_range(cfg),
+                              eval_z=getattr(cfg.tpu, "eval_z", "per-batch"),
+                              fetch_dtype=getattr(cfg.tpu, "fetch_dtype", None))
+    return forward, run_dir
 
 
 def find_target_volume(ori_file_path: Optional[str], modality: str,
@@ -245,21 +293,11 @@ def main(argv=None):
     print(cfg.dump())
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""))
-    if getattr(cfg.model, "name", "stylegan3") != "stylegan3":
-        raise NotImplementedError(f"model {cfg.model.name} is not ported yet "
-                                  "(ROADMAP items A10-A11)")
-    compute_dtype = configure_numerics(cfg)
+    ensure_volumetric(cfg, "afcm_tpu_torch.evaluate")
     try:
-        model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
-        run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
-        load_generator_ema(model, run_dir, checkpoint_tag(cfg))
-        model.generator_ema.to(device)  # the weights move to the device once
-
+        forward, run_dir = build_serving_forward(cfg, device)
         out_path = os.path.join(run_dir, "evaluate")
         os.makedirs(out_path, exist_ok=True)
-        forward = make_forward_fn(model, device,
-                                  norm_range=pipeline_norm_range(cfg),
-                                  eval_z=getattr(cfg.tpu, "eval_z", "per-batch"))
         return serve_and_score(forward, get_test_loaders(cfg), out_path,
                                cfg.loaders.raw_internal_path_out[-1], config=cfg,
                                patch_halo=cfg.predictor.patch_halo,

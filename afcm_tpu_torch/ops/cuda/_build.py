@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on first use
 into ``afcm_tpu_torch/_build/lib<name>_<hash>.so``; the hash covers the
-source and the flags, so an edited source rebuilds. ``load_libraries``
+source, the ``csrc`` headers it includes and the flags, so an edited source
+or header rebuilds. ``load_libraries``
 runs one nvcc per source, all at once. Nothing here runs at
 import time: the CPU tests import every module on a machine without nvcc.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -42,6 +44,22 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _source_digest(src: Path) -> str:
+    """Hash of a source, of every ``csrc`` header it includes with quotes
+    (followed through the headers) and of the flags."""
+    seen, todo, h = set(), [src], hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    while todo:
+        path = todo.pop()
+        if path in seen or not path.exists():
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + text)
+        todo.extend(CSRC_DIR / inc for inc in sorted(
+            re.findall(r'^\s*#\s*include\s+"([^"]+)"', text.decode(), re.M)))
+    return h.hexdigest()[:16]
+
+
 def load_libraries(names) -> Dict[str, Tuple[ctypes.CDLL, dict]]:
     """Build (if needed) and load ``csrc/<name>.cu`` for every name, cached
     per process; the nvcc runs of all sources that need a build run at the
@@ -54,8 +72,7 @@ def load_libraries(names) -> Dict[str, Tuple[ctypes.CDLL, dict]]:
             if name in _loaded or name in pending:
                 continue
             src = CSRC_DIR / f"{name}.cu"
-            digest = hashlib.sha256(src.read_bytes() +
-                                    " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            digest = _source_digest(src)
             so = BUILD_DIR / f"lib{name}_{digest}.so"
             info = {"path": str(so), "seconds": 0.0, "log": ""}
             proc = tmp = None
@@ -63,7 +80,8 @@ def load_libraries(names) -> Dict[str, Tuple[ctypes.CDLL, dict]]:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
                 proc = subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+                     str(src)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             pending[name] = (src, so, tmp, info, proc, time.perf_counter())
         for src, so, tmp, info, proc, t0 in pending.values():

@@ -5,15 +5,17 @@
 
 Drives the port's main paths — CMSR serving with the shipped ADNI alias-free
 generator, the CMSR training step of that generator and its discriminator,
-and the int8 serving path (tpu.conv_int8 True), all at full width and depth
-(random weights from a seed) — and checks the hand-written kernels on them:
-K1 and K2 (the fused filtered leaky ReLU forward and backward) and K3 (the
-int8 3x3 conv with its dequantizing epilogue; K4, its straight-through
-autograd Function, has no kernel of its own):
+the int8 serving path (tpu.conv_int8 True), all at full width and depth
+(random weights from a seed), the five measurement probes and the serve
+entry point's loop — and checks the hand-written kernels on them: K1 and K2
+(the fused filtered leaky ReLU forward and backward), K3 (the int8 3x3 conv
+with its dequantizing epilogue; K4, its straight-through autograd Function,
+has no kernel of its own) and the probe kernels K5-K9 (stream, copy,
+window-load and int8 matrix-rate probes):
 
 1. the device, and nvidia-smi's name and power limit;
-2. builds K1, K2 and K3 from csrc/ with nvcc, all at once, and prints the
-   build times;
+2. builds the five sources of csrc/ (K1, K2, K3, the stream probes, the
+   int8 probes) with nvcc, all at once, and prints the build times;
 3. K1 against its plain PyTorch version for the four filter variants of the
    generator at full-size layer shapes (batch 2): fp32 with TF32 off within
    1e-4 * max|plain| + 1e-4, bf16 at PSNR >= 38 dB against fp32 plain; both
@@ -67,7 +69,18 @@ autograd Function, has no kernel of its own):
    generator; (e) the phantom served under a config with tpu.conv_int8 True
    at bf16 b16, the conv implementation set by configure_numerics: finite
    volume and scores, 28 K1 and 11 K3 launches per batch; then the knob off
-   and no K3 launch in the next forward.
+   and no K3 launch in the next forward;
+9. the probes: (a) each of the nine probe kernels (copy, wr4x, rd4x, chain,
+   copy3d, copy2d, windows, stacked_matmul, nine_tap in its four modes) at
+   a small shape and at a full one against its plain version: every one is
+   exact, the count of unequal elements is printed and must be 0; (b) the
+   five entry points (afcm_tpu_torch.probes.*.main) at full size, their
+   tables printed, each kernel launched at least once; (c) per kernel its
+   time, rate, bound and the library call's time;
+10. the serve entry point's loop (afcm_tpu_torch.serve.serve_subjects) over
+   the phantom at full width in float32, with the float32 fetch and with
+   tpu.fetch_dtype bfloat16: 28 K1 launches per batch, the bf16-fetched
+   volume >= 50 dB from the float32-fetched one, NIfTI heads written.
 
 Then prints the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
@@ -95,6 +108,7 @@ import numpy as np
 import torch
 
 # Fails outside a checkout of the repository, before anything is printed.
+from afcm_tpu_torch import probes, serve
 from afcm_tpu_torch import train as train_cli
 from afcm_tpu_torch.data.demo import phantom_test_loader, phantom_train_loaders
 from afcm_tpu_torch.evaluate import (configure_numerics, load_generator_ema,
@@ -106,6 +120,11 @@ from afcm_tpu_torch.ops import (conv2d_gradfix, get_conv_impl, modulated_conv,
 from afcm_tpu_torch.ops.cuda import _build
 from afcm_tpu_torch.ops.cuda import conv_int8 as k3
 from afcm_tpu_torch.ops.cuda import filtered_lrelu as k1
+from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+from afcm_tpu_torch.ops.cuda import probe_stream as ps
+from afcm_tpu_torch.probes import (element_windows, fir_roofline, int8_kernel,
+                                   int8_matmul, stream_diag)
+from afcm_tpu_torch.utils.profiling import cuda_median_ms, cuda_ms
 
 SEED = 0
 # One full-size layer per filter variant of the shipped generator: the
@@ -133,28 +152,6 @@ WARM_STEPS, WINDOW_STEPS, WINDOWS = 3, 4, 3
 
 def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
-
-
-def cuda_ms(fn, iters=10, warmup=2):
-    """Mean device time of fn() in ms, by CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cuda_median_ms(fn, repeats=10, warmup=2):
-    """Median device time of fn() in ms over `repeats` single timed calls."""
-    for _ in range(warmup):
-        fn()
-    return float(np.median([cuda_ms(fn, iters=1, warmup=0) for _ in range(repeats)]))
 
 
 def psnr(got, want):
@@ -951,6 +948,238 @@ def time_forward(device, trace_dir=None):
     return legs
 
 
+def unequal_elements(got, want):
+    """(count of elements whose bits differ, max |difference|)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"kernel gave {tuple(got.shape)} {got.dtype}, plain "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if got.dtype == torch.bfloat16:
+        differ = got.view(torch.int16) != want.view(torch.int16)
+    else:
+        differ = got != want
+    count = int(differ.sum())
+    err = float((got.double() - want.double()).abs().max()) if count else 0.0
+    return count, err
+
+
+def check_probe_kernels(device):
+    """Phase 9a: every probe kernel against its plain version, at a small
+    and at a full shape. All are exact: any unequal element fails. Returns
+    {kernel: (unequal, max_abs_err, plain_ms at the full shape)}."""
+    gen = probes.device_generator(device, SEED + 40)
+    results = {}
+
+    def hold(kernel, size, fn, plain, *args, note=None):
+        before = dict(ps.launches), dict(p8.launches)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launched = sum(ps.launches.values()) + sum(p8.launches.values()) \
+            - sum(before[0].values()) - sum(before[1].values())
+        want = plain(*args)
+        unequal, err = unequal_elements(got, want)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=0) if size == "full" else None
+        phase("9a probe kernel vs plain", kernel=kernel, size=size,
+              **({"note": note} if note else {}), out=list(got.shape),
+              unequal_elements=unequal, max_abs_err=err, launches=launched,
+              plain_ms=plain_ms)
+        if unequal or launched != 1:
+            raise AssertionError(f"{kernel} ({size}): {unequal} elements differ from the "
+                                 f"plain version, {launched} launches")
+        old = results.get(kernel, (0, 0.0, None))
+        results[kernel] = (old[0] + unequal, max(old[1], err),
+                           plain_ms if plain_ms is not None else old[2])
+        del got, want
+        torch.cuda.empty_cache()
+
+    name, c0, h, w, rep = fir_roofline.SHAPES[0]
+    for size, shape in (("small", (8, 16, 24)), ("small", (5, 7, 9)),
+                        ("full", (fir_roofline.BATCH * c0 * rep, h, w))):
+        x = probes.randn_bf16(shape, device, gen)
+        hold("copy", size, ps.stream_copy, ps.stream_copy_plain, x)
+        hold("wr4x", size, ps.stream_wr4x, ps.stream_wr4x_plain, x)
+        hold("chain", size, ps.stream_chain, ps.stream_chain_plain, x)
+        del x
+        x4 = probes.randn_bf16((shape[0], 4) + shape[1:], device, gen)
+        hold("rd4x", size, ps.stream_rd4x, ps.stream_rd4x_plain, x4)
+        del x4
+    for size, shape, cb, cols, br in (("small", (8, 9, 276), 2, 72, 5),
+                                      ("full", stream_diag.SHAPES[0][1:], 8,
+                                       stream_diag.FLAT_COLS, 4096)):
+        x = probes.randn_bf16(shape, device, gen)
+        hold("copy3d", size, lambda t: ps.copy3d(t, cb), ps.stream_copy_plain, x,
+             note=f"cb={cb}")
+        flat = x.reshape(-1, cols)
+        hold("copy2d", size, lambda t: ps.copy2d(t, br), ps.stream_copy_plain, flat,
+             note=f"br={br}, {flat.shape[0]} rows")
+        del x, flat
+    xw = torch.randn((element_windows.C, element_windows.H, element_windows.W),
+                     generator=gen, device=device)
+    for label, n_t, stride, lo, c_out in element_windows.CASES:
+        kw = dict(win_w=element_windows.WIN, n_tw=n_t, stride_w=stride, lo_w=lo, c_out=c_out)
+        hold("windows", "small", lambda t: ps.element_windows(t, **kw),
+             lambda t: ps.element_windows_plain(t, **kw), xw, note=label)
+    for label, planes, in_size, _, (t, win, stride, lo, tiles) in \
+            element_windows.variant_geometry(small=False):
+        xv = torch.randn((planes, in_size, in_size), generator=gen, device=device)
+        kw = dict(win_w=win, n_tw=tiles, stride_w=stride, lo_w=lo, win_h=win, n_th=tiles,
+                  stride_h=stride, lo_h=lo)
+        hold("windows", "full" if label.startswith("A") else "full (not timed)",
+             lambda t: ps.element_windows(t, **kw),
+             lambda t: ps.element_windows_plain(t, **kw), xv, note=label)
+        del xv
+    for size, (o, i, l, k) in (("small", (128, 64, 128, 2)), ("full", int8_matmul.SHAPES[0])):
+        a, b = probes.randint8((o, i), device, gen), probes.randint8((k, i, l), device, gen)
+        hold("stacked_matmul", size, p8.stacked_matmul_int8, p8.stacked_matmul_int8_plain,
+             a, b, note="b [K, I, L]")
+        bt = b.transpose(1, 2).contiguous()
+        del b
+        hold("stacked_matmul", size + " (not timed)" if size == "full" else size,
+             lambda u, v: p8.stacked_matmul_int8(u, v, "kli"),
+             lambda u, v: p8.stacked_matmul_int8_plain(u, v, "kli"), a, bt,
+             note="b [K, L, I]")
+        del a, bt
+    for size, (o, i, cols, wp, steps) in (
+            ("small", (128, 64, 128, 21, 2)),
+            ("full", (int8_kernel.O, int8_kernel.I, int8_kernel.COLS, int8_kernel.WP,
+                      int8_kernel.STEPS))):
+        w9 = probes.randint8((9, o, i), device, gen)
+        x = probes.randint8((steps, i, int8_kernel.window(cols, wp)), device, gen)
+        for mode in p8.MODES:
+            hold("nine_tap", size if mode == "slices" or size == "small"
+                 else size + " (not timed)",
+                 lambda u, v: p8.nine_tap_int8(u, v, mode, cols, wp),
+                 lambda u, v: p8.nine_tap_int8_plain(u, v, mode, cols, wp), w9, x, note=mode)
+        del w9, x
+    return results
+
+
+def run_probes(checked):
+    """Phases 9b and 9c: the five probe entry points at full size on the
+    card, then one kernels-line entry per probe kernel from their rows.
+    Every probe kernel must have been launched by the entry points."""
+    ps.reset_launches()
+    p8.reset_launches()                         # the probe entry points' run starts here
+    tables = {}
+    for module in (fir_roofline, stream_diag, element_windows, int8_matmul, int8_kernel):
+        name = module.__name__.rsplit(".", 1)[1]
+        print(f"--- 9b python -m {module.__name__}", flush=True)
+        tables[name] = module.main([])
+    launches = {**ps.launches, **p8.launches}
+    phase("9b probe launches", **launches)
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        raise AssertionError(f"the probe entry points launched no {missing}")
+    bad = [r["case"] for r in tables["element_windows"] if "case" in r and not r["ok"]]
+    if bad:
+        raise AssertionError(f"element_windows: {bad} differ from the numpy reference")
+
+    hbm = probes.HBM_BYTES_PER_S
+    fir = tables["fir_roofline"][0]
+    diag = {(r["shape"], r["kernel"], r["block"]): r for r in tables["stream_diag"]}
+    win = next(r for r in tables["element_windows"] if r.get("variant", "").startswith("A"))
+    mm = tables["int8_matmul"][0]
+    taps = {r["mode"]: r for r in tables["int8_kernel"]}
+    shape = f"{fir['shape']} x{fir_roofline.BATCH} ({fir['planes']} planes of {fir['h']}x{fir['w']} bf16)"
+    src = "afcm_tpu_torch/csrc/probe_stream.cu"
+    entries = []
+
+    def entry(name, kernel, source, replaces, ms, bound_ms, bound_by, library_ms, library,
+              timed_at, **more):
+        unequal, err, plain_ms = checked[kernel]
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "path": "probe entry point", "launches": launches[kernel],
+                        "max_abs_err": err, "unequal_elements": unequal, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms, "library": library, "timed_at": timed_at,
+                        **more})
+
+    for kernel, line in (("copy", 81), ("wr4x", 94), ("rd4x", 112), ("chain", 130)):
+        nb = fir["bytes"][kernel]
+        entry(f"probe_stream_{kernel}", kernel, src, f"scripts/probe_fir_roofline.py:{line}",
+              fir[f"{kernel}_ms"], 1e3 * nb / hbm, "bytes",
+              fir["library_copy_ms"] if kernel == "copy" else None,
+              "Tensor.copy_" if kernel == "copy" else None, shape,
+              gbps=fir[f"{kernel}_gbps"])
+    first = stream_diag.SHAPES[0][0]
+    for kernel, key, line in (("copy3d", (first, "copy3d", "cb=8"), 39),
+                              ("copy2d", ("flat", "copy2d", "br=4096"), 49)):
+        row, lib = diag[key], diag[(key[0], "library-mult", "")]
+        entry(f"probe_stream_{kernel}", kernel, src, f"scripts/probe_stream_diag.py:{line}",
+              row["ms"], 1e3 * row["bytes"] / hbm, "bytes", lib["ms"],
+              "x * 1.0009765625 (torch elementwise)",
+              f"{key[0]} {key[2]}, {row['bytes'] / 2e6:.0f} MB bf16", gbps=row["gbps"])
+    entry("probe_stream_windows", "windows", src, "scripts/probe_element_windows.py:41",
+          win["ms"], 1e3 * win["moved_bytes"] / hbm, "bytes", None, None,
+          f"the fused kernel's windows at {win['variant']}: {win['tiles']} windows of "
+          f"{win['window']}^2 per plane, {win['planes']} planes of {win['in_size']}^2 fp32",
+          gbps=win["moved_gbps"], window_read_gbps=win["read_gbps"])
+    entry("probe_int8_stacked_matmul", "stacked_matmul", "afcm_tpu_torch/csrc/probe_int8.cu",
+          "scripts/bench_int8_matmul.py:37", mm["kernel_ms"], mm["bound_ms"], mm["bound_by"],
+          mm["int_mm_ms"] if mm["int_mm_ms"] is not None else mm["bf16_ms"],
+          "torch._int_mm per k" if mm["int_mm_ms"] is not None else
+          "torch.matmul in bf16 (this torch has no _int_mm for the shape)",
+          f"[{mm['o']},{mm['i']}] @ [{mm['k']},{mm['i']},{mm['l']}] int8 -> int32",
+          tops=mm["kernel_tops"], kli_ms=mm["kernel_kli_ms"], bf16_matmul_ms=mm["bf16_ms"])
+    sl = taps["slices"]
+    nbytes = 9 * int8_kernel.O * int8_kernel.I + int8_kernel.STEPS * (
+        int8_kernel.I * int8_kernel.window(int8_kernel.COLS, int8_kernel.WP)
+        + 2 * int8_kernel.O * int8_kernel.COLS)
+    by_ops, by_bytes = 1e3 * sl["ops"] / probes.INT8_OP_PER_S, 1e3 * nbytes / hbm
+    entry("probe_int8_nine_tap", "nine_tap", "afcm_tpu_torch/csrc/probe_int8.cu",
+          "scripts/diag_int8_kernel.py:38", sl["ms"], max(by_ops, by_bytes),
+          "operations" if by_ops >= by_bytes else "bytes", None, None,
+          f"mode slices: w9 [9,{int8_kernel.O},{int8_kernel.I}], x [{int8_kernel.STEPS},"
+          f"{int8_kernel.I},{int8_kernel.window(int8_kernel.COLS, int8_kernel.WP)}] int8 "
+          "-> bf16", tops=sl["tops"],
+          modes_ms={mode: row["ms"] for mode, row in taps.items()})
+    for e in entries:
+        phase("9c probe kernel", kernel=e["name"], **{k: e[k] for k in (
+            "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "timed_at")}, rate=e.get("gbps", e.get("tops")),
+            rate_unit="GB/s" if "gbps" in e else "TOP/s")
+    return entries
+
+
+def serve_phantom_cli_loop(device):
+    """Phase 10: the serve entry point's loop over the phantom, float32
+    compute, with the float32 fetch and with tpu.fetch_dtype bfloat16.
+    Returns the K1 launches of the two runs."""
+    set_matmul_precision("float32")
+    model = shipped_model("float32")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    runs, batches = {}, 0
+    k1.launches = k1.bwd_launches = k3.launches = 0     # the serve path's run starts here
+    for fetch in ("float32", "bfloat16"):
+        loader = phantom_test_loader(depth=24, size=256, batch_size=SERVE_BATCH, seed=SEED)
+        forward = make_forward_fn(model, device, seed=SEED, norm_range=loader.norm_range,
+                                  fetch_dtype=fetch)
+        runs[fetch] = serve.serve_subjects(forward, [loader], os.path.join(out_dir, fetch),
+                                           keep_volumes=True)
+        runs[fetch]["heads"] = sorted(os.listdir(runs[fetch]["out_dir"]))
+        batches += len(loader)
+    launches = k1.launches
+    (full,), (half,) = (list(runs[f]["volumes"].values()) for f in ("float32", "bfloat16"))
+    mse = float(np.mean((full.astype(np.float64) - half) ** 2))
+    db = 10 * np.log10(float(full.max() - full.min()) ** 2 / max(mse, 1e-30))
+    finite = bool(np.isfinite(full).all() and np.isfinite(half).all())
+    heads = runs["bfloat16"]["heads"]
+    phase("10 serve loop", compute_dtype="float32", batch=SERVE_BATCH, batches=batches,
+          subjects=[runs[f]["subjects"] for f in runs],
+          patches_per_s={f: runs[f]["patches_per_s"] for f in runs},
+          heads=heads, volume=list(full.shape), finite=finite, bf16_fetch_psnr_db=db,
+          bf16_fetch_differs=bool((full != half).any()), k1_launches=launches)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if launches != LAYERS_WITH_KERNEL * batches or k1.bwd_launches or k3.launches:
+        raise AssertionError(f"{launches} K1 launches for {batches} served batches; want "
+                             f"{LAYERS_WITH_KERNEL} per batch and no K2 or K3")
+    if not (finite and full.shape == half.shape == (24, 256, 256) and db >= 50
+            and any("predictions" in h for h in heads)):
+        raise AssertionError(f"bf16-fetched volume {db:.2f} dB from the float32-fetched "
+                             f"one (< 50), a bad volume {full.shape} or no NIfTI head "
+                             f"in {heads}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", metavar="DIR",
@@ -969,7 +1198,7 @@ def main(argv=None):
     print(smi)
 
     builds = _build.load_libraries(["filtered_lrelu", "filtered_lrelu_bwd",
-                                    "conv_int8"])
+                                    "conv_int8", "probe_stream", "probe_int8"])
     for kernel, (_, info) in builds.items():
         ptxas = [line.strip() for line in info["log"].splitlines()
                  if "registers" in line or "spill" in line]
@@ -999,12 +1228,16 @@ def main(argv=None):
     check_ste_backward()
     check_generator_int8(device)
     int8_launches = serve_phantom_int8(device)
+    probe_entries = run_probes(check_probe_kernels(device))
+    cli_serve_launches = serve_phantom_cli_loop(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},
           train=train_launches,
           serve_int8={"filtered_lrelu": int8_launches[0],
-                      "conv_int8": int8_launches[1]})
+                      "conv_int8": int8_launches[1]},
+          probes={e["name"]: e["launches"] for e in probe_entries},
+          serve_entry_point={"filtered_lrelu": cli_serve_launches})
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
     if not int8_launches[1]:
@@ -1021,7 +1254,7 @@ def main(argv=None):
          "source": "afcm_tpu_torch/csrc/filtered_lrelu.cu",
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:273",
          "launches": serve_launches[0] + train_launches["filtered_lrelu"]
-         + int8_launches[0],
+         + int8_launches[0] + cli_serve_launches,
          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
@@ -1043,7 +1276,8 @@ def main(argv=None):
          "library": "cuDNN's bf16 conv (F.conv2d) of the same quantized integers",
          "timed_at": "the int8 path's three conv shapes (512 -> 512 at 36^2 and "
                      "52^2 p2, 38^2 p0), batch 16, one call each, summed",
-         "autograd": "K4 = conv3x3_int8_ste: K3 forward, fp32 conv adjoint backward"}]}))
+         "autograd": "K4 = conv3x3_int8_ste: K3 forward, fp32 conv adjoint backward"},
+        *probe_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

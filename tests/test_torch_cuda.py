@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 on the card: the CUDA filtered_lrelu forward and
-backward against their plain versions.
+"""The hand-written kernels on the card: the CUDA filtered_lrelu forward
+and backward (K1, K2), the int8 conv (K3, K4) and the probe kernels (K5-K9)
+against their plain versions.
 
 Marked ``cuda``; every test skips without a CUDA device (the CPU tests hold
 the plain version against the JAX package in tests/test_torch_ops.py at
@@ -405,3 +406,132 @@ def test_conv_int8_ste_backward(cuda):
                                     padding=p) * g_seen).sum(), (xr, wr))
     for got, want in ((dx, want_dx), (dw, want_dw)):
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-5
+
+
+# The probe kernels (K5-K9, ops/cuda/probe_stream.py and probe_int8.py): each
+# against its plain version on the same CUDA tensors, bit for bit (copies,
+# powers of two, bf16 sums in a fixed order and integer products have no
+# tolerance), at a small shape and at an odd one: W 276 for the streams
+# (rows of 552 bytes), a plane that is no multiple of 16 bytes (the 2-byte
+# path), windows that start below 0.
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _probe_bf16(cuda, shape, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+
+
+STREAM_SHAPES = {"small": (8, 16, 24), "w276": (6, 10, 276), "odd_plane": (5, 7, 9)}
+
+
+@pytest.mark.parametrize("shape", sorted(STREAM_SHAPES))
+@pytest.mark.parametrize("kernel", ["copy", "wr4x", "rd4x", "chain", "chain_max_tile"])
+def test_probe_stream_kernel_equals_plain_bitwise(cuda, kernel, shape):
+    from afcm_tpu_torch.ops.cuda import probe_stream as ps
+    c, h, w = STREAM_SHAPES[shape]
+    x = _probe_bf16(cuda, (c, 4, h, w) if kernel == "rd4x" else (c, h, w))
+    fn, plain, name = {
+        "copy": (ps.stream_copy, ps.stream_copy_plain, "copy"),
+        "wr4x": (ps.stream_wr4x, ps.stream_wr4x_plain, "wr4x"),
+        "rd4x": (ps.stream_rd4x, ps.stream_rd4x_plain, "rd4x"),
+        "chain": (ps.stream_chain, ps.stream_chain_plain, "chain"),
+        "chain_max_tile": (lambda t: ps.stream_chain(t, tile=ps.CHAIN_TILE_MAX),
+                           ps.stream_chain_plain, "chain")}[kernel]
+    before = ps.launches[name]
+    got = fn(x)
+    torch.cuda.synchronize()
+    want = plain(x)
+    assert ps.launches[name] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert int((_bits(got) != _bits(want)).sum()) == 0
+
+
+@pytest.mark.parametrize("case", ["copy3d_w276_cb2", "copy3d_w20_cb4", "copy2d_br3",
+                                  "copy2d_ragged"])
+def test_probe_copy_rows_equals_input(cuda, case):
+    from afcm_tpu_torch.ops.cuda import probe_stream as ps
+    if case.startswith("copy3d"):
+        x = _probe_bf16(cuda, (8, 9, 276) if "w276" in case else (8, 6, 20))
+        got = ps.copy3d(x, 2 if "cb2" in case else 4)
+    else:
+        x = _probe_bf16(cuda, (30, 64) if case == "copy2d_br3" else (31, 72))
+        got = ps.copy2d(x, 3 if case == "copy2d_br3" else 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("case", ["stride_64", "stride_48", "zero_pad_below_0_and_past_w",
+                                  "channel_pad", "two_dims_negative_start", "crop"])
+def test_probe_windows_equal_plain_bitwise(cuda, case):
+    from afcm_tpu_torch.ops.cuda import probe_stream as ps
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((8, 64, 512), generator=gen, device=cuda)
+    kw = {"stride_64": dict(win_w=128, n_tw=4, stride_w=64),
+          "stride_48": dict(win_w=128, n_tw=4, stride_w=48),
+          "zero_pad_below_0_and_past_w": dict(win_w=128, n_tw=5, stride_w=112, lo_w=16),
+          "channel_pad": dict(win_w=128, n_tw=2, stride_w=128, c_out=16),
+          "two_dims_negative_start": dict(win_w=39, n_tw=5, stride_w=28, lo_w=5, win_h=39,
+                                          n_th=3, stride_h=28, lo_h=5),
+          "crop": dict(win_w=43, n_tw=3, stride_w=32, lo_w=-5, win_h=43, n_th=2,
+                       stride_h=32, lo_h=-5)}[case]
+    got = ps.element_windows(x, **kw)
+    torch.cuda.synchronize()
+    want = ps.element_windows_plain(x, **kw)
+    assert got.shape == want.shape
+    assert int((_bits(got) != _bits(want)).sum()) == 0
+
+
+def _probe_int8(cuda, shape, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randint(-127, 127, shape, generator=gen, device=cuda, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("shape", [(128, 64, 128, 2), (256, 192, 384, 3)])
+@pytest.mark.parametrize("b_layout", ["kil", "kli"])
+def test_probe_stacked_matmul_equals_plain(cuda, b_layout, shape):
+    from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+    o, i, l, k = shape
+    a, b = _probe_int8(cuda, (o, i), 1), _probe_int8(cuda, (k, i, l), 2)
+    if b_layout == "kli":
+        b = b.transpose(1, 2).contiguous()
+    before = p8.launches["stacked_matmul"]
+    got = p8.stacked_matmul_int8(a, b, b_layout)
+    torch.cuda.synchronize()
+    assert p8.launches["stacked_matmul"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, p8.stacked_matmul_int8_plain(a, b, b_layout))
+
+
+@pytest.mark.parametrize("geometry", [(128, 64, 128, 8, 2), (256, 128, 256, 160, 2),
+                                      (128, 192, 128, 21, 1)])
+@pytest.mark.parametrize("mode", ["dot1", "aligned", "slices", "sliceonly"])
+def test_probe_nine_tap_equals_plain_bitwise(cuda, mode, geometry):
+    """wp 8 and 160 give offsets 1 and 2 bytes off the 4-byte grid; wp 21
+    gives every residue of 8."""
+    from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+    o, i, cols, wp, steps = geometry
+    p = -(-(cols + 2 * wp + 2) // 128) * 128
+    w9, x = _probe_int8(cuda, (9, o, i), 4), _probe_int8(cuda, (steps, i, p), 5)
+    got = p8.nine_tap_int8(w9, x, mode, cols, wp)
+    torch.cuda.synchronize()
+    want = p8.nine_tap_int8_plain(w9, x, mode, cols, wp)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert int((_bits(got) != _bits(want)).sum()) == 0
+
+
+def test_probe_kernels_raise_instead_of_falling_back(cuda):
+    from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+    from afcm_tpu_torch.ops.cuda import probe_stream as ps
+    with pytest.raises(ValueError, match="contiguous"):
+        ps.stream_chain(_probe_bf16(cuda, (4, 8, 16))[:, :, ::2])
+    with pytest.raises(ValueError, match="multiples"):
+        p8.stacked_matmul_int8(_probe_int8(cuda, (96, 64), 0), _probe_int8(cuda, (1, 64, 128), 1))
+    with pytest.raises(ValueError, match="one device"):
+        p8.stacked_matmul_int8(_probe_int8(cuda, (128, 64), 0),
+                               torch.zeros((1, 64, 128), dtype=torch.int8))
+    with pytest.raises(ValueError, match="multiples"):
+        p8.nine_tap_int8(_probe_int8(cuda, (9, 128, 64), 0), _probe_int8(cuda, (1, 64, 256), 1),
+                         "slices", 100, 8)

@@ -438,9 +438,11 @@ def test_configure_numerics_sets_and_resets_the_conv_impl():
         configure_numerics(cfg)
         assert tmc.get_conv_impl() == "xla"
         cfg.tpu.conv_int8 = True
-        cfg.tpu.fetch_dtype = "bfloat16"        # still not ported: raises first
-        with pytest.raises(NotImplementedError, match="A5"):
+        cfg.tpu.fetch_dtype = "bfloat16"        # goes with the int8 path
+        assert configure_numerics(cfg) == "float32"
+        assert tmc.get_conv_impl() == "int8"
+        cfg.tpu.fetch_dtype = "float16"         # no such fetch: raises first
+        with pytest.raises(ValueError, match="fetch_dtype"):
             configure_numerics(cfg)
-        assert tmc.get_conv_impl() == "xla"
     finally:
         tmc.set_conv_impl("xla", min_ch=64)
