@@ -1,0 +1,146 @@
+// Warpgroup int8 tensor-core building blocks for sm_90a (conv_int8.cu):
+// wgmma.mma_async m64nNk32 s8 x s8 -> s32 with both operands in shared
+// memory, the shared-memory matrix descriptor of the layout without swizzle,
+// the fences around a batch of products, and cp.async with zero fill.
+//
+// Operands without swizzle, K-major (the only order 8-bit wgmma takes): a
+// core matrix is 8 rows (M of A, N of B) of 16 bytes of K, 128 contiguous
+// bytes. The descriptor's leading byte offset is the distance between the
+// two core matrices along K (one product spans K = 32 bytes), its stride byte
+// offset the distance between core matrices along M or N. Any start address
+// that is a multiple of 16 bytes is valid, so a matrix may start at any row
+// of a larger array.
+//
+// Accumulator fragment of m64nN (thread t of the warpgroup, warp = t / 32,
+// lane = 4 g + q): register d[4 j + 2 h + e] holds
+//   D[16 warp + g + 8 h][8 j + 2 q + e],  j < N / 8, h < 2, e < 2,
+// the m16n8 fragment of mma.sync repeated along N.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <stdint.h>
+
+namespace afcm {
+
+// 64-bit shared-memory matrix descriptor, no swizzle (layout type 0):
+// bits 0-13 address >> 4, 16-29 leading byte offset >> 4, 32-45 stride byte
+// offset >> 4.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t leading_bytes,
+                                               uint32_t stride_bytes) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+           (static_cast<uint64_t>((leading_bytes & 0x3FFFFu) >> 4) << 16) |
+           (static_cast<uint64_t>((stride_bytes & 0x3FFFFu) >> 4) << 32);
+}
+
+// Orders the warpgroup's register and shared-memory accesses before the
+// next wgmma.mma_async.
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most `Pending` committed groups of products are in flight.
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Makes shared-memory writes of the generic proxy (st.shared, cp.async once
+// waited for) visible to the async proxy, through which wgmma reads its
+// operands. Every writing thread runs it before the barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 16-byte cp.async that copies `src_bytes` (0 or 16) and fills the rest
+// with zeros; gmem must be a valid address either way.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 uint32_t src_bytes) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes)
+                 : "memory");
+}
+
+// D (64 x N, s32, in registers) += A (64 x 32 s8) * B (32 x N s8), both from
+// shared memory through their descriptors. Asynchronous: fence before the
+// first of a batch, commit and wait after the last.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t desc_a, uint64_t desc_b);
+
+template <> __device__ __forceinline__ void wgmma_s8<144>(int (&d)[72], uint64_t desc_a,
+                                                       uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %74, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63, "
+        " %64, %65, %66, %67, %68, %69, %70, %71}, "
+        "%72, %73, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71])
+        : "l"(desc_a), "l"(desc_b), "r"(1));   // 1: accumulate into d
+}
+
+template <> __device__ __forceinline__ void wgmma_s8<160>(int (&d)[80], uint64_t desc_a,
+                                                       uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63, "
+        " %64, %65, %66, %67, %68, %69, %70, %71, "
+        " %72, %73, %74, %75, %76, %77, %78, %79}, "
+        "%80, %81, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+          "+r"(d[78]), "+r"(d[79])
+        : "l"(desc_a), "l"(desc_b), "r"(1));   // 1: accumulate into d
+}
+
+}  // namespace afcm

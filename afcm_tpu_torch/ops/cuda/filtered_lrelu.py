@@ -7,7 +7,9 @@ as the forward of an autograd Function whose backward is
 ``csrc/filtered_lrelu_bwd.cu`` (K2, the port of ``bwd_kernel``,
 ``:292-323``, behind the ``custom_vjp`` at ``:485-495``). The forward saves
 only its input and the bias; K2 recomputes the pre-activation from them.
-``launches`` and ``bwd_launches`` count the launches of K1 and K2.
+``launches`` and ``bwd_launches`` count the launches of K1 and K2. K2's
+tile is planned here (``plan_bwd_tile``): which instantiation takes the
+call, the dx tile and its windows, and the shared memory they need.
 ``filtered_lrelu_plain`` and ``filtered_lrelu_bwd_plain`` beside them are
 the plain PyTorch versions the kernels must reproduce: the CPU path of
 ``ops.filtered_lrelu`` and the oracles the card's checks compare against.
@@ -32,6 +34,59 @@ bwd_launches = 0
 
 _MAX_TAPS = 64          # AFCM_MAX_TAPS in csrc/filtered_lrelu{,_bwd}.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K2's instantiations by filter geometry (up, down, up taps, down taps): the
+# three of the shipped generator's layout. Every other geometry takes the
+# generic kernel. The planner runs without the library, so the set stands here
+# too; loading the library checks it against the kernel's own list.
+BWD_SPECIALISED = frozenset({(2, 2, 12, 12), (2, 4, 12, 24), (4, 2, 24, 12)})
+BWD_SLACK = 64                      # AFCM_SLACK: floats before and after the buffers
+BWD_SMEM_TWO_CTAS = 112 * 1024      # dynamic bytes per CTA that keep two CTAs on an SM
+BWD_SMEM_ONE_CTA = 226 * 1024       # AFCM_MAX_SMEM: what one CTA can have
+
+
+def bwd_windows(tile: int, up: int, down: int, ntu: int, ntd: int):
+    """(M, L, D) of K2 for a dx tile of ``tile`` pixels per axis: the mid
+    window ``(T - 1) * up + ntu``, the x window ``ceil((M + ntu - 2) / up) +
+    1`` and the dy window ``(M + ntd - 2) // down + 1``."""
+    mid = (tile - 1) * up + ntu
+    return mid, -(-(mid + ntu - 2) // up) + 1, (mid + ntd - 2) // down + 1
+
+
+def _bwd_tile(tile, up, down, ntu, ntd, in_h, in_w, specialised):
+    mid, in_tile, dy_tile = bwd_windows(tile, up, down, ntu, ntd)
+    # odd row pitches in the specialised kernel: no bank conflicts where the
+    # lanes of a warp take neighbouring rows
+    pitch = (lambda v: v | 1) if specialised else (lambda v: v)
+    buf_a = max(in_tile * pitch(in_tile), dy_tile * pitch(dy_tile))
+    buf_b = max(in_tile, dy_tile, tile) * pitch(mid)
+    buf_m = mid * pitch(mid)
+    taps_up, taps_down = -(-ntu // up), -(-ntd // down)
+    tiles = -(-in_h // tile) * -(-in_w // tile)
+    work = tiles * (in_tile * mid * taps_up + mid * mid * taps_up
+                    + dy_tile * mid * taps_down + mid * mid * taps_down
+                    + tile * mid * ntu + tile * tile * ntu)
+    return dict(tile=tile, mid=mid, in_tile=in_tile, dy_tile=dy_tile,
+                smem_bytes=4 * (2 * BWD_SLACK + buf_a + buf_b + buf_m),
+                specialised=specialised, tiles=tiles, fmas_per_plane=work)
+
+
+def plan_bwd_tile(up: int, down: int, ntu: int, ntd: int, in_h: int, in_w: int):
+    """K2's plan for one call: the dx tile T (a multiple of 4) that does the
+    least work over all tiles of the image within the shared memory that
+    keeps two CTAs on an SM (one CTA's where no tile fits that), its windows
+    M, L and D, the dynamic shared memory, and whether the geometry has an
+    instantiation of its own (``BWD_SPECIALISED``) or takes the generic
+    kernel. Raises where not even T = 4 fits."""
+    specialised = (up, down, ntu, ntd) in BWD_SPECIALISED
+    plans = [_bwd_tile(t, up, down, ntu, ntd, in_h, in_w, specialised)
+             for t in range(4, 65, 4)]
+    for budget in (BWD_SMEM_TWO_CTAS, BWD_SMEM_ONE_CTA):
+        fitting = [pl for pl in plans if pl["smem_bytes"] <= budget]
+        if fitting:
+            return min(fitting, key=lambda pl: (pl["fmas_per_plane"], pl["tile"]))
+    raise ValueError(f"filtered_lrelu backward: no tile of up={up}, down={down}, "
+                     f"{ntu}/{ntd} taps fits {BWD_SMEM_ONE_CTA} bytes of shared memory")
 
 
 def filtered_lrelu_plain(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
@@ -102,15 +157,24 @@ def _kernel(direction: str):
         fn = load_library("filtered_lrelu")[0].afcm_filtered_lrelu_fwd
         tensors = [p, p, p]                       # x, bias, y
     else:
-        fn = load_library("filtered_lrelu_bwd")[0].afcm_filtered_lrelu_bwd
+        library = load_library("filtered_lrelu_bwd")[0]
+        listed = (ctypes.c_int * (4 * 16))()
+        count = library.afcm_filtered_lrelu_bwd_geometries(listed, 16)
+        built = {tuple(listed[4 * k:4 * k + 4]) for k in range(min(count, 16))}
+        if count > 16 or built != BWD_SPECIALISED:
+            raise RuntimeError(f"filtered_lrelu_bwd.cu instantiates {sorted(built)} "
+                               f"({count}), the planner expects {sorted(BWD_SPECIALISED)}")
+        fn = library.afcm_filtered_lrelu_bwd
         tensors = [p, p, p, p]                    # x, bias, dy, dx
     fn.argtypes = tensors + [
         i,                                        # dtype
         i, i, i, i, i, i,                         # n, c, in_h, in_w, out_h, out_w
         p, i, p, i,                               # fu, ntu, fd, ntd
         i, i, i, i,                               # up, down, px0, py0
-        f, f, f, i,                               # gain, slope, clamp, has_clamp
-        p]                                        # stream
+        f, f, f, i]                               # gain, slope, clamp, has_clamp
+    if direction == "bwd":
+        fn.argtypes += [i, i, i, i, i, i]         # T, M, L, D, smem bytes, specialised
+    fn.argtypes += [p]                            # stream
     fn.restype = ctypes.c_int
     return fn
 
@@ -152,6 +216,7 @@ class _Plan:
         self.gain, self.slope = float(gain), float(slope)
         self.has_clamp = clamp is not None
         self.clamp = float(clamp) if self.has_clamp else 0.0
+        self._bwd_tile = None
 
     def scalars(self, dtype):
         return (_DTYPES[dtype], self.n, self.c, self.in_h, self.in_w,
@@ -159,6 +224,15 @@ class _Plan:
                 self.gd.ctypes.data, len(self.gd), self.up, self.down,
                 self.px0, self.py0, self.gain, self.slope, self.clamp,
                 int(self.has_clamp))
+
+    def bwd_tile(self):
+        """K2's tile plan in the C entry point's order."""
+        if self._bwd_tile is None:
+            self._bwd_tile = plan_bwd_tile(self.up, self.down, len(self.gu),
+                                           len(self.gd), self.in_h, self.in_w)
+        t = self._bwd_tile
+        return (t["tile"], t["mid"], t["in_tile"], t["dy_tile"], t["smem_bytes"],
+                int(t["specialised"]))
 
 
 def _check_input(name, x, b):
@@ -194,7 +268,7 @@ def _launch_bwd(x, b, dy, plan: _Plan):
     with torch.cuda.device(x.device):
         err = _kernel("bwd")(
             x.data_ptr(), None if b is None else b.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), *plan.scalars(x.dtype),
+            dx.data_ptr(), *plan.scalars(x.dtype), *plan.bwd_tile(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"filtered_lrelu_bwd kernel launch failed: CUDA error {err}")

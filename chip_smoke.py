@@ -10,12 +10,13 @@ the int8 serving path (tpu.conv_int8 True), all at full width and depth
 entry point's loop — and checks the hand-written kernels on them: K1 and K2
 (the fused filtered leaky ReLU forward and backward), K3 (the int8 3x3 conv
 with its dequantizing epilogue; K4, its straight-through autograd Function,
-has no kernel of its own) and the probe kernels K5-K9 (stream, copy,
-window-load and int8 matrix-rate probes):
+has no kernel of its own) with its two quantizer kernels, and the probe
+kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
 
 1. the device, and nvidia-smi's name and power limit;
-2. builds the five sources of csrc/ (K1, K2, K3, the stream probes, the
-   int8 probes) with nvcc, all at once, and prints the build times;
+2. builds the six sources of csrc/ (K1, K2, K3, the int8 quantizers, the
+   stream probes, the int8 probes) with nvcc, all at once, and prints the
+   build times and ptxas's registers and spills;
 3. K1 against its plain PyTorch version for the four filter variants of the
    generator at full-size layer shapes (batch 2): fp32 with TF32 off within
    1e-4 * max|plain| + 1e-4, bf16 at PSNR >= 38 dB against fp32 plain; both
@@ -56,9 +57,14 @@ window-load and int8 matrix-rate probes):
    91 -> 128 and 64 -> 64 at 276^2, and with padding 1 and 0 and an
    extra_scale: the bf16 outputs are equal bit for bit (the count of
    unequal elements is printed and must be 0), and the whole quantized conv
-   is >= 50 dB from the fp32 conv of the unquantized inputs; (b) timing at
-   batch 16 of every distinct 3x3 conv shape of the generator: K3 alone,
-   quantize + K3, the float conv the path makes with the knob off
+   is >= 50 dB from the fp32 conv of the unquantized inputs; the activation
+   and the weight quantizer kernels against their plain versions (packed
+   int8 tensor and scales) at the three routed shapes and a ragged one,
+   float32 and bfloat16, with an all-zero sample: 0 unequal elements;
+   (b) timing at batch 16 of every distinct 3x3 conv shape of the
+   generator: K3 alone with the idle share of its pixel tiles, the
+   quantizer kernels and their plain versions, quantize + K3 (the fused
+   path the wrapper takes), the float conv the path makes with the knob off
    (conv2d_gradfix.conv2d in bf16), cuDNN's bf16 conv of the same quantized
    integers, and the plain version, beside the bound; (c) K4's dx and dw
    against the plain path's within 1e-4 * max + 1e-5; (d) the generator
@@ -68,8 +74,8 @@ window-load and int8 matrix-rate probes):
    differences flip single quantization steps), and >= 30 dB from the float
    generator; (e) the phantom served under a config with tpu.conv_int8 True
    at bf16 b16, the conv implementation set by configure_numerics: finite
-   volume and scores, 28 K1 and 11 K3 launches per batch; then the knob off
-   and no K3 launch in the next forward;
+   volume and scores, 28 K1, 11 K3 and 11 launches of each quantizer per
+   batch; then the knob off and no K3 launch in the next forward;
 9. the probes: (a) each of the nine probe kernels (copy, wr4x, rd4x, chain,
    copy3d, copy2d, windows, stacked_matmul, nine_tap in its four modes) at
    a small shape and at a full one against its plain version: every one is
@@ -642,6 +648,83 @@ def check_conv_int8():
     return unequal_total, worst
 
 
+def bit_unequal(got, want):
+    """Count of elements whose bits differ (same shape and dtype)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"kernel gave {tuple(got.shape)} {got.dtype}, plain "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if got.dtype == torch.float32:
+        return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    return int((got != want).sum())
+
+
+def check_quantizers():
+    """Phase 8a, the quantizer kernels against their plain versions, bit
+    for bit: the packed int8 tensors and the scales, at the three routed
+    shapes and a ragged one, float32 and bfloat16 inputs, sample 0 all zero.
+    Then a NaN in one sample and one weight channel, which must reach the
+    scale and the conv's output as in the plain version. Returns per kernel
+    the total of unequal elements and the largest |kernel - plain| over the
+    packed integers and the scales."""
+    cases = [(512, 512, 36, 2), (512, 512, 52, 2), (512, 512, 38, 0), (91, 160, 41, 1)]
+    totals = {"activations": 0, "weights": 0}
+    worst = {"activations": 0.0, "weights": 0.0}
+
+    def max_abs(got, want):
+        return float((got.double() - want.double()).abs().max())
+    for idx, (i, o, h, p) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.RandomState(SEED + 50 + idx)
+            x = torch.from_numpy(rng.randn(3, i, h, h).astype(np.float32)).cuda().to(dtype)
+            w = torch.from_numpy((rng.randn(o, i, 3, 3) / np.sqrt(9 * i))
+                                 .astype(np.float32)).cuda().to(dtype)
+            x[0] = 0                            # the scale's floor, 1e-8 / 127
+            before = (k3.quantize_launches, k3.weight_quantize_launches)
+            xp, x_scale = k3.quantize_pack_activations_cuda(x, p)
+            wp, w_scale = k3.quantize_pack_weights_cuda(w)
+            torch.cuda.synchronize()
+            launched = (k3.quantize_launches - before[0],
+                        k3.weight_quantize_launches - before[1])
+            want_xp, want_xs = k3.quantize_pack_activations_plain(x, p)
+            want_wp, want_ws = k3.quantize_pack_weights_plain(w)
+            row = dict(x_unequal=bit_unequal(xp, want_xp),
+                       x_scale_unequal=bit_unequal(x_scale, want_xs),
+                       w_unequal=bit_unequal(wp, want_wp),
+                       w_scale_unequal=bit_unequal(w_scale, want_ws))
+            errs = dict(x_max_abs_err=max(max_abs(xp, want_xp), max_abs(x_scale, want_xs)),
+                        w_max_abs_err=max(max_abs(wp, want_wp), max_abs(w_scale, want_ws)))
+            phase("8a quantizer vs plain", channels=[i, o], size=h, padding=p,
+                  dtype=str(dtype).split(".")[1], packed_x=list(xp.shape),
+                  packed_w=list(wp.shape), launches=list(launched), **row, **errs)
+            if any(row.values()) or launched != (1, 1):
+                raise AssertionError(f"quantizer kernels {i}->{o} at {h}^2 p{p} {dtype}: "
+                                     f"{row}, launches {launched}")
+            totals["activations"] += row["x_unequal"] + row["x_scale_unequal"]
+            totals["weights"] += row["w_unequal"] + row["w_scale_unequal"]
+            worst["activations"] = max(worst["activations"], errs["x_max_abs_err"])
+            worst["weights"] = max(worst["weights"], errs["w_max_abs_err"])
+
+    rng = np.random.RandomState(SEED + 60)
+    x = torch.from_numpy(rng.randn(3, 512, 36, 36).astype(np.float32)).cuda().bfloat16()
+    w = torch.from_numpy((rng.randn(512, 512, 3, 3) / 68).astype(np.float32)).cuda()
+    x[1, 7, 3, 5] = float("nan")
+    w[4, 9, 1, 2] = float("nan")
+    x_scale = k3.quantize_pack_activations_cuda(x, 2)[1]
+    w_scale = k3.quantize_pack_weights_cuda(w)[1]
+    nan = torch.isnan(k3.conv3x3_int8_cuda(x, w, 2))
+    want_nan = torch.isnan(k3.conv3x3_int8_plain(x, w, 2))
+    row = dict(x_scale_nan=torch.isnan(x_scale).nonzero().flatten().tolist(),
+               w_scale_nan=torch.isnan(w_scale).nonzero().flatten().tolist(),
+               nan_outputs=int(nan.sum()), plain_nan_outputs=int(want_nan.sum()),
+               same_outputs_nan=bool(torch.equal(nan, want_nan)))
+    phase("8a quantizer NaN", channels=[512, 512], size=36, padding=2, nan_sample=1,
+          nan_weight_channel=4, **row)
+    if row["x_scale_nan"] != [1] or row["w_scale_nan"] != [4] or not row["same_outputs_nan"] \
+            or not (nan[1].all() and nan[:, 4].all()):
+        raise AssertionError(f"a NaN input did not reach the scales and the output: {row}")
+    return totals, worst
+
+
 def conv3x3_shapes(synthesis):
     """Distinct (in_channels, out_channels, input size, padding) of the
     generator's 3x3 convs that the int8 kernel takes, with the count of
@@ -665,7 +748,9 @@ def time_conv_int8():
     """Phase 8b: every distinct conv shape at batch 16. Returns K3's sums
     over the shapes mode 'int8' routes (the serving path's)."""
     synthesis = shipped_model("bfloat16").generator_ema.synthesis
-    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=(0.0, "operations", 0.0))
+    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=(0.0, "operations", 0.0),
+                qx_ms=0.0, qx_plain_ms=0.0, qx_bound_ms=0.0,
+                qw_ms=0.0, qw_plain_ms=0.0, qw_bound_ms=0.0)
     gated = 0
     for idx, ((i, o, h, p), count) in enumerate(conv3x3_shapes(synthesis).items()):
         x, w, _, xq, wq, scale, xp, wp = int8_case(SERVE_BATCH, i, o, h, p, False,
@@ -679,10 +764,26 @@ def time_conv_int8():
         xb, wb = x.bfloat16(), w.bfloat16()
         xqb, wqb = xq.bfloat16(), wq.bfloat16()     # the integers are exact in bf16
         routed = modulated_conv._int8_gate(x.shape, w.shape)   # what mode 'int8' takes
+        # the quantizers move x (or w) in once and the packed tensor and scales out
+        qx_bytes = xb.numel() * 2 + xp.numel() + 4 * SERVE_BATCH
+        qw_bytes = w.numel() * 4 + wp.numel() + 4 * o
         row = dict(channels=[i, o], size=h, padding=p, batch=SERVE_BATCH, layers=count,
                    routed_by_int8_gate=routed, g_ops=ops / 1e9, mbytes=moved / 1e6,
+                   tile_rows=k3.plan_tile_rows(size),
+                   tile_idle_share=k3.tile_idle_share(size, size),
                    k3_ms=cuda_median_ms(lambda: k3.int8_conv_cuda(xp, wp, scale, o)),
                    quantize_k3_ms=cuda_median_ms(lambda: k3.conv3x3_int8_cuda(x, w, p)),
+                   quantize_k3_bf16_x_ms=cuda_median_ms(
+                       lambda: k3.conv3x3_int8_cuda(xb, w, p)),
+                   quantize_x_bf16_ms=cuda_median_ms(
+                       lambda: k3.quantize_pack_activations_cuda(xb, p)),
+                   quantize_x_plain_ms=cuda_median_ms(
+                       lambda: k3.quantize_pack_activations_plain(xb, p), repeats=3, warmup=1),
+                   quantize_x_bound_ms=1e3 * qx_bytes / HBM_BYTES_PER_S,
+                   quantize_w_ms=cuda_median_ms(lambda: k3.quantize_pack_weights_cuda(w)),
+                   quantize_w_plain_ms=cuda_median_ms(
+                       lambda: k3.quantize_pack_weights_plain(w), repeats=3, warmup=1),
+                   quantize_w_bound_ms=1e3 * qw_bytes / HBM_BYTES_PER_S,
                    float_conv_bf16_ms=cuda_median_ms(
                        lambda: conv2d_gradfix.conv2d(xb, wb, padding=p)),
                    library_ms=cuda_median_ms(
@@ -697,6 +798,10 @@ def time_conv_int8():
             for key in ("ms", "plain_ms", "library_ms"):
                 sums[key] += row["k3_ms" if key == "ms" else key]
             sums["bound"] = add_bound(sums["bound"], least)
+            for q, name in (("qx", "quantize_x"), ("qw", "quantize_w")):
+                sums[q + "_ms"] += row[name + ("_bf16_ms" if q == "qx" else "_ms")]
+                sums[q + "_plain_ms"] += row[name + "_plain_ms"]
+                sums[q + "_bound_ms"] += row[name + "_bound_ms"]
         del x, w, xq, wq, xp, wp, xb, wb, xqb, wqb
     if gated != INT8_ROUTED:
         raise AssertionError(f"the gate takes {gated} convs of the layout, want {INT8_ROUTED}")
@@ -752,20 +857,25 @@ def check_generator_int8(device):
     set_matmul_precision("float32")
     float_out = model.eval_step(cond, c, z=z)
     counts = (k1.launches, k3.launches)
+    quantized = (k3.quantize_launches, k3.weight_quantize_launches)
     with conv_impl("int8"):
         got = model.eval_step(cond, c, z=z)
         launched = (k1.launches - counts[0], k3.launches - counts[1])
+        quantized = (k3.quantize_launches - quantized[0],
+                     k3.weight_quantize_launches - quantized[1])
         with plain_conv_int8():
             same_k1 = model.eval_step(cond, c, z=z)
         k1_again = k1.launches - counts[0] - launched[0]
         with plain_filtered_lrelu(), plain_conv_int8():
             want = model.eval_step(cond, c, z=z)
     if launched != (LAYERS_WITH_KERNEL, INT8_ROUTED) or k1_again != LAYERS_WITH_KERNEL or \
+            quantized != (INT8_ROUTED, INT8_ROUTED) or \
             (k1.launches - counts[0], k3.launches - counts[1]) != \
             (2 * LAYERS_WITH_KERNEL, INT8_ROUTED):
-        raise AssertionError(f"K1/K3 launches {launched} in one int8 forward, want "
-                             f"{(LAYERS_WITH_KERNEL, INT8_ROUTED)}; the plain runs "
-                             "must launch no K3 and the last no K1")
+        raise AssertionError(f"K1/K3 launches {launched} and quantizer launches "
+                             f"{quantized} in one int8 forward, want "
+                             f"{(LAYERS_WITH_KERNEL, INT8_ROUTED)} and {INT8_ROUTED} "
+                             "each; the plain runs must launch no K3 and the last no K1")
     unequal = int((got != same_k1).sum())
     err = float((got - want).abs().max())
     bound = 1e-2 * float(want.abs().max())
@@ -775,7 +885,8 @@ def check_generator_int8(device):
           fp32_max_abs_err_vs_both_plain=err, bound=bound,
           max_abs_plain=float(want.abs().max()),
           k1_launches=launched[0], k3_launches=launched[1],
-          psnr_vs_float_generator_db=db, finite=bool(torch.isfinite(got).all()))
+          quantizer_launches=list(quantized), psnr_vs_float_generator_db=db,
+          finite=bool(torch.isfinite(got).all()))
     if unequal:
         raise AssertionError(f"int8 generator: {unequal} elements differ between "
                              "K3 and its plain version")
@@ -788,7 +899,8 @@ def check_generator_int8(device):
 def serve_phantom_int8(device):
     """Phase 8e: the phantom served under a config with tpu.conv_int8 True;
     the conv implementation comes from configure_numerics, as in the CLI.
-    Returns the (K1, K3) launches of the int8 serving path."""
+    Returns the (K1, K3, activation quantizer, weight quantizer) launches
+    of the int8 serving path."""
     from afcm_tpu_torch.config import default_argument_parser
     argv = ["--config-file", TRAIN_CONFIG, "tpu.compute_dtype", "bfloat16"]
     try:
@@ -797,8 +909,10 @@ def serve_phantom_int8(device):
         if get_conv_impl() != "int8":
             raise AssertionError(f"configure_numerics left conv impl {get_conv_impl()}")
         k1.launches = k1.bwd_launches = k3.launches = 0   # the int8 path's run starts here
+        k3.quantize_launches = k3.weight_quantize_launches = 0
         batches = serve_phantom(device, compute_dtype, phase_name="8e serve phantom int8")
-        launches = (k1.launches, k3.launches)
+        launches = (k1.launches, k3.launches, k3.quantize_launches,
+                    k3.weight_quantize_launches)
         configure_numerics(default_argument_parser(argv))
         if get_conv_impl() != "xla":
             raise AssertionError("configure_numerics did not reset the conv impl")
@@ -808,10 +922,12 @@ def serve_phantom_int8(device):
     finally:
         set_conv_impl("xla")
     phase("8e int8 launches", batches=batches, k1=launches[0], k3=launches[1],
+          quantize_activations=launches[2], quantize_weights=launches[3],
           knob_off_next_forward={"k1": after[0], "k3": after[1]})
-    if launches != (LAYERS_WITH_KERNEL * batches, INT8_ROUTED * batches):
-        raise AssertionError(f"{launches} K1/K3 launches for {batches} int8 batches; "
-                             f"want {LAYERS_WITH_KERNEL} and {INT8_ROUTED} per batch")
+    if launches != (LAYERS_WITH_KERNEL * batches,) + (INT8_ROUTED * batches,) * 3:
+        raise AssertionError(f"{launches} K1/K3/quantizer launches for {batches} int8 "
+                             f"batches; want {LAYERS_WITH_KERNEL} K1 and {INT8_ROUTED} "
+                             "of K3 and of each quantizer per batch")
     if after != (LAYERS_WITH_KERNEL, 0):
         raise AssertionError(f"knob off: {after} K1/K3 launches in the next forward")
     return launches
@@ -895,7 +1011,8 @@ def summarize_trace(prof, key, span_name, iters, out_dir, layers, phase_name,
                                            key=lambda kv: -kv[1][0])][:25]
     k1_events = sorted((e for e in device if "filtered_lrelu_fwd_kernel" in e["name"]),
                        key=lambda e: e["ts"])
-    k2_events = [e for e in device if "filtered_lrelu_bwd_kernel" in e["name"]]
+    # the generic kernel and the instantiations per filter geometry
+    k2_events = [e for e in device if "filtered_lrelu_bwd_" in e["name"]]
     summary = {"leg": key, "iters": iters,
                f"window_ms_per_{unit}": window / 1e3 / iters,
                f"device_ms_per_{unit}": sum(e["dur"] for e in device) / 1e3 / iters,
@@ -942,7 +1059,9 @@ def time_forward(device, trace_dir=None):
               spread=sorted(rates), ms_per_batch=1e3 * batch / legs[key],
               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         if trace_dir is not None:
-            trace_leg(model, inputs, key, 2 if dtype == "float32" else 5,
+            # float32 with TF32 off launches ~33,600 kernels a forward (cuDNN's
+            # FFT convs): one forward, or the profiler may drop an event
+            trace_leg(model, inputs, key, 1 if dtype == "float32" else 5,
                       trace_dir)
         set_conv_impl("xla")
     return legs
@@ -1197,8 +1316,8 @@ def main(argv=None):
           "nvidia-smi name, power limit:")
     print(smi)
 
-    builds = _build.load_libraries(["filtered_lrelu", "filtered_lrelu_bwd",
-                                    "conv_int8", "probe_stream", "probe_int8"])
+    builds = _build.load_libraries(["filtered_lrelu", "filtered_lrelu_bwd", "conv_int8",
+                                    "quantize_int8", "probe_stream", "probe_int8"])
     for kernel, (_, info) in builds.items():
         ptxas = [line.strip() for line in info["log"].splitlines()
                  if "registers" in line or "spill" in line]
@@ -1224,6 +1343,7 @@ def main(argv=None):
     shutil.rmtree(os.path.dirname(run_dir), ignore_errors=True)
 
     unequal, int8_worst = check_conv_int8()
+    quantizer_unequal, quantizer_worst = check_quantizers()
     int8_sums = time_conv_int8()
     check_ste_backward()
     check_generator_int8(device)
@@ -1235,13 +1355,16 @@ def main(argv=None):
                                      "conv_int8": serve_launches[2]},
           train=train_launches,
           serve_int8={"filtered_lrelu": int8_launches[0],
-                      "conv_int8": int8_launches[1]},
+                      "conv_int8": int8_launches[1],
+                      "quantize_int8": int8_launches[2],
+                      "quantize_weights_int8": int8_launches[3]},
           probes={e["name"]: e["launches"] for e in probe_entries},
           serve_entry_point={"filtered_lrelu": cli_serve_launches})
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
-    if not int8_launches[1]:
-        raise AssertionError("the int8 serving path launched no K3")
+    if not all(int8_launches[1:]):
+        raise AssertionError(f"the int8 serving path's K3 and quantizer launches: "
+                             f"{int8_launches[1:]}")
 
     jax_loaded = [m for m, mod in sys.modules.items()
                   if mod is not None and m.split(".")[0] in ("jax", "flax", "optax",
@@ -1277,6 +1400,27 @@ def main(argv=None):
          "timed_at": "the int8 path's three conv shapes (512 -> 512 at 36^2 and "
                      "52^2 p2, 38^2 p0), batch 16, one call each, summed",
          "autograd": "K4 = conv3x3_int8_ste: K3 forward, fp32 conv adjoint backward"},
+        {"name": "quantize_int8", "route": "cuda",
+         "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
+         "replaces": "afcm_tpu/ops/pallas/conv_int8.py:258-262",
+         "launches": int8_launches[2],
+         "max_abs_err": quantizer_worst["activations"],
+         "unequal_elements": quantizer_unequal["activations"],
+         "ms": int8_sums["qx_ms"], "plain_ms": int8_sums["qx_plain_ms"],
+         "bound_ms": int8_sums["qx_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "timed_at": "the int8 path's three conv inputs (512 channels at 36^2 and 52^2 "
+                     "p2, 38^2 p0), batch 16, bf16, one call each (amax and "
+                     "quantize-and-pack kernels), summed"},
+        {"name": "quantize_weights_int8", "route": "cuda",
+         "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
+         "replaces": "afcm_tpu/ops/pallas/conv_int8.py:276-280",
+         "launches": int8_launches[3],
+         "max_abs_err": quantizer_worst["weights"],
+         "unequal_elements": quantizer_unequal["weights"],
+         "ms": int8_sums["qw_ms"], "plain_ms": int8_sums["qw_plain_ms"],
+         "bound_ms": int8_sums["qw_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "timed_at": "the int8 path's 512 -> 512 3x3 weights, float32, one call per "
+                     "routed shape, summed"},
         *probe_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

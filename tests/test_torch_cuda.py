@@ -1,6 +1,6 @@
 """The hand-written kernels on the card: the CUDA filtered_lrelu forward
-and backward (K1, K2), the int8 conv (K3, K4) and the probe kernels (K5-K9)
-against their plain versions.
+and backward (K1, K2), the int8 conv (K3, K4) with its quantizer kernels and
+the probe kernels (K5-K9) against their plain versions.
 
 Marked ``cuda``; every test skips without a CUDA device (the CPU tests hold
 the plain version against the JAX package in tests/test_torch_ops.py at
@@ -53,7 +53,25 @@ CASES = {
                  pad=(5, 6, -2, 4)),
     "identity_filters_u2": dict(h=16, w=16, c=2, up=2, down=1, ntu=None,
                                 ntd=None, pad=(0, 0, 0, 0)),
+    # sizes that are no multiple of K2's tile, several tiles per axis: each
+    # specialised geometry (A, B, C) and the generic kernel
+    "A_ragged_tiles": dict(h=61, w=83, c=2, up=2, down=2, ntu=12, ntd=12,
+                           pad=(9, 8, 9, 8)),
+    "B_ragged_tiles_flip": dict(h=70, w=59, c=2, up=2, down=4, ntu=12, ntd=24,
+                                pad=(34, 33, 34, 33), flip=True),
+    "C_ragged_tiles_noclamp_nobias": dict(h=45, w=51, c=2, up=4, down=2, ntu=24,
+                                          ntd=12, pad=(-6, -9, -6, -9),
+                                          clamp=None, bias=False),
+    "D_ragged_tiles_odd_pad": dict(h=67, w=49, c=2, up=2, down=2, ntu=12, ntd=12,
+                                   pad=(-11, -12, -10, -13)),
+    "generic_ragged_tiles_u3d2": dict(h=41, w=37, c=2, up=3, down=2, ntu=18,
+                                      ntd=12, pad=(5, 6, -2, 4), flip=True),
 }
+# K2's instantiation per case: the specialised kernel of the geometry, or
+# the generic one.
+SPECIALISED = {name for name, case in CASES.items()
+               if (case["up"], case["down"], case["ntu"], case["ntd"])
+               in k1.BWD_SPECIALISED}
 
 # One layer of the shipped generator per variant, as in chip_smoke.py:
 # (encoder or decoder, index).
@@ -193,6 +211,69 @@ def test_bwd_kernel_bf16_psnr(cuda, name):
     assert _psnr(got, want) >= 38
 
 
+@pytest.mark.parametrize("name", ["A_ragged_tiles", "B_ragged_tiles_flip",
+                                  "C_ragged_tiles_noclamp_nobias",
+                                  "D_ragged_tiles_odd_pad"])
+def test_bwd_ragged_bf16_psnr(cuda, name):
+    x, b, dy, kw = _bwd_case(name, cuda)
+    want, _ = k1.filtered_lrelu_bwd_plain(x, dy, b=b, **kw)
+    got, _ = k1.filtered_lrelu_bwd_cuda(
+        x.bfloat16(), dy.bfloat16(), b=None if b is None else b.bfloat16(), **kw)
+    assert got.dtype == torch.bfloat16
+    assert _psnr(got, want) >= 38
+
+
+def test_bwd_cases_cover_every_instantiation():
+    """The cases above reach each specialised instantiation at a single tile
+    and at ragged tiles, and the generic kernel."""
+    geometries = {(c["up"], c["down"], c["ntu"], c["ntd"])
+                  for name, c in CASES.items() if name in SPECIALISED}
+    assert geometries == set(k1.BWD_SPECIALISED)
+    assert {"u3d2", "u1d1_filtered", "identity_filters_u2",
+            "generic_ragged_tiles_u3d2"} <= set(CASES) - SPECIALISED
+    for name in ("A_ragged_tiles", "B_ragged_tiles_flip", "C_ragged_tiles_noclamp_nobias",
+                 "D_ragged_tiles_odd_pad", "generic_ragged_tiles_u3d2"):
+        c = CASES[name]
+        plan = k1.plan_bwd_tile(c["up"], c["down"], c["ntu"], c["ntd"], c["h"], c["w"])
+        assert plan["tiles"] > 1 and (c["h"] % plan["tile"] or c["w"] % plan["tile"])
+
+
+@pytest.mark.parametrize("name", sorted(SPECIALISED))
+def test_bwd_specialised_and_generic_kernels_agree(cuda, monkeypatch, name):
+    """The specialised instantiation and the generic kernel on the same
+    inputs: the same function, summed in another order, so 1e-5 of the
+    largest gradient apart outside the pixels whose slope rounding decides
+    (none at these sizes and seeds, or the bound below fails)."""
+    x, b, dy, kw = _bwd_case(name, cuda, seed=2)
+    spec, _ = k1.filtered_lrelu_bwd_cuda(x, dy, b=b, **kw)
+    monkeypatch.setattr(k1, "BWD_SPECIALISED", frozenset())
+    plan = k1._Plan(x, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
+                    kw["gain"], kw["slope"], kw["clamp"], kw["flip_filter"])
+    assert plan.bwd_tile()[-1] == 0
+    generic, _ = k1.filtered_lrelu_bwd_cuda(x, dy, b=b, **kw)
+    torch.cuda.synchronize()
+    bound = 1e-5 * float(generic.abs().max()) + 1e-6
+    assert float((spec - generic).abs().max()) <= bound
+
+
+def test_bwd_rejects_a_plan_its_kernel_does_not_take(cuda, monkeypatch):
+    """A geometry without an instantiation that asks for one, or a plan
+    whose windows are not the kernel's, is refused by the entry point: no
+    instantiation stands in for another."""
+    x, b, dy, kw = _bwd_case("u3d2", cuda)
+    k1._kernel("bwd")       # loaded, and its list of instantiations checked, before the patch
+    monkeypatch.setattr(k1, "BWD_SPECIALISED", frozenset({(3, 2, 18, 12)}))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k1.filtered_lrelu_bwd_cuda(x, dy, b=b, **kw)
+    monkeypatch.undo()
+    x, b, dy, kw = _bwd_case("A_u2d2", cuda)
+    real = k1.plan_bwd_tile
+    monkeypatch.setattr(k1, "plan_bwd_tile",
+                        lambda *a: dict(real(*a), mid=real(*a)["mid"] + 1))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k1.filtered_lrelu_bwd_cuda(x, dy, b=b, **kw)
+
+
 def test_autograd_runs_k2(cuda):
     """Under autograd the dispatch runs K1 forward and K2 backward, never
     the plain backward, and takes a strided output gradient."""
@@ -319,6 +400,13 @@ INT8_CASES = {        # (in channels, out channels, size, padding, extra_scale)
     "bottleneck_512_38_p0": (512, 512, 38, 0, False),
     "odd_91_181_p1_extra": (91, 181, 40, 1, True),
     "narrow_64_64_ragged_p2": (64, 64, 75, 2, False),
+    "path_512_52_p2": (512, 512, 52, 2, False),
+    "o96_i40_h9_p0": (40, 96, 9, 0, False),
+    "o96_i40_h9_p2_extra": (40, 96, 9, 2, True),
+    "o128_i40_h36_p1": (40, 128, 36, 1, False),
+    "o160_i512_h38_p1": (512, 160, 38, 1, False),
+    "o160_i40_h52_p0_extra": (40, 160, 52, 0, True),
+    "o128_i512_h9_p1": (512, 128, 9, 1, False),
 }
 
 
@@ -353,6 +441,109 @@ def test_conv_int8_kernel_equals_plain_bitwise(cuda, name, dtype):
     assert _psnr(got, ref) > (50 if dtype == torch.float32 else 45)
 
 
+@pytest.mark.parametrize("name", ["path_512_36_p2", "o96_i40_h9_p2_extra",
+                                  "o160_i512_h38_p1", "o128_i40_h36_p1"])
+@pytest.mark.parametrize("n", [1, 16])
+def test_conv_int8_kernel_equals_plain_bitwise_batches(cuda, name, n):
+    """K3 alone on packed operands at batch 1 and 16, against the integer
+    conv in float64: the same bf16 bits."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    _, (x, w, es), p = _int8_case(name, cuda, n=n, seed=3)
+    xq, x_scale = k3.quantize_activations(x)
+    wq, w_scale = k3.quantize_weights(w)
+    scale = k3.dequant_scale(x_scale, w_scale, es)
+    got = k3.int8_conv_cuda(k3.pack_activations(xq, p), k3.pack_weights(wq), scale,
+                            w.shape[0])
+    torch.cuda.synchronize()
+    want = k3.int8_conv_plain(xq, wq, scale, p)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert int((got.view(torch.int16) != want.view(torch.int16)).sum()) == 0
+
+
+@pytest.mark.parametrize("name", sorted(INT8_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantizer_kernels_equal_plain_bitwise(cuda, name, dtype):
+    """The activation and the weight quantizer kernels against their plain
+    versions: the packed int8 tensors and the scales, bit for bit, with an
+    all-zero sample (the scale's floor) and rounding ties in the input."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    _, (x, w, _), p = _int8_case(name, cuda, n=3, seed=4)
+    x[1] = 0
+    x[2] = (x[2] * 40).round().clamp(-127, 127) / 2        # scale 1/2: halves are ties
+    x[2, 0, 0, 0] = 63.5
+    w[1] = 0
+    x, w = x.to(dtype), w.to(dtype)
+    counts = (k3.quantize_launches, k3.weight_quantize_launches)
+    xp, x_scale = k3.quantize_pack_activations_cuda(x, p)
+    wp, w_scale = k3.quantize_pack_weights_cuda(w)
+    torch.cuda.synchronize()
+    assert (k3.quantize_launches, k3.weight_quantize_launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    want_xp, want_xs = k3.quantize_pack_activations_plain(x, p)
+    want_wp, want_ws = k3.quantize_pack_weights_plain(w)
+    assert xp.dtype == wp.dtype == torch.int8
+    assert xp.shape == want_xp.shape and wp.shape == want_wp.shape
+    assert int((xp != want_xp).sum()) == 0 and int((wp != want_wp).sum()) == 0
+    assert torch.equal(x_scale.view(torch.int32), want_xs.view(torch.int32))
+    assert torch.equal(w_scale.view(torch.int32), want_ws.view(torch.int32))
+    assert float(x_scale[1]) == float(np.float32(1e-8) / np.float32(127.0))
+    assert int(xp[1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["path_512_36_p2", "o96_i40_h9_p2_extra"])
+def test_quantizer_kernels_propagate_nan(cuda, name, dtype):
+    """A NaN in one sample (one output channel of the weights) makes that
+    scale NaN, as the plain version's amax does, so the conv's sample
+    (channel) comes out NaN; every other sample and channel keeps the plain
+    version's bits."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    _, (x, w, es), p = _int8_case(name, cuda, n=3, seed=5)
+    x, w = x.to(dtype), w.to(dtype)
+    x[1, 7, 3, 5] = float("nan")
+    w[4, 9, 1, 2] = float("nan")
+    xp, x_scale = k3.quantize_pack_activations_cuda(x, p)
+    wp, w_scale = k3.quantize_pack_weights_cuda(w)
+    want_xp, want_xs = k3.quantize_pack_activations_plain(x, p)
+    want_wp, want_ws = k3.quantize_pack_weights_plain(w)
+    assert torch.isnan(x_scale).tolist() == [False, True, False]
+    assert torch.isnan(w_scale).nonzero().flatten().tolist() == [4]
+    assert torch.equal(torch.isnan(want_xs), torch.isnan(x_scale))
+    assert torch.equal(torch.isnan(want_ws), torch.isnan(w_scale))
+    fine = torch.tensor([0, 2], device=cuda)
+    assert torch.equal(xp[fine], want_xp[fine])
+    assert torch.equal(x_scale[fine].view(torch.int32), want_xs[fine].view(torch.int32))
+    keep = torch.arange(w.shape[0], device=cuda) != 4
+    got_flat, want_flat = k3.unpack_weights(wp), k3.unpack_weights(want_wp)
+    assert torch.equal(got_flat[:, :w.shape[0]][:, keep], want_flat[:, :w.shape[0]][:, keep])
+    assert torch.equal(w_scale[keep].view(torch.int32), want_ws[keep].view(torch.int32))
+    got = k3.conv3x3_int8(x, w, p, es)
+    want = k3.conv3x3_int8_plain(x, w, p, es)
+    nan = torch.isnan(got)
+    assert bool(nan[1].all()) and bool(nan[:, 4].all())
+    assert torch.equal(nan, torch.isnan(want))
+    assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+
+
+def test_quantizer_kernels_raise_on_what_they_do_not_take(cuda):
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    x = torch.randn(2, 64, 16, 16, device=cuda)
+    w = torch.randn(64, 64, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.quantize_pack_activations_cuda(x.transpose(2, 3), 1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k3.quantize_pack_activations_cuda(x.half(), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.quantize_pack_weights_cuda(w.cpu())
+    with pytest.raises(ValueError, match="3x3"):
+        k3.quantize_pack_weights_cuda(torch.randn(64, 64, 1, 1, device=cuda))
+    with pytest.raises(ValueError, match="padding"):
+        k3.quantize_pack_activations_cuda(x, -1)
+    # the wrapper copies a strided or float16 tensor instead of refusing it
+    got = k3.conv3x3_int8(x.transpose(2, 3).half(), w, 1)
+    assert torch.equal(got, k3.conv3x3_int8_plain(x.transpose(2, 3).half(), w, 1))
+
+
 def test_conv_int8_kernel_matches_jax_full_size(cuda, jax_ops):
     """K3 at the serving path's shape (512 -> 512 at 36^2, padding 2)
     against the JAX package's kernel in interpret mode on JAX's CPU backend:
@@ -378,7 +569,11 @@ def test_conv_int8_raises_instead_of_falling_back(cuda):
         k3.conv3x3_int8(x, w, padding=3)
     with pytest.raises(ValueError, match="contiguous"):
         k3.int8_conv_cuda(torch.zeros(1, 18, 18, 64, dtype=torch.int8, device=cuda),
-                          torch.zeros(9, 128, 64, dtype=torch.int8),
+                          torch.zeros(2, 2, 9, 2, 64, 16, dtype=torch.int8),
+                          torch.ones(1, 64, device=cuda), 64)
+    with pytest.raises(ValueError, match="pack_weights"):       # the flat layout
+        k3.int8_conv_cuda(torch.zeros(1, 18, 18, 64, dtype=torch.int8, device=cuda),
+                          torch.zeros(9, 128, 64, dtype=torch.int8, device=cuda),
                           torch.ones(1, 64, device=cuda), 64)
 
 

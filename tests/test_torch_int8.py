@@ -109,6 +109,66 @@ def test_conv3x3_int8_matches_jax(variant, i, o, h, p, extra):
     assert _psnr(got, ref) > 50
 
 
+def _packed_conv_plain(x, w, p, es=None):
+    """The conv through the plain versions of the quantizer kernels: the
+    packed int8 NHWC activations and the tiled weights, convolved as the
+    integers they hold and dequantized as K3's epilogue does."""
+    xp, xs = k3.quantize_pack_activations_plain(x, p)
+    wp, ws = k3.quantize_pack_weights_plain(w)
+    o = w.shape[0]
+    taps = k3.unpack_weights(wp).reshape(3, 3, wp.shape[0] * 64, xp.shape[3])
+    taps = taps.permute(2, 3, 0, 1)[:o].double()
+    acc = F.conv2d(xp.permute(0, 3, 1, 2).double(), taps).to(torch.int32)
+    scale = k3.dequant_scale(xs, ws, es)
+    return (acc.float() * scale[:, :, None, None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("i,o,h,p,extra", [
+    (48, 40, 20, 1, False),
+    (64, 96, 24, 2, True),
+    (91, 160, 12, 0, False),    # odd channels: both channel pads hold zeros
+])
+def test_conv3x3_int8_packed_path_matches_jax(i, o, h, p, extra, dtype):
+    """The plain versions of the quantizer kernels, end to end against the
+    JAX package's own ``conv3x3_int8`` (whose quantizers are inline): the
+    packed operands, convolved as integers, give its result within 1 bf16
+    ulp, and the wrapper's CPU path bit for bit. bf16 and fp32 inputs; sample
+    1 is all zero (the scale's floor, 1e-8 / 127) and comes out 0."""
+    x, w, es = _conv_case(i, o, h, seed=5, n=3)
+    x[1] = 0
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    wt = torch.from_numpy(w)
+    est = torch.from_numpy(es) if extra else None
+    want = jk3.conv3x3_int8(jnp.asarray(xt.float().numpy()).astype(dtype), jnp.asarray(w),
+                            padding=p, extra_scale=jnp.asarray(es) if extra else None,
+                            interpret=True)
+    want = np.asarray(want, np.float32)
+    got = _packed_conv_plain(xt, wt, p, est)
+    assert torch.equal(got, k3.conv3x3_int8(xt, wt, p, est))
+    got = got.float().numpy()
+    assert got.shape == want.shape == (3, o, h + 2 * p - 2, h + 2 * p - 2)
+    assert np.all(np.abs(got - want) <= _bf16_ulp(want))
+    assert not got[1].any() and not want[1].any()
+
+
+def test_conv3x3_int8_nan_sample_comes_out_nan_as_in_jax():
+    """A NaN anywhere in a sample makes that sample's scale, and so its
+    whole output, NaN in both packages: it is not quantized away into a
+    finite answer. The other samples are untouched."""
+    x, w, _ = _conv_case(48, 40, 12, seed=6, n=3)
+    clean = k3.conv3x3_int8(torch.from_numpy(x), torch.from_numpy(w), 1)
+    x[1, 7, 3, 5] = np.nan
+    got = k3.conv3x3_int8(torch.from_numpy(x), torch.from_numpy(w), 1)
+    want = np.asarray(jk3.conv3x3_int8(jnp.asarray(x), jnp.asarray(w), padding=1,
+                                       interpret=True), np.float32)
+    assert bool(torch.isnan(got[1]).all()) and np.isnan(want[1]).all()
+    assert torch.equal(got[[0, 2]], clean[[0, 2]])
+    assert np.isfinite(want[[0, 2]]).all()
+    _, x_scale = k3.quantize_pack_activations_plain(torch.from_numpy(x), 1)
+    assert torch.isnan(x_scale).tolist() == [False, True, False]
+
+
 def test_quantizers_match_jax_integers():
     """Per-sample and per-channel scales and the rounded integers equal the
     JAX package's exactly (same divide, round half to even, clip)."""
@@ -134,9 +194,10 @@ def test_quantizers_match_jax_integers():
                                      (64, 64, 9, 0)])
 def test_packed_layout_computes_the_same_conv(i, o, h, p):
     """The kernel's operands (int8 NHWC with a zero halo and channels padded
-    to 32; weights [9, O', I'] tap-major) hold the conv the plain version
-    computes: unpacked and convolved without padding they give the same
-    integers exactly."""
+    to 32; weights in blocks [O'/64, I'/32, 9, 2, 64, 16], one per 64 output
+    and 32 input channels, [9, O', I'] tap-major once the tiling is undone)
+    hold the conv the plain version computes: unpacked and convolved without
+    padding they give the same integers exactly."""
     x, w, _ = _conv_case(i, o, h, seed=1)
     xq, _ = k3.quantize_activations(torch.from_numpy(x))
     wq, _ = k3.quantize_weights(torch.from_numpy(w))
@@ -144,7 +205,12 @@ def test_packed_layout_computes_the_same_conv(i, o, h, p):
     ip, op = -(-i // 32) * 32, -(-o // 128) * 128
     assert xp.dtype == wp.dtype == torch.int8
     assert xp.shape == (2, h + 2 * p, h + 2 * p, ip) and xp.is_contiguous()
-    assert wp.shape == (9, op, ip) and wp.is_contiguous()
+    assert wp.shape == (op // 64, ip // 32, 9, 2, 64, 16) and wp.is_contiguous()
+    # a block holds [tap][K chunk of 16][output channel][input channel]
+    if o > 66:
+        assert int(wp[1, 0, 4, 1, 2, 3]) == int(wq[66, 19, 1, 1])
+    wp = k3.unpack_weights(wp)
+    assert wp.shape == (9, op, ip)
     assert int(xp[..., i:].abs().sum()) == 0
     assert int(wp[:, o:].abs().sum()) == 0 and int(wp[:, :, i:].abs().sum()) == 0
     taps = wp.reshape(3, 3, op, ip).permute(2, 3, 0, 1)

@@ -1,0 +1,254 @@
+"""What surrounds the redesigned kernels K2 and K3 and runs on the CPU: K2's
+tile planner, K3's tile choice, and the plain versions of the quantizer
+kernels against the JAX package's quantization.
+
+The kernels themselves run only on the card (tests/test_torch_cuda.py); the
+planner decides which instantiation takes a call and how much shared memory
+it gets, so its answers are held here for every ``filtered_lrelu`` layer of
+the shipped generator and of the tiny one. The quantizers are exact in both
+packages (same divide, round half to even, clip), so the comparisons are
+exact too. Inputs are made with numpy from a seed.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from afcm_tpu_torch.models import CMSR_ADNI_G, build_generator  # noqa: E402
+from afcm_tpu_torch.ops import design_lowpass_filter  # noqa: E402
+from afcm_tpu_torch.ops.cuda import conv_int8 as k3  # noqa: E402
+from afcm_tpu_torch.ops.cuda import filtered_lrelu as k1  # noqa: E402
+
+torch.set_num_threads(1)
+
+TINY = dict(netG="stylegan3", z_dim=64, c_dim=1, w_dim=64, img_resolution=64,
+            img_channels_in=4, img_channels_out=1, mapping_kwargs=dict(num_layers=2),
+            synthesis_kwargs=dict(channel_base=1024, channel_max=32,
+                                  num_layers=6, num_critical=2, margin_size=10,
+                                  skip_resolution=32, conv_clamp=256))
+# Filter geometry (up, down, up taps, down taps) of the shipped generator's
+# variants: A and D (D is A's filters with another crop), B, C.
+SHIPPED_GEOMETRIES = {"A/D": (2, 2, 12, 12), "B": (2, 4, 12, 24), "C": (4, 2, 24, 12)}
+
+
+def _layers(gen_kwargs):
+    """(name, up, down, up taps, down taps, kernel input size) of every
+    layer that launches the filtered_lrelu kernels: the kernel's input is
+    the 3x3 conv's output, layer size + 2."""
+    synthesis = build_generator(gen_kwargs).synthesis
+    out = []
+    for side, layers in (("encoder", synthesis.encoders), ("decoder", synthesis.decoders)):
+        for idx, layer in enumerate(layers):
+            if layer.spec.is_torgb:
+                continue
+            taps = [1 if f is None else len(f) for f in (layer.up_filter, layer.down_filter)]
+            out.append((f"{side}_{idx}", layer.up, layer.down, *taps,
+                        layer.spec.in_size + 2))
+    return out
+
+
+@pytest.fixture(scope="module", params=["shipped", "tiny"])
+def layers(request):
+    return _layers(CMSR_ADNI_G if request.param == "shipped" else TINY)
+
+
+def test_bwd_plan_fits_two_ctas_and_covers_the_image(layers):
+    """Every layer's plan keeps two CTAs on an SM (dynamic shared memory
+    within ``BWD_SMEM_TWO_CTAS``, twice that plus the reserved kilobyte each
+    within the SM's 228 KB), its tiles cover the image, and T is a multiple
+    of 4 as the strided passes need."""
+    assert len(layers) >= 10
+    for name, up, down, ntu, ntd, size in layers:
+        plan = k1.plan_bwd_tile(up, down, ntu, ntd, size, size)
+        assert plan["smem_bytes"] <= k1.BWD_SMEM_TWO_CTAS, name
+        assert 2 * (plan["smem_bytes"] + 1024 + 512) <= 228 * 1024, name
+        per_axis = -(-size // plan["tile"])
+        assert plan["tiles"] == per_axis ** 2 and per_axis * plan["tile"] >= size, name
+        assert plan["tile"] % 4 == 0 and 4 <= plan["tile"] <= 64, name
+
+
+def test_bwd_plan_windows_equal_the_kernel_formulas(layers):
+    """M, L and D as the header of csrc/filtered_lrelu_bwd.cu defines them,
+    and the shared memory as its buffers add up: bufA max(L*L', D*D'), bufB
+    max(L, D, T)*M', bufM M*M' floats between two slack areas of 64, with
+    the pitches v' = v | 1 in a specialised instantiation and v' = v in the
+    generic kernel."""
+    for name, up, down, ntu, ntd, size in layers:
+        plan = k1.plan_bwd_tile(up, down, ntu, ntd, size, size)
+        t = plan["tile"]
+        mid = (t - 1) * up + ntu
+        in_tile = int(np.ceil((mid + ntu - 2) / up)) + 1
+        dy_tile = (mid + ntd - 2) // down + 1
+        assert (plan["mid"], plan["in_tile"], plan["dy_tile"]) == (mid, in_tile, dy_tile), name
+        assert k1.bwd_windows(t, up, down, ntu, ntd) == (mid, in_tile, dy_tile)
+        odd = (lambda v: v | 1) if plan["specialised"] else (lambda v: v)
+        floats = 2 * 64 + max(in_tile * odd(in_tile), dy_tile * odd(dy_tile)) \
+            + max(in_tile, dy_tile, t) * odd(mid) + mid * odd(mid)
+        assert plan["smem_bytes"] == 4 * floats, name
+        # the dx tile is staged in bufA, and a window's overshoot of one row
+        # of bufB lands in bufA
+        assert t * odd(t) <= max(in_tile * odd(in_tile), dy_tile * odd(dy_tile)), name
+
+
+def test_bwd_plan_picks_the_instantiation_by_geometry(layers):
+    """The shipped geometries map to their own instantiations, and every
+    layer of both generators has one of them."""
+    assert k1.BWD_SPECIALISED == frozenset(SHIPPED_GEOMETRIES.values())
+    for name, up, down, ntu, ntd, size in layers:
+        plan = k1.plan_bwd_tile(up, down, ntu, ntd, size, size)
+        assert plan["specialised"] == ((up, down, ntu, ntd) in k1.BWD_SPECIALISED), name
+    shipped = {(up, down, ntu, ntd) for _, up, down, ntu, ntd, _ in _layers(CMSR_ADNI_G)}
+    assert shipped == set(SHIPPED_GEOMETRIES.values())
+
+
+@pytest.mark.parametrize("geometry", [(3, 1, 7, 1), (1, 1, 7, 5), (3, 2, 18, 12),
+                                      (2, 1, 1, 1), (2, 2, 12, 8), (1, 1, 64, 64)])
+def test_bwd_plan_odd_geometry_takes_the_generic_kernel(geometry):
+    """Any other geometry takes the generic kernel with plain pitches; the
+    longest filters the kernels take still get a tile, at one CTA per SM."""
+    plan = k1.plan_bwd_tile(*geometry, 21, 19)
+    assert plan["specialised"] is False
+    assert plan["smem_bytes"] <= k1.BWD_SMEM_ONE_CTA
+    assert plan["tiles"] == -(-21 // plan["tile"]) * -(-19 // plan["tile"])
+    if geometry != (1, 1, 64, 64):
+        assert plan["smem_bytes"] <= k1.BWD_SMEM_TWO_CTAS
+
+
+def test_bwd_plan_tile_grows_past_48_kb_for_the_long_filters():
+    """Variant C (up 4, 24 taps) got T = 12 under a 48 KB cap; with two CTAs'
+    worth of an SM it gets at least 20, so at most 1.5x of a tile's mid
+    window is halo that its neighbours compute again."""
+    for size in (38, 54, 86, 150):
+        plan = k1.plan_bwd_tile(4, 2, 24, 12, size, size)
+        assert plan["tile"] >= 20
+        assert (plan["mid"] / (plan["tile"] * 4)) ** 2 <= 1.6
+    assert k1.plan_bwd_tile(2, 2, 12, 12, 278, 278)["tile"] >= 48
+
+
+def test_plan_object_hands_the_tile_to_the_entry_point():
+    """``_Plan.bwd_tile`` gives the C entry point's six integers (T, M, L, D,
+    bytes, specialised) for the call's geometry and input size."""
+    fu = design_lowpass_filter(12, cutoff=9.5, width=9.5, fs=76)
+    x = torch.zeros((1, 2, 38, 38))
+    plan = k1._Plan(x, fu, fu, 2, 2, (9, 8, 9, 8), np.sqrt(2), 0.2, 256.0, False)
+    want = k1.plan_bwd_tile(2, 2, 12, 12, 38, 38)
+    assert plan.bwd_tile() == (want["tile"], want["mid"], want["in_tile"],
+                               want["dy_tile"], want["smem_bytes"], 1)
+    odd = k1._Plan(x, fu[:7], None, 3, 1, 0, np.sqrt(2), 0.2, None, False)
+    assert odd.bwd_tile()[-1] == 0
+
+
+@pytest.mark.parametrize("out_h,rows", [(38, 20), (54, 18), (36, 18), (7, 18),
+                                        (84, 18), (150, 20), (278, 20)])
+def test_k3_tile_rows_cover_the_output_with_least_idle_work(out_h, rows):
+    """K3's pixel tile is 8 columns x 18 or 20 rows, whichever covers the
+    output's rows with fewer rows to spare; the idle share follows."""
+    assert k3.plan_tile_rows(out_h) == rows
+    other = 38 - rows
+    assert -(-out_h // rows) * rows <= -(-out_h // other) * other
+    covered = -(-out_h // rows) * rows * -(-out_h // 8) * 8
+    assert k3.tile_idle_share(out_h, out_h) == pytest.approx(1 - out_h ** 2 / covered)
+    assert 0 <= k3.tile_idle_share(out_h, out_h) < 1
+
+
+def test_k3_tile_idle_share_at_the_routed_shapes():
+    """The int8 path's outputs (38^2, 54^2, 36^2) idle at most a tenth of
+    the products; the 8 x 16 tile they replace idled 25%, 19% and 33%."""
+    assert k3.tile_idle_share(38, 38) == pytest.approx(1 - 1444 / 1600)
+    assert k3.tile_idle_share(54, 54) == pytest.approx(1 - 2916 / 3024)
+    assert k3.tile_idle_share(36, 36) == pytest.approx(1 - 1296 / 1440)
+
+
+def _jax_quantize(x, axis_eps):
+    """The JAX package's quantizer formulas (conv_int8.py:258-262, :276-280)
+    written out with jnp: the package has them inline in ``conv3x3_int8`` and
+    exposes no function for them. So these tests hold the port against a
+    copy of the reference's lines, integer for integer;
+    tests/test_torch_int8.py holds the same plain versions against the
+    package's ``conv3x3_int8`` itself, end to end."""
+    xf = jnp.asarray(x)
+    scale = jnp.maximum(jnp.max(jnp.abs(xf), axis=(1, 2, 3)), axis_eps) / 127.0
+    return (np.asarray(jnp.clip(jnp.round(xf / scale[:, None, None, None]), -127, 127)),
+            np.asarray(scale))
+
+
+@pytest.mark.parametrize("i,h,p", [(48, 20, 1), (40, 9, 2), (91, 12, 0), (64, 13, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_activation_quantizer_plain_matches_jax(i, h, p, dtype):
+    """The plain version of the activation quantizer kernel (x_scale and the
+    packed int8 NHWC tensor) against the JAX package's quantization
+    (afcm_tpu/ops/pallas/conv_int8.py:258-262) of the same numbers, exact;
+    an all-zero sample takes the scale floor 1e-8 / 127 and quantizes to 0."""
+    rng = np.random.RandomState(i + h)
+    x = rng.randn(3, i, h, h).astype(np.float32)
+    x[1] = 0
+    x[2, 0, 0, :5] = [0.5, 1.5, 2.5, -0.5, 127.0]
+    x[2] = np.clip(x[2], -127, 127)                    # scale 1: the first are ties
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    x = xt.float().numpy()                             # what both quantize
+    packed, x_scale = k3.quantize_pack_activations_plain(xt, p)
+    want_q, want_scale = _jax_quantize(x, 1e-8)
+    np.testing.assert_array_equal(x_scale.numpy(), want_scale)
+    assert x_scale[1] == np.float32(1e-8) / np.float32(127.0)
+    ip = -(-i // 32) * 32
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert packed.shape == (3, h + 2 * p, h + 2 * p, ip)
+    inner = packed[:, p:p + h, p:p + h, :i].permute(0, 3, 1, 2).numpy()
+    np.testing.assert_array_equal(inner, want_q.astype(np.int8))
+    assert int(packed.abs().sum()) == int(np.abs(want_q).sum())   # halo and pad are zero
+    assert int(packed[1].abs().sum()) == 0
+    if dtype == "float32":
+        assert inner[2, 0, 0, :4].tolist() == [0, 2, 2, 0]
+
+
+@pytest.mark.parametrize("o,i", [(40, 48), (96, 40), (160, 91)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weight_quantizer_plain_matches_jax(o, i, dtype):
+    """The plain version of the weight quantizer kernel (w_scale and the
+    packed int8 tensor, [9, O', I'] once its tiling is undone) against the JAX package's per-channel
+    quantization (conv_int8.py:276-280), exact; an all-zero channel takes
+    the floor 1e-12 / 127."""
+    rng = np.random.RandomState(o)
+    w = (rng.randn(o, i, 3, 3) / np.sqrt(9 * i)).astype(np.float32)
+    w[3] = 0
+    wt = torch.from_numpy(w).to(getattr(torch, dtype))
+    w = wt.float().numpy()
+    packed, w_scale = k3.quantize_pack_weights_plain(wt)
+    want_q, want_scale = _jax_quantize(w, 1e-12)
+    np.testing.assert_array_equal(w_scale.numpy(), want_scale)
+    op, ip = -(-o // 128) * 128, -(-i // 32) * 32
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert packed.shape == (op // 64, ip // 32, 9, 2, 64, 16)
+    flat = k3.unpack_weights(packed)
+    taps = flat.reshape(3, 3, op, ip).permute(2, 3, 0, 1)[:o, :i].numpy()
+    np.testing.assert_array_equal(taps, want_q.astype(np.int8))
+    assert int(packed.abs().sum()) == int(np.abs(want_q).sum())
+    assert int(flat[:, 3].abs().sum()) == 0
+
+
+def test_quantizer_dispatch_takes_the_plain_version_on_the_cpu(monkeypatch):
+    """A CPU tensor goes through ``conv3x3_int8``'s one dispatch to the plain
+    version and launches nothing; the kernels' wrappers raise on one."""
+    def no_kernel(*args):
+        raise AssertionError("a CPU tensor reached a kernel")
+    monkeypatch.setattr(k3, "quantize_pack_activations_cuda", no_kernel)
+    monkeypatch.setattr(k3, "quantize_pack_weights_cuda", no_kernel)
+    counts = (k3.quantize_launches, k3.weight_quantize_launches, k3.launches)
+    x, w = torch.randn(2, 32, 8, 8), torch.randn(32, 32, 3, 3)
+    got = k3.conv3x3_int8(x, w, 1)
+    xp, xs = k3.quantize_pack_activations_plain(x, 1)
+    wp, ws = k3.quantize_pack_weights_plain(w)
+    assert counts == (k3.quantize_launches, k3.weight_quantize_launches, k3.launches)
+    # the packed operands hold the conv the plain version computes
+    taps = k3.unpack_weights(wp).reshape(3, 3, 128, 32).permute(2, 3, 0, 1)[:32].double()
+    acc = torch.nn.functional.conv2d(xp.permute(0, 3, 1, 2).double(), taps).to(torch.int32)
+    want = (acc.float() * k3.dequant_scale(xs, ws)[:, :, None, None]).to(torch.bfloat16)
+    assert torch.equal(got, want)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.quantize_pack_activations_cuda(x, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3.quantize_pack_weights_cuda(w)
