@@ -142,10 +142,37 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def check_device_knobs(cfg, training: bool) -> None:
+    """Refuse the device knobs of ``cfg`` that the port does not implement,
+    where ``afcm_tpu`` honours them (``afcm_tpu/train.py:81-83``,
+    ``:111-120``; ``afcm_tpu/evaluate.py:143-145``), instead of ignoring
+    them: ``tpu.remat`` in training (ROADMAP item A8; serving ignores it in
+    both packages) and a mesh of more than one device, from
+    ``tpu.mesh_shape`` or ``--num-gpus`` (item A12b). The default mesh
+    ``[0, 1]`` puts all devices on the data axis, which is the one card the
+    port uses. A ``tpu.matmul_precision`` other than ``default`` gets one
+    line: the port sets TF32 from ``tpu.compute_dtype`` alone."""
+    if training and cfg.tpu.remat:
+        raise NotImplementedError(
+            "tpu.remat is not ported yet (ROADMAP item A8): the port's train "
+            "step keeps every activation; set tpu.remat False")
+    data, model = (max(int(v), 1) for v in cfg.tpu.mesh_shape)
+    if data * model > 1:
+        raise NotImplementedError(
+            f"tpu.mesh_shape {list(cfg.tpu.mesh_shape)} asks for {data * model} "
+            "devices; the port runs on one (data-parallel training and serving "
+            "are ROADMAP item A12b); drop --num-gpus or set tpu.mesh_shape [0, 1]")
+    if cfg.tpu.matmul_precision != "default":
+        print(f"tpu.matmul_precision {cfg.tpu.matmul_precision} has no effect: the "
+              "port sets TF32 from tpu.compute_dtype alone (off for float32)")
+
+
 def configure_numerics(cfg) -> str:
-    """Check the config's device knobs, set the conv implementation from
-    ``tpu.conv_int8`` (``afcm_tpu/evaluate.py:138-142``) and the matmul
-    precision of ``tpu.compute_dtype``, and return the compute dtype."""
+    """Check the config's device knobs for serving (``check_device_knobs``),
+    set the conv implementation from ``tpu.conv_int8``
+    (``afcm_tpu/evaluate.py:138-142``) and the matmul precision of
+    ``tpu.compute_dtype``, and return the compute dtype."""
+    check_device_knobs(cfg, training=False)
     fetch_dtype_or_none(getattr(cfg.tpu, "fetch_dtype", None))     # raises on a bad value
     if getattr(cfg.tpu, "conv_int8", False):
         set_conv_impl("int8", getattr(cfg.tpu, "conv_int8_variant", "dots"),

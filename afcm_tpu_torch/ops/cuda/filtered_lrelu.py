@@ -7,9 +7,11 @@ as the forward of an autograd Function whose backward is
 ``csrc/filtered_lrelu_bwd.cu`` (K2, the port of ``bwd_kernel``,
 ``:292-323``, behind the ``custom_vjp`` at ``:485-495``). The forward saves
 only its input and the bias; K2 recomputes the pre-activation from them.
-``launches`` and ``bwd_launches`` count the launches of K1 and K2. K2's
-tile is planned here (``plan_bwd_tile``): which instantiation takes the
-call, the dx tile and its windows, and the shared memory they need.
+``launches`` and ``bwd_launches`` count the launches of K1 and K2. Both
+kernels' tiles are planned here (``plan_fwd_tile``, ``plan_bwd_tile``):
+which instantiation takes the call, the tile and its windows, and the shared
+memory they need; the C entry points check the plan against their own
+formulas.
 ``filtered_lrelu_plain`` and ``filtered_lrelu_bwd_plain`` beside them are
 the plain PyTorch versions the kernels must reproduce: the CPU path of
 ``ops.filtered_lrelu`` and the oracles the card's checks compare against.
@@ -35,14 +37,86 @@ bwd_launches = 0
 _MAX_TAPS = 64          # AFCM_MAX_TAPS in csrc/filtered_lrelu{,_bwd}.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# K2's instantiations by filter geometry (up, down, up taps, down taps): the
-# three of the shipped generator's layout. Every other geometry takes the
-# generic kernel. The planner runs without the library, so the set stands here
-# too; loading the library checks it against the kernel's own list.
+# K1's and K2's instantiations by filter geometry (up, down, up taps, down
+# taps): the three of the shipped generator's layout. Every other geometry
+# takes the generic kernel. The planners run without the libraries, so the
+# sets stand here too; loading a library checks its set against the kernel's
+# own list.
+FWD_SPECIALISED = frozenset({(2, 2, 12, 12), (2, 4, 12, 24), (4, 2, 24, 12)})
 BWD_SPECIALISED = frozenset({(2, 2, 12, 12), (2, 4, 12, 24), (4, 2, 24, 12)})
-BWD_SLACK = 64                      # AFCM_SLACK: floats before and after the buffers
-BWD_SMEM_TWO_CTAS = 112 * 1024      # dynamic bytes per CTA that keep two CTAs on an SM
-BWD_SMEM_ONE_CTA = 226 * 1024       # AFCM_MAX_SMEM: what one CTA can have
+FWD_CHUNK = 8                       # AFCM_CHUNK: outputs per thread and chunk of K1's passes
+BWD_SLACK = 64                      # AFCM_SLACK: floats before and after K2's buffers
+SMEM_TWO_CTAS = 112 * 1024          # dynamic bytes per CTA that keep two CTAs on an SM
+SMEM_ONE_CTA = 226 * 1024           # AFCM_MAX_SMEM: what one CTA can have
+
+
+def _up_window(up: int, ntu: int) -> int:
+    """x samples a chunk of ``FWD_CHUNK`` polyphase up-FIR outputs reads
+    when it starts at phase 0 (``up_window`` in csrc/filtered_lrelu.cu)."""
+    reach = 0
+    for i in range(FWD_CHUNK):
+        k0 = -i % up
+        reach = max(reach, (i + k0) // up + -(-(ntu - k0) // up))
+    return reach
+
+
+def fwd_windows(tile: int, up: int, down: int, ntu: int, ntd: int,
+                specialised: bool):
+    """(M, L, E) of K1 per axis for an output tile of ``tile`` pixels: the
+    mid window ``(T - 1) * down + ntd``; the samples the up passes make, E,
+    which the specialised kernel rounds up to whole chunks from phase 0
+    (``ceil((M + up - 1) / 8) * 8``) and the generic kernel keeps at M; and
+    the x window those read, ``E / up - 8 / up + (a chunk's reach)`` or
+    ``ceil((M + ntu - 2) / up) + 1``."""
+    mid = (tile - 1) * down + ntd
+    if specialised:
+        ext = -(-(mid + up - 1) // FWD_CHUNK) * FWD_CHUNK
+        return mid, ext // up - FWD_CHUNK // up + _up_window(up, ntu), ext
+    return mid, -(-(mid + ntu - 2) // up) + 1, mid
+
+
+def _fwd_tile(tile_y, tile_x, up, down, ntu, ntd, out_h, out_w, specialised):
+    (my, ly, ey), (mx, lx, ex) = (fwd_windows(t, up, down, ntu, ntd, specialised)
+                                  for t in (tile_y, tile_x))
+    # odd row pitches in the specialised kernel: no bank conflicts where the
+    # lanes of a warp take neighbouring rows
+    pitch = (lambda v: v | 1) if specialised else (lambda v: v)
+    buf_a = max(ly * pitch(lx), ey * pitch(mx), tile_y * pitch(tile_x) if specialised else 0)
+    buf_b = max(ly * pitch(ex), tile_y * pitch(mx))
+    tiles = -(-out_h // tile_y) * -(-out_w // tile_x)
+    work = tiles * ((ly * ex + mx * ey) * -(-ntu // up)
+                    + (tile_y * mx + tile_y * tile_x) * ntd)
+    return dict(tile_y=tile_y, tile_x=tile_x, mid_y=my, mid_x=mx, in_y=ly, in_x=lx,
+                smem_bytes=4 * (buf_a + buf_b), specialised=specialised, tiles=tiles,
+                fmas_per_plane=work)
+
+
+def plan_fwd_tile(up: int, down: int, ntu: int, ntd: int, out_h: int, out_w: int):
+    """K1's plan for one call: the output tile Ty x Tx (multiples of 8 in a
+    specialised instantiation, of 4 in the generic kernel, up to 64) that
+    does the least work over all tiles of the image within the shared memory
+    that keeps two CTAs on an SM (one CTA's where no tile fits that), its
+    windows M and L per axis, the dynamic shared memory, and whether the
+    geometry has an instantiation of its own (``FWD_SPECIALISED``) or takes
+    the generic kernel. Raises where not even the smallest tile fits. The
+    search runs once per geometry and size: it costs about a millisecond of
+    Python, more than the kernel takes."""
+    return dict(_plan_fwd_tile(up, down, ntu, ntd, out_h, out_w,
+                               (up, down, ntu, ntd) in FWD_SPECIALISED))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_fwd_tile(up, down, ntu, ntd, out_h, out_w, specialised):
+    sides = range(FWD_CHUNK if specialised else 4, 65, FWD_CHUNK if specialised else 4)
+    plans = [_fwd_tile(ty, tx, up, down, ntu, ntd, out_h, out_w, specialised)
+             for ty in sides for tx in sides]
+    for budget in (SMEM_TWO_CTAS, SMEM_ONE_CTA):
+        fitting = [pl for pl in plans if pl["smem_bytes"] <= budget]
+        if fitting:
+            return min(fitting, key=lambda pl: (pl["fmas_per_plane"], pl["smem_bytes"],
+                                                pl["tile_y"]))
+    raise ValueError(f"filtered_lrelu forward: no tile of up={up}, down={down}, "
+                     f"{ntu}/{ntd} taps fits {SMEM_ONE_CTA} bytes of shared memory")
 
 
 def bwd_windows(tile: int, up: int, down: int, ntu: int, ntd: int):
@@ -77,16 +151,22 @@ def plan_bwd_tile(up: int, down: int, ntu: int, ntd: int, in_h: int, in_w: int):
     keeps two CTAs on an SM (one CTA's where no tile fits that), its windows
     M, L and D, the dynamic shared memory, and whether the geometry has an
     instantiation of its own (``BWD_SPECIALISED``) or takes the generic
-    kernel. Raises where not even T = 4 fits."""
-    specialised = (up, down, ntu, ntd) in BWD_SPECIALISED
+    kernel. Raises where not even T = 4 fits. The search runs once per
+    geometry and size."""
+    return dict(_plan_bwd_tile(up, down, ntu, ntd, in_h, in_w,
+                               (up, down, ntu, ntd) in BWD_SPECIALISED))
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_bwd_tile(up, down, ntu, ntd, in_h, in_w, specialised):
     plans = [_bwd_tile(t, up, down, ntu, ntd, in_h, in_w, specialised)
              for t in range(4, 65, 4)]
-    for budget in (BWD_SMEM_TWO_CTAS, BWD_SMEM_ONE_CTA):
+    for budget in (SMEM_TWO_CTAS, SMEM_ONE_CTA):
         fitting = [pl for pl in plans if pl["smem_bytes"] <= budget]
         if fitting:
             return min(fitting, key=lambda pl: (pl["fmas_per_plane"], pl["tile"]))
     raise ValueError(f"filtered_lrelu backward: no tile of up={up}, down={down}, "
-                     f"{ntu}/{ntd} taps fits {BWD_SMEM_ONE_CTA} bytes of shared memory")
+                     f"{ntu}/{ntd} taps fits {SMEM_ONE_CTA} bytes of shared memory")
 
 
 def filtered_lrelu_plain(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
@@ -153,27 +233,27 @@ def _kernel(direction: str):
     """The C entry point of K1 ("fwd") or K2 ("bwd"), built at first use."""
     from ._build import load_library
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    if direction == "fwd":
-        fn = load_library("filtered_lrelu")[0].afcm_filtered_lrelu_fwd
-        tensors = [p, p, p]                       # x, bias, y
-    else:
-        library = load_library("filtered_lrelu_bwd")[0]
-        listed = (ctypes.c_int * (4 * 16))()
-        count = library.afcm_filtered_lrelu_bwd_geometries(listed, 16)
-        built = {tuple(listed[4 * k:4 * k + 4]) for k in range(min(count, 16))}
-        if count > 16 or built != BWD_SPECIALISED:
-            raise RuntimeError(f"filtered_lrelu_bwd.cu instantiates {sorted(built)} "
-                               f"({count}), the planner expects {sorted(BWD_SPECIALISED)}")
-        fn = library.afcm_filtered_lrelu_bwd
-        tensors = [p, p, p, p]                    # x, bias, dy, dx
+    name = "filtered_lrelu" if direction == "fwd" else "filtered_lrelu_bwd"
+    expected = FWD_SPECIALISED if direction == "fwd" else BWD_SPECIALISED
+    library = load_library(name)[0]
+    listed = (ctypes.c_int * (4 * 16))()
+    count = getattr(library, f"afcm_filtered_lrelu_{direction}_geometries")(listed, 16)
+    built = {tuple(listed[4 * k:4 * k + 4]) for k in range(min(count, 16))}
+    if count > 16 or built != expected:
+        raise RuntimeError(f"{name}.cu instantiates {sorted(built)} ({count}), the "
+                           f"planner expects {sorted(expected)}")
+    fn = getattr(library, f"afcm_filtered_lrelu_{direction}")
+    tensors = [p, p, p] if direction == "fwd" else [p, p, p, p]   # x, bias, (dy,) y or dx
     fn.argtypes = tensors + [
         i,                                        # dtype
         i, i, i, i, i, i,                         # n, c, in_h, in_w, out_h, out_w
         p, i, p, i,                               # fu, ntu, fd, ntd
         i, i, i, i,                               # up, down, px0, py0
         f, f, f, i]                               # gain, slope, clamp, has_clamp
-    if direction == "bwd":
-        fn.argtypes += [i, i, i, i, i, i]         # T, M, L, D, smem bytes, specialised
+    if direction == "fwd":
+        fn.argtypes += [i] * 8                    # Ty, Tx, My, Mx, Ly, Lx, smem bytes, specialised
+    else:
+        fn.argtypes += [i] * 6                    # T, M, L, D, smem bytes, specialised
     fn.argtypes += [p]                            # stream
     fn.restype = ctypes.c_int
     return fn
@@ -216,7 +296,7 @@ class _Plan:
         self.gain, self.slope = float(gain), float(slope)
         self.has_clamp = clamp is not None
         self.clamp = float(clamp) if self.has_clamp else 0.0
-        self._bwd_tile = None
+        self._fwd_tile = self._bwd_tile = None
 
     def scalars(self, dtype):
         return (_DTYPES[dtype], self.n, self.c, self.in_h, self.in_w,
@@ -224,6 +304,15 @@ class _Plan:
                 self.gd.ctypes.data, len(self.gd), self.up, self.down,
                 self.px0, self.py0, self.gain, self.slope, self.clamp,
                 int(self.has_clamp))
+
+    def fwd_tile(self):
+        """K1's tile plan in the C entry point's order."""
+        if self._fwd_tile is None:
+            self._fwd_tile = plan_fwd_tile(self.up, self.down, len(self.gu),
+                                           len(self.gd), self.out_h, self.out_w)
+        t = self._fwd_tile
+        return (t["tile_y"], t["tile_x"], t["mid_y"], t["mid_x"], t["in_y"], t["in_x"],
+                t["smem_bytes"], int(t["specialised"]))
 
     def bwd_tile(self):
         """K2's tile plan in the C entry point's order."""
@@ -254,7 +343,7 @@ def _launch_fwd(x, b, plan: _Plan):
     with torch.cuda.device(x.device):       # the launch goes to the current device
         err = _kernel("fwd")(
             x.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(),
-            *plan.scalars(x.dtype),
+            *plan.scalars(x.dtype), *plan.fwd_tile(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"filtered_lrelu kernel launch failed: CUDA error {err}")

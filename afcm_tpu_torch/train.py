@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .data import get_train_loaders
-from .evaluate import resolve_device, set_matmul_precision
+from .evaluate import check_device_knobs, resolve_device, set_matmul_precision
 from .models import GANModel, build_gan_model
 from .models.schedulers import LRScheduler
 from .utils import checkpoint as ckpt
@@ -78,6 +78,7 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
     ``on_step(step, metrics)`` is called after every train step, with the
     step's losses still on the device."""
     device = resolve_device(device)
+    check_device_knobs(cfg, training=True)
     set_matmul_precision(cfg.tpu.compute_dtype)
     seed = cfg.manual_seed if cfg.manual_seed is not None else 0
     random.seed(seed)

@@ -20,7 +20,10 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
 3. K1 against its plain PyTorch version for the four filter variants of the
    generator at full-size layer shapes (batch 2): fp32 with TF32 off within
    1e-4 * max|plain| + 1e-4, bf16 at PSNR >= 38 dB against fp32 plain; both
-   timed with CUDA events;
+   timed with CUDA events; per variant which instantiation ran, its tile and
+   shared memory, and the generic kernel on the same inputs (timed, and
+   within 1e-5 * max + 1e-6 of the specialised one, its count of unequal
+   elements printed);
 4. the full generator at batch 2, fp32, TF32 off: kernel path against the
    plain path within 1e-3 * max|plain|; bf16 against fp32 plain at >= 30 dB;
 5. serves an in-memory phantom subject (24 slices of 256^2) through the
@@ -32,8 +35,9 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    under conv impl 'int8' (median of 3 windows and the spread). With
    --trace DIR it also traces each leg with torch.profiler and writes the
    gzipped chrome trace and a breakdown (summary_<leg>.json) under DIR:
-   device time by kernel, K1's time per layer, and the device-busy share of
-   the traced window;
+   device time by kernel, K1's time per layer beside the sum of its bounds
+   over the forward's 28 launches, and the device-busy share of the traced
+   window;
 7. training: (a) K2 against its plain version (autograd of the plain
    composition) at the four variant shapes, batch 2, fp32 with TF32 off
    within 1e-4 * max|plain| + 1e-4 and bf16 at PSNR >= 38 dB, both timed;
@@ -67,7 +71,9 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    path the wrapper takes), the float conv the path makes with the knob off
    (conv2d_gradfix.conv2d in bf16), cuDNN's bf16 conv of the same quantized
    integers, and the plain version, beside the bound; (c) K4's dx and dw
-   against the plain path's within 1e-4 * max + 1e-5; (d) the generator
+   against the plain path's within 1e-4 * max + 1e-5, and K4's backward
+   (the fp32 conv adjoint, TF32 off and on) timed at the three routed
+   shapes, batch 16, beside its bound; (d) the generator
    under 'int8' at batch 2, fp32, TF32 off: the kernel path (K1 and K3)
    equals the path with K3's plain version bit for bit, is within
    1e-2 * max|plain| of the path with both plain versions (K1's last-bit
@@ -245,8 +251,28 @@ def add_bound(total, bound):
     return ms + bound[0], (bound[1] if bound[0] > largest else by), max(largest, bound[0])
 
 
+@contextlib.contextmanager
+def generic_k1():
+    """Plan K1's calls for its generic kernel, whatever their geometry."""
+    saved = k1.FWD_SPECIALISED
+    k1.FWD_SPECIALISED = frozenset()
+    try:
+        yield
+    finally:
+        k1.FWD_SPECIALISED = saved
+
+
+def k1_tile(x, kw):
+    """K1's plan (instantiation, tile, windows, shared memory) for a call."""
+    plan = k1._Plan(x, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
+                    kw["gain"], kw["slope"], kw["clamp"], False)
+    return k1.plan_fwd_tile(plan.up, plan.down, len(plan.gu), len(plan.gd),
+                            plan.out_h, plan.out_w)
+
+
 def check_variants(device):
-    """Phase 3: K1 against its plain version at full-size layer shapes."""
+    """Phase 3: K1 against its plain version at full-size layer shapes, and
+    its specialised instantiations against its generic kernel."""
     synthesis = shipped_model("float32").generator_ema.synthesis
     gen = torch.Generator(device=device).manual_seed(SEED)
     worst, total_ms, total_plain_ms = 0.0, 0.0, 0.0
@@ -271,10 +297,27 @@ def check_variants(device):
         xb, bb = x.bfloat16(), b.bfloat16()
         got_bf16 = k1.filtered_lrelu_cuda(xb, b=bb, **kw)
         db = psnr(got_bf16, want)
+        tile = k1_tile(x, kw)
+        with generic_k1():
+            generic = k1.filtered_lrelu_cuda(x, b=b, **kw)
+            generic_ms = cuda_ms(lambda: k1.filtered_lrelu_cuda(x, b=b, **kw))
+            generic_tile = k1_tile(x, kw)
+        unequal = int((got != generic).sum())
+        spec_err = float((got - generic).abs().max())
+        spec_bound = 1e-5 * float(generic.abs().max()) + 1e-6
         least = filtered_lrelu_bound_ms(x, spec.out_size, kw)
         total_bound = add_bound(total_bound, least)
+        geometry = (kw["up"], kw["down"], len(kw["fu"]), len(kw["fd"]))
         row = dict(variant=label, shape=list(shape), out=spec.out_size,
+                   instantiation=("specialised %d/%d %d/%d" % geometry
+                                  if tile["specialised"] else "generic"),
+                   tile=[tile["tile_y"], tile["tile_x"]], smem_bytes=tile["smem_bytes"],
+                   tiles=tile["tiles"], fmas_per_plane=tile["fmas_per_plane"],
                    fp32_max_abs_err=err, fp32_bound=bound, bf16_psnr_db=db,
+                   generic_tile=[generic_tile["tile_y"], generic_tile["tile_x"]],
+                   generic_smem_bytes=generic_tile["smem_bytes"],
+                   unequal_vs_generic=unequal, max_abs_diff_vs_generic=spec_err,
+                   bound_vs_generic=spec_bound, ms_fp32_generic=generic_ms,
                    bound_ms_fp32=least[0], bound_by=least[1],
                    ms_fp32=cuda_ms(lambda: k1.filtered_lrelu_cuda(x, b=b, **kw)),
                    plain_ms_fp32=cuda_ms(lambda: k1.filtered_lrelu_plain(x, b=b, **kw)),
@@ -285,6 +328,9 @@ def check_variants(device):
             raise AssertionError(f"{label}: fp32 max|diff| {err} > {bound}")
         if not db >= 38:
             raise AssertionError(f"{label}: bf16 PSNR {db:.2f} dB < 38")
+        if not (tile["specialised"] and spec_err <= spec_bound):
+            raise AssertionError(f"{label}: the specialised K1 ({tile['specialised']}) "
+                                 f"differs from the generic one by {spec_err} > {spec_bound}")
         worst = max(worst, err)
         total_ms += row["ms_fp32"]
         total_plain_ms += row["plain_ms_fp32"]
@@ -841,6 +887,42 @@ def check_ste_backward():
         raise AssertionError(f"K4 backward against the plain path: {errs}")
 
 
+def time_ste_backward():
+    """Phase 8c, timing: K4's backward (the fp32 conv adjoint, dx and dw
+    through conv2d_gradfix, as the Function's backward computes them) at the
+    three conv shapes mode 'int8' routes, batch 16, with TF32 off and on,
+    beside its bound: the adjoint's FLOPs (dx and dw, 2 * 9 * O * I * Ho *
+    Wo * N each) over the fp32 rate, and its bytes (dy read as the bf16 K3
+    gives it, x and w read, dx and dw written in fp32) over the HBM rate."""
+    synthesis = shipped_model("bfloat16").generator_ema.synthesis
+    routed = [key for key in conv3x3_shapes(synthesis)
+              if modulated_conv._int8_gate((1, key[0], key[2], key[2]), (key[1], key[0], 3, 3))]
+    if len(routed) != 3:
+        raise AssertionError(f"mode 'int8' routes the conv shapes {routed}, want three")
+    for idx, (i, o, h, p) in enumerate(routed):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + idx)
+        xg = torch.randn((SERVE_BATCH, i, h, h), generator=gen, device="cuda").requires_grad_(True)
+        wg = (torch.randn((o, i, 3, 3), generator=gen, device="cuda") / np.sqrt(9 * i)) \
+            .requires_grad_(True)
+        y = k3.conv3x3_int8_ste(xg, wg, p)
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+        size = h + 2 * p - 2
+        flops = 2 * (2 * 9 * o * i * size * size * SERVE_BATCH)
+        nbytes = dy.numel() * dy.element_size() + 4 * 2 * (xg.numel() + wg.numel())
+        by_ops, by_bytes = 1e3 * flops / FP32_FLOP_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+        ms = {}
+        for tf32 in (False, True):
+            set_matmul_precision("bfloat16" if tf32 else "float32")
+            ms["tf32" if tf32 else "fp32"] = cuda_median_ms(
+                lambda: torch.autograd.grad(y, (xg, wg), dy, retain_graph=True))
+        set_matmul_precision("float32")
+        phase("8c K4 backward timing", channels=[i, o], size=h, padding=p, batch=SERVE_BATCH,
+              ms_tf32_off=ms["fp32"], ms_tf32_on=ms["tf32"], gflop=flops / 1e9,
+              mbytes=nbytes / 1e6, bound_ms=max(by_ops, by_bytes),
+              bound_by="operations" if by_ops >= by_bytes else "bytes")
+        del xg, wg, y, dy
+
+
 def check_generator_int8(device):
     """Phase 8d: the generator under conv impl 'int8'. The kernel path (K1
     and K3) against the same path with K3's plain version: equal bit for
@@ -964,9 +1046,24 @@ def kernel_layers(synthesis):
                     if not layer.spec.is_torgb]
 
 
-def trace_leg(model, inputs, key, iters, out_dir):
+def forward_k1_bound_ms(synthesis, batch, dtype):
+    """Sum of K1's bounds (filtered_lrelu_bound_ms) over one forward's
+    launches, one per layer but toRGB, at the forward's batch and dtype."""
+    total = 0.0
+    for layer in list(synthesis.encoders) + list(synthesis.decoders):
+        if layer.spec.is_torgb:
+            continue
+        size = layer.spec.in_size + 2
+        x = torch.empty((batch, layer.spec.out_channels, size, size), dtype=dtype,
+                        device="meta")
+        kw = dict(fu=layer.up_filter, fd=layer.down_filter, up=layer.up, down=layer.down)
+        total += filtered_lrelu_bound_ms(x, layer.spec.out_size, kw)[0]
+    return total
+
+
+def trace_leg(model, inputs, key, iters, out_dir, dtype):
     """torch.profiler over `iters` forwards: device time by kernel, K1 per
-    layer, and the busy share."""
+    layer beside the sum of its bounds, and the busy share."""
     cond, c, z = inputs
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -975,18 +1072,21 @@ def trace_leg(model, inputs, key, iters, out_dir):
             for _ in range(iters):
                 model.eval_step(cond, c, z=z)
             torch.cuda.synchronize()
+    synthesis = model.generator_ema.synthesis
     summarize_trace(prof, key, "traced_forwards", iters, out_dir,
-                    layers=kernel_layers(model.generator_ema.synthesis),
-                    phase_name="6 trace", unit="forward")
+                    layers=kernel_layers(synthesis), phase_name="6 trace", unit="forward",
+                    k1_bound_ms_per_forward=forward_k1_bound_ms(synthesis, cond.shape[0],
+                                                                dtype))
 
 
 def summarize_trace(prof, key, span_name, iters, out_dir, layers, phase_name,
-                    unit="step"):
+                    unit="step", **extra):
     """Write the gzipped chrome trace and summary_<key>.json under out_dir:
     device time by kernel, K1 and K2 totals (and K1 per layer when `layers`
-    names them), and the busy share. The window runs from the first to the
-    last timestamp of the host span `span_name` and the device events in
-    it, all on the trace's one clock, so the share is at most 1."""
+    names them), the busy share and the `extra` fields. The window runs from
+    the first to the last timestamp of the host span `span_name` and the
+    device events in it, all on the trace's one clock, so the share is at
+    most 1."""
     os.makedirs(out_dir, exist_ok=True)
     trace_path = os.path.join(out_dir, f"trace_{key}.json.gz")
     prof.export_chrome_trace(trace_path)           # gzipped for the suffix
@@ -1009,9 +1109,9 @@ def summarize_trace(prof, key, span_name, iters, out_dir, layers, phase_name,
     top = [{"name": name[:90], "calls": calls, f"ms_per_{unit}": us / 1e3 / iters}
            for name, (us, calls) in sorted(by_name.items(),
                                            key=lambda kv: -kv[1][0])][:25]
-    k1_events = sorted((e for e in device if "filtered_lrelu_fwd_kernel" in e["name"]),
+    # K1's and K2's generic kernels and their instantiations per filter geometry
+    k1_events = sorted((e for e in device if "filtered_lrelu_fwd_" in e["name"]),
                        key=lambda e: e["ts"])
-    # the generic kernel and the instantiations per filter geometry
     k2_events = [e for e in device if "filtered_lrelu_bwd_" in e["name"]]
     summary = {"leg": key, "iters": iters,
                f"window_ms_per_{unit}": window / 1e3 / iters,
@@ -1019,7 +1119,8 @@ def summarize_trace(prof, key, span_name, iters, out_dir, layers, phase_name,
                "device_busy_share": busy_us(intervals) / window,
                f"k1_ms_per_{unit}": sum(e["dur"] for e in k1_events) / 1e3 / iters,
                f"k2_ms_per_{unit}": sum(e["dur"] for e in k2_events) / 1e3 / iters,
-               "k1_calls": len(k1_events), "k2_calls": len(k2_events), "top": top}
+               "k1_calls": len(k1_events), "k2_calls": len(k2_events), **extra,
+               "top": top}
     if layers is not None:
         if len(k1_events) != len(layers) * iters:
             raise AssertionError(f"{len(k1_events)} K1 launches traced, want "
@@ -1062,7 +1163,7 @@ def time_forward(device, trace_dir=None):
             # float32 with TF32 off launches ~33,600 kernels a forward (cuDNN's
             # FFT convs): one forward, or the profiler may drop an event
             trace_leg(model, inputs, key, 1 if dtype == "float32" else 5,
-                      trace_dir)
+                      trace_dir, getattr(torch, dtype))
         set_conv_impl("xla")
     return legs
 
@@ -1346,6 +1447,7 @@ def main(argv=None):
     quantizer_unequal, quantizer_worst = check_quantizers()
     int8_sums = time_conv_int8()
     check_ste_backward()
+    time_ste_backward()
     check_generator_int8(device)
     int8_launches = serve_phantom_int8(device)
     probe_entries = run_probes(check_probe_kernels(device))

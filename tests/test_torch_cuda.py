@@ -66,12 +66,19 @@ CASES = {
                                    pad=(-11, -12, -10, -13)),
     "generic_ragged_tiles_u3d2": dict(h=41, w=37, c=2, up=3, down=2, ntu=18,
                                       ntd=12, pad=(5, 6, -2, 4), flip=True),
+    # several K1 tiles per axis for the generic kernel too
+    "generic_fwd_ragged_tiles_u3d2": dict(h=61, w=53, c=2, up=3, down=2, ntu=18,
+                                          ntd=12, pad=(5, 6, -2, 4)),
 }
 # K2's instantiation per case: the specialised kernel of the geometry, or
 # the generic one.
 SPECIALISED = {name for name, case in CASES.items()
                if (case["up"], case["down"], case["ntu"], case["ntd"])
                in k1.BWD_SPECIALISED}
+# K1's, by the same rule.
+FWD_SPECIALISED = {name for name, case in CASES.items()
+                   if (case["up"], case["down"], case["ntu"], case["ntd"])
+                   in k1.FWD_SPECIALISED}
 
 # One layer of the shipped generator per variant, as in chip_smoke.py:
 # (encoder or decoder, index).
@@ -173,6 +180,73 @@ def test_kernel_raises_on_bad_input(cuda):
         k1.filtered_lrelu_bwd_cuda(x, y, b=b, **dict(kw, fu=np.ones(65)))
     with pytest.raises(ValueError, match="dy of shape"):
         k1.filtered_lrelu_bwd_cuda(x, y[:, :, 1:], b=b, **kw)
+
+
+def _fwd_plan(case):
+    """K1's plan for a case, from its shapes alone (no device needed)."""
+    x, _, kw = _case(case, "cpu")
+    plan = k1._Plan(x, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
+                    kw["gain"], kw["slope"], kw["clamp"], kw["flip_filter"])
+    return plan, k1.plan_fwd_tile(plan.up, plan.down, len(plan.gu), len(plan.gd),
+                                  plan.out_h, plan.out_w)
+
+
+def test_fwd_cases_cover_every_instantiation():
+    """The cases reach each of K1's specialised instantiations at a single
+    tile and at ragged tiles (several per image, the last cut by the
+    image's edge), and the generic kernel at both."""
+    single, ragged = set(), set()
+    for name, c in CASES.items():
+        plan, tile = _fwd_plan(c)
+        key = (c["up"], c["down"], c["ntu"], c["ntd"]) if tile["specialised"] else "generic"
+        assert tile["specialised"] == (name in FWD_SPECIALISED)
+        if tile["tiles"] == 1:
+            single.add(key)
+        elif plan.out_h % tile["tile_y"] or plan.out_w % tile["tile_x"]:
+            ragged.add(key)
+    want = set(k1.FWD_SPECIALISED) | {"generic"}
+    assert single == want and ragged == want
+
+
+@pytest.mark.parametrize("name", sorted(FWD_SPECIALISED))
+def test_fwd_specialised_and_generic_kernels_agree(cuda, monkeypatch, name):
+    """K1's specialised instantiation and its generic kernel on the same
+    inputs: the same FMAs in the same order (taps ascending from the
+    polyphase start, W then H up, H then W down), so they should be equal
+    bit for bit; held to 1e-5 of the largest output + 1e-6, and the count of
+    unequal elements is printed (pytest -rP)."""
+    x, b, kw = _case(CASES[name], cuda, seed=2)
+    spec = k1.filtered_lrelu_cuda(x, b=b, **kw)
+    monkeypatch.setattr(k1, "FWD_SPECIALISED", frozenset())
+    plan = k1._Plan(x, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
+                    kw["gain"], kw["slope"], kw["clamp"], kw["flip_filter"])
+    assert plan.fwd_tile()[-1] == 0
+    generic = k1.filtered_lrelu_cuda(x, b=b, **kw)
+    torch.cuda.synchronize()
+    unequal = int((spec != generic).sum())
+    print(f"{name}: {unequal} of {generic.numel()} elements unequal, max|diff| "
+          f"{float((spec - generic).abs().max()):.3g}")
+    bound = 1e-5 * float(generic.abs().max()) + 1e-6
+    assert float((spec - generic).abs().max()) <= bound
+
+
+def test_fwd_rejects_a_plan_its_kernel_does_not_take(cuda, monkeypatch):
+    """A geometry without an instantiation that asks for one, or a plan
+    whose windows are not the kernel's, is refused by K1's entry point: no
+    instantiation stands in for another."""
+    x, b, kw = _case(CASES["u3d2"], cuda)
+    k1._kernel("fwd")       # loaded, and its list of instantiations checked, before the patch
+    monkeypatch.setattr(k1, "FWD_SPECIALISED", frozenset({(3, 2, 18, 12)}))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k1.filtered_lrelu_cuda(x, b=b, **kw)
+    monkeypatch.undo()
+    x, b, kw = _case(CASES["A_u2d2"], cuda)
+    real = k1.plan_fwd_tile
+    for field in ("in_x", "mid_y", "smem_bytes"):
+        monkeypatch.setattr(k1, "plan_fwd_tile",
+                            lambda *a, field=field: dict(real(*a), **{field: real(*a)[field] + 4}))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            k1.filtered_lrelu_cuda(x, b=b, **kw)
 
 
 def _bwd_case(name, device, seed=0):

@@ -181,4 +181,6 @@ def test_full_size_generator_matches_jax_cpu():
     with torch.no_grad():
         got = port(torch.from_numpy(z), torch.from_numpy(c),
                    torch.from_numpy(cond)).numpy()
+    print(f"full-size generator: max|port - jax| {np.abs(got - want).max():.3g}, "
+          f"max|jax| {np.abs(want).max():.4g}")        # shown by pytest -rP
     np.testing.assert_allclose(got, want, **GEN_TOL)

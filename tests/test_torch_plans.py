@@ -1,6 +1,6 @@
-"""What surrounds the redesigned kernels K2 and K3 and runs on the CPU: K2's
-tile planner, K3's tile choice, and the plain versions of the quantizer
-kernels against the JAX package's quantization.
+"""What surrounds the redesigned kernels K1, K2 and K3 and runs on the CPU:
+K1's and K2's tile planners, K3's tile choice, and the plain versions of the
+quantizer kernels against the JAX package's quantization.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py); the
 planner decides which instantiation takes a call and how much shared memory
@@ -9,6 +9,9 @@ the shipped generator and of the tiny one. The quantizers are exact in both
 packages (same divide, round half to even, clip), so the comparisons are
 exact too. Inputs are made with numpy from a seed.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -35,9 +38,9 @@ SHIPPED_GEOMETRIES = {"A/D": (2, 2, 12, 12), "B": (2, 4, 12, 24), "C": (4, 2, 24
 
 
 def _layers(gen_kwargs):
-    """(name, up, down, up taps, down taps, kernel input size) of every
-    layer that launches the filtered_lrelu kernels: the kernel's input is
-    the 3x3 conv's output, layer size + 2."""
+    """(name, up, down, up taps, down taps, kernel input size, output size)
+    of every layer that launches the filtered_lrelu kernels: the kernel's
+    input is the 3x3 conv's output, layer size + 2."""
     synthesis = build_generator(gen_kwargs).synthesis
     out = []
     for side, layers in (("encoder", synthesis.encoders), ("decoder", synthesis.decoders)):
@@ -46,7 +49,7 @@ def _layers(gen_kwargs):
                 continue
             taps = [1 if f is None else len(f) for f in (layer.up_filter, layer.down_filter)]
             out.append((f"{side}_{idx}", layer.up, layer.down, *taps,
-                        layer.spec.in_size + 2))
+                        layer.spec.in_size + 2, layer.spec.out_size))
     return out
 
 
@@ -57,13 +60,13 @@ def layers(request):
 
 def test_bwd_plan_fits_two_ctas_and_covers_the_image(layers):
     """Every layer's plan keeps two CTAs on an SM (dynamic shared memory
-    within ``BWD_SMEM_TWO_CTAS``, twice that plus the reserved kilobyte each
+    within ``SMEM_TWO_CTAS``, twice that plus the reserved kilobyte each
     within the SM's 228 KB), its tiles cover the image, and T is a multiple
     of 4 as the strided passes need."""
     assert len(layers) >= 10
-    for name, up, down, ntu, ntd, size in layers:
+    for name, up, down, ntu, ntd, size, _ in layers:
         plan = k1.plan_bwd_tile(up, down, ntu, ntd, size, size)
-        assert plan["smem_bytes"] <= k1.BWD_SMEM_TWO_CTAS, name
+        assert plan["smem_bytes"] <= k1.SMEM_TWO_CTAS, name
         assert 2 * (plan["smem_bytes"] + 1024 + 512) <= 228 * 1024, name
         per_axis = -(-size // plan["tile"])
         assert plan["tiles"] == per_axis ** 2 and per_axis * plan["tile"] >= size, name
@@ -76,7 +79,7 @@ def test_bwd_plan_windows_equal_the_kernel_formulas(layers):
     max(L, D, T)*M', bufM M*M' floats between two slack areas of 64, with
     the pitches v' = v | 1 in a specialised instantiation and v' = v in the
     generic kernel."""
-    for name, up, down, ntu, ntd, size in layers:
+    for name, up, down, ntu, ntd, size, _ in layers:
         plan = k1.plan_bwd_tile(up, down, ntu, ntd, size, size)
         t = plan["tile"]
         mid = (t - 1) * up + ntu
@@ -97,10 +100,10 @@ def test_bwd_plan_picks_the_instantiation_by_geometry(layers):
     """The shipped geometries map to their own instantiations, and every
     layer of both generators has one of them."""
     assert k1.BWD_SPECIALISED == frozenset(SHIPPED_GEOMETRIES.values())
-    for name, up, down, ntu, ntd, size in layers:
+    for name, up, down, ntu, ntd, size, _ in layers:
         plan = k1.plan_bwd_tile(up, down, ntu, ntd, size, size)
         assert plan["specialised"] == ((up, down, ntu, ntd) in k1.BWD_SPECIALISED), name
-    shipped = {(up, down, ntu, ntd) for _, up, down, ntu, ntd, _ in _layers(CMSR_ADNI_G)}
+    shipped = {(up, down, ntu, ntd) for _, up, down, ntu, ntd, _, _ in _layers(CMSR_ADNI_G)}
     assert shipped == set(SHIPPED_GEOMETRIES.values())
 
 
@@ -111,10 +114,10 @@ def test_bwd_plan_odd_geometry_takes_the_generic_kernel(geometry):
     longest filters the kernels take still get a tile, at one CTA per SM."""
     plan = k1.plan_bwd_tile(*geometry, 21, 19)
     assert plan["specialised"] is False
-    assert plan["smem_bytes"] <= k1.BWD_SMEM_ONE_CTA
+    assert plan["smem_bytes"] <= k1.SMEM_ONE_CTA
     assert plan["tiles"] == -(-21 // plan["tile"]) * -(-19 // plan["tile"])
     if geometry != (1, 1, 64, 64):
-        assert plan["smem_bytes"] <= k1.BWD_SMEM_TWO_CTAS
+        assert plan["smem_bytes"] <= k1.SMEM_TWO_CTAS
 
 
 def test_bwd_plan_tile_grows_past_48_kb_for_the_long_filters():
@@ -139,6 +142,151 @@ def test_plan_object_hands_the_tile_to_the_entry_point():
                                want["dy_tile"], want["smem_bytes"], 1)
     odd = k1._Plan(x, fu[:7], None, 3, 1, 0, np.sqrt(2), 0.2, None, False)
     assert odd.bwd_tile()[-1] == 0
+
+
+def _fwd_windows(t, up, down, ntu, ntd, specialised):
+    """M, L and E per axis as the header of csrc/filtered_lrelu.cu defines
+    them, written out here from the header's words: the specialised kernel's
+    up passes make whole chunks of 8 from phase 0, up - 1 samples to spare,
+    and a chunk reads the x samples of its last output's taps."""
+    mid = (t - 1) * down + ntd
+    if not specialised:
+        return mid, int(np.ceil((mid + ntu - 2) / up)) + 1, mid
+    ext = int(np.ceil((mid + up - 1) / 8)) * 8
+    reach = max((i + (-i) % up) // up + int(np.ceil((ntu - (-i) % up) / up))
+                for i in range(8))
+    return mid, ext // up - 8 // up + reach, ext
+
+
+def _fwd_48kb_fmas(up, down, ntu, ntd, out):
+    """FMAs per plane of the square tile K1's C++ planner chose before it
+    moved to Python: T a multiple of 4 up to 64, buffers max(L², M²) +
+    max(L, T)·M floats within 48 KB less the 512 bytes of static taps."""
+    best = None
+    for t in range(4, 65, 4):
+        mid = (t - 1) * down + ntd
+        in_tile = (mid + ntu - 2 + up - 1) // up + 1
+        if 4 * (max(in_tile ** 2, mid ** 2) + max(in_tile, t) * mid) > 48 * 1024 - 512:
+            continue
+        work = (-(-out // t)) ** 2 * ((in_tile * mid + mid * mid) * -(-ntu // up)
+                                   + (t * mid + t * t) * ntd)
+        best = work if best is None else min(best, work)
+    return best
+
+
+def test_fwd_plan_fits_two_ctas_and_covers_the_image(layers):
+    """Every layer's K1 plan keeps two CTAs on an SM (dynamic shared memory
+    within ``SMEM_TWO_CTAS``, twice that plus the static taps and the
+    reserved kilobyte within the SM's 228 KB), its tiles cover the output,
+    and each side is a multiple of 8 (a specialised instantiation's strided
+    chunk) or of 4 (the generic kernel)."""
+    assert len(layers) >= 10
+    for name, up, down, ntu, ntd, _, out in layers:
+        plan = k1.plan_fwd_tile(up, down, ntu, ntd, out, out)
+        assert plan["smem_bytes"] <= k1.SMEM_TWO_CTAS, name
+        assert 2 * (plan["smem_bytes"] + 512 + 1024) <= 228 * 1024, name
+        ty, tx = plan["tile_y"], plan["tile_x"]
+        assert plan["tiles"] == -(-out // ty) * -(-out // tx), name
+        assert -(-out // ty) * ty >= out and -(-out // tx) * tx >= out, name
+        step = 8 if plan["specialised"] else 4
+        assert ty % step == 0 and tx % step == 0 and max(ty, tx) <= 64, name
+
+
+def test_fwd_plan_windows_equal_the_kernel_formulas(layers):
+    """M and L per axis as the kernel's header defines them, and the shared
+    memory as its buffers add up: bufA max(Ly*Lx', Ey*Mx', Ty*Tx') and bufB
+    max(Ly*Ex', Ty*Mx') floats with the odd pitches v' = v | 1 of a
+    specialised instantiation; max(Ly*Lx, My*Mx) and max(Ly, Ty)*Mx in the
+    generic kernel. The FMAs are those of the passes as the kernel runs
+    them."""
+    for name, up, down, ntu, ntd, _, out in layers:
+        plan = k1.plan_fwd_tile(up, down, ntu, ntd, out, out)
+        spec = plan["specialised"]
+        (my, ly, ey), (mx, lx, ex) = (_fwd_windows(t, up, down, ntu, ntd, spec)
+                                      for t in (plan["tile_y"], plan["tile_x"]))
+        assert (plan["mid_y"], plan["mid_x"], plan["in_y"], plan["in_x"]) == (my, mx, ly, lx), name
+        for t, want in ((plan["tile_y"], (my, ly, ey)), (plan["tile_x"], (mx, lx, ex))):
+            assert k1.fwd_windows(t, up, down, ntu, ntd, spec) == want, name
+        ty, tx = plan["tile_y"], plan["tile_x"]
+        if spec:
+            floats = max(ly * (lx | 1), ey * (mx | 1), ty * (tx | 1)) \
+                + max(ly * (ex | 1), ty * (mx | 1))
+            # a chunk of the up passes never reads past the x window
+            assert ey >= my + up - 1 and ex >= mx + up - 1 and ex % 8 == 0, name
+        else:
+            floats = max(ly * lx, my * mx) + max(ly, ty) * mx
+        assert plan["smem_bytes"] == 4 * floats, name
+        fmas = plan["tiles"] * ((ly * ex + mx * ey) * -(-ntu // up) + (ty * mx + ty * tx) * ntd)
+        assert plan["fmas_per_plane"] == fmas, name
+
+
+def test_fwd_plan_picks_the_instantiation_by_geometry(layers):
+    """The shipped geometries map to K1's own instantiations (the same three
+    as K2's), and every layer of both generators has one of them."""
+    assert k1.FWD_SPECIALISED == frozenset(SHIPPED_GEOMETRIES.values()) == k1.BWD_SPECIALISED
+    for name, up, down, ntu, ntd, _, out in layers:
+        plan = k1.plan_fwd_tile(up, down, ntu, ntd, out, out)
+        assert plan["specialised"] == ((up, down, ntu, ntd) in k1.FWD_SPECIALISED), name
+
+
+@pytest.mark.parametrize("source,listed", [("filtered_lrelu.cu", "FWD_SPECIALISED"),
+                                           ("filtered_lrelu_bwd.cu", "BWD_SPECIALISED")])
+def test_kernel_sources_instantiate_the_planners_geometries(source, listed):
+    """The one list of geometries in each source (AFCM_SPEC_GEOMETRIES, behind
+    its dispatch and its exported list, which loading checks on the card) is
+    the planner's set."""
+    path = os.path.join(os.path.dirname(k1.__file__), "..", "..", "csrc", source)
+    with open(path) as f:
+        line = re.search(r"#define AFCM_SPEC_GEOMETRIES\(X\)(.*)", f.read()).group(1)
+    built = {tuple(int(v) for v in g.split(",")) for g in re.findall(r"X\(([^)]*)\)", line)}
+    assert built == set(getattr(k1, listed))
+
+
+@pytest.mark.parametrize("geometry", [(3, 2, 18, 12), (1, 1, 7, 5), (3, 1, 7, 1),
+                                      (2, 1, 1, 1), (2, 2, 12, 8), (1, 1, 64, 64)])
+def test_fwd_plan_odd_geometry_takes_the_generic_kernel(geometry):
+    """Any other geometry takes the generic kernel with plain pitches and
+    tiles in steps of 4; the longest filters the kernel takes still get a
+    tile, at one CTA per SM."""
+    plan = k1.plan_fwd_tile(*geometry, 21, 19)
+    assert plan["specialised"] is False
+    assert plan["smem_bytes"] <= k1.SMEM_ONE_CTA
+    assert plan["tiles"] == -(-21 // plan["tile_y"]) * -(-19 // plan["tile_x"])
+    assert plan["tile_y"] % 4 == 0 and plan["tile_x"] % 4 == 0
+    if geometry != (1, 1, 64, 64):
+        assert plan["smem_bytes"] <= k1.SMEM_TWO_CTAS
+
+
+@pytest.mark.parametrize("variant,in_size,out", [("A/D", 278, 276), ("B", 278, 148),
+                                                 ("C", 150, 276), ("A/D", 278, 256)])
+def test_fwd_plan_grows_past_48_kb_and_does_less_work(variant, in_size, out):
+    """At the four full-size variant shapes the plan takes more than the
+    48 KB the C++ planner was held to, and no more FMAs than that planner's
+    square tile; B (up 2, down 4, 24 down taps), whose halo costs most, gets
+    a non-square tile with at least 10% fewer."""
+    up, down, ntu, ntd = SHIPPED_GEOMETRIES[variant]
+    plan = k1.plan_fwd_tile(up, down, ntu, ntd, out, out)
+    old = _fwd_48kb_fmas(up, down, ntu, ntd, out)
+    assert plan["smem_bytes"] > 48 * 1024
+    assert plan["fmas_per_plane"] <= old
+    if variant == "B":
+        assert plan["tile_y"] != plan["tile_x"]
+        assert plan["fmas_per_plane"] <= 0.9 * old
+
+
+def test_plan_object_hands_the_fwd_tile_to_the_entry_point():
+    """``_Plan.fwd_tile`` gives the C entry point's eight integers (Ty, Tx,
+    My, Mx, Ly, Lx, bytes, specialised) for the call's geometry and output
+    size; an odd geometry asks for the generic kernel."""
+    fu = design_lowpass_filter(12, cutoff=9.5, width=9.5, fs=76)
+    x = torch.zeros((1, 2, 38, 38))
+    plan = k1._Plan(x, fu, fu, 2, 2, (9, 8, 9, 8), np.sqrt(2), 0.2, 256.0, False)
+    assert (plan.out_h, plan.out_w) == (36, 36)
+    want = k1.plan_fwd_tile(2, 2, 12, 12, 36, 36)
+    assert plan.fwd_tile() == (want["tile_y"], want["tile_x"], want["mid_y"], want["mid_x"],
+                               want["in_y"], want["in_x"], want["smem_bytes"], 1)
+    odd = k1._Plan(x, fu[:7], None, 3, 1, 0, np.sqrt(2), 0.2, None, False)
+    assert odd.fwd_tile()[-1] == 0
 
 
 @pytest.mark.parametrize("out_h,rows", [(38, 20), (54, 18), (36, 18), (7, 18),

@@ -204,3 +204,45 @@ def test_evaluate_cli_writes_scores(tmp_path):
     assert np.isfinite(half["psnr"]) and np.isfinite(half["ssim"])
     assert abs(half["psnr"] - result["psnr"]) < 0.05
     assert abs(half["ssim"] - result["ssim"]) < 1e-3
+
+
+def _tiny_cfg(*opts):
+    from afcm_tpu_torch.config import default_argument_parser
+    return default_argument_parser(["--config-file", os.path.join(
+        REPO, "configs/demo/cmsr_tiny.yml"), *opts])
+
+
+@pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["tpu.mesh_shape", "[2, 2]"]])
+def test_serving_refuses_a_mesh_of_more_than_one_device_naming_a12b(argv):
+    """Both serving CLIs reach ``configure_numerics`` before they load a
+    checkpoint or read data; a mesh of more than one device is refused there
+    (ROADMAP item A12b) instead of serving on one card. The default mesh
+    ``[0, 1]`` (all devices on data: the one card) is accepted."""
+    from afcm_tpu_torch import serve
+    from afcm_tpu_torch.evaluate import configure_numerics
+    from afcm_tpu_torch.evaluate import main as evaluate_main
+    with pytest.raises(NotImplementedError, match="A12b"):
+        configure_numerics(_tiny_cfg(*argv))
+    for cli in (evaluate_main, serve.main):
+        with pytest.raises(NotImplementedError, match="A12b"):
+            cli(["--config-file", os.path.join(REPO, "configs/demo/cmsr_tiny.yml"),
+                 "--device", "cpu", *argv])
+    assert configure_numerics(_tiny_cfg()) == "float32"
+
+
+def test_serving_ignores_remat_and_says_matmul_precision_has_no_effect(capsys):
+    """Serving ignores ``tpu.remat`` in both packages, so it does not raise
+    here; a non-default ``tpu.matmul_precision`` gets its one line, and TF32
+    follows ``tpu.compute_dtype`` alone."""
+    from afcm_tpu_torch.evaluate import configure_numerics
+    capsys.readouterr()
+    assert configure_numerics(_tiny_cfg("tpu.remat", "True")) == "float32"
+    assert "tpu.matmul_precision" not in capsys.readouterr().out
+    assert configure_numerics(_tiny_cfg("tpu.matmul_precision", "high",
+                                        "tpu.compute_dtype", "bfloat16")) == "bfloat16"
+    said = [line for line in capsys.readouterr().out.splitlines()
+            if line.startswith("tpu.matmul_precision")]
+    assert len(said) == 1 and "tpu.compute_dtype alone" in said[0]
+    assert torch.backends.cudnn.allow_tf32 is True       # bfloat16: TF32 on
+    configure_numerics(_tiny_cfg("tpu.matmul_precision", "highest"))
+    assert torch.backends.cudnn.allow_tf32 is False      # float32: off, whatever the key

@@ -81,3 +81,54 @@ def test_train_on_phantom_loaders_resumes(tmp_path):
     ckpt.load_state(model, str(tmp_path / "demo_tiny"), "latest")
     assert model.step == 2
     assert all(int(s["step"]) == 2 for s in model.opt_G.state.values())
+
+
+class _Stop(Exception):
+    """Raised in place of the train loop's data loading: the checks of the
+    config's device knobs run before it."""
+
+
+def _no_loaders(*args, **kwargs):
+    raise _Stop
+
+
+def test_train_refuses_remat_naming_a8(monkeypatch):
+    """``tpu.remat True`` is refused before any data is read: the port's
+    step keeps every activation (ROADMAP item A8), and a run that asked for
+    rematerialization must not silently train without it."""
+    monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
+    with pytest.raises(NotImplementedError, match="A8"):
+        train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True",
+                        "tpu.remat_min_size", "32"])
+    with pytest.raises(_Stop):          # the default trains
+        train_cli.main(["--config-file", CONFIG, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["tpu.mesh_shape", "[1, 2]"],
+                                  ["tpu.mesh_shape", "[4, 1]"]])
+def test_train_refuses_a_mesh_of_more_than_one_device_naming_a12b(monkeypatch, argv):
+    """``--num-gpus 2`` (the mesh [2, 1]) or any mesh of more than one
+    device is refused: data-parallel training is ROADMAP item A12b, and one
+    card must not train in its place without a word. ``[1, 1]`` runs."""
+    monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
+    with pytest.raises(NotImplementedError, match="A12b"):
+        train_cli.main(["--config-file", CONFIG, "--device", "cpu", *argv])
+    with pytest.raises(_Stop):
+        train_cli.main(["--config-file", CONFIG, "--device", "cpu",
+                        "tpu.mesh_shape", "[1, 1]"])
+
+
+def test_train_says_matmul_precision_has_no_effect(monkeypatch, capsys):
+    """A ``tpu.matmul_precision`` other than ``default`` gets one line that
+    says the port sets TF32 from ``tpu.compute_dtype`` alone; TF32 stays off
+    for float32. The default prints nothing of it."""
+    monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
+    for precision, lines in (("highest", 1), ("default", 0)):
+        with pytest.raises(_Stop):
+            train_cli.main(["--config-file", CONFIG, "--device", "cpu",
+                            "tpu.matmul_precision", precision])
+        said = [line for line in capsys.readouterr().out.splitlines()
+                if line.startswith("tpu.matmul_precision")]
+        assert len(said) == lines
+        assert all("tpu.compute_dtype alone" in line for line in said)
+        assert torch.backends.cuda.matmul.allow_tf32 is False
