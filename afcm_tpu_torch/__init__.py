@@ -7,12 +7,14 @@ that any ``afcm_tpu`` state loads here through
 
 * ``ops`` — plain-torch ops plus the hand-written CUDA kernels (``ops/cuda``,
   sources in ``csrc/``): the fused filtered leaky ReLU, forward and
-  backward, and the int8 3x3 conv;
-* ``nn`` — the alias-free StyleGAN3 generator of AFCM and the discriminator
-  as ``nn.Module``s;
+  backward (the ``torch.library`` operators ``afcm_tpu_torch::filtered_lrelu``
+  and ``::filtered_lrelu_bwd``, registered when ``ops`` is imported), and the
+  int8 3x3 conv;
+* ``nn`` — the alias-free StyleGAN3 generator of AFCM, the CoModGAN
+  baseline's generator family and the discriminator as ``nn.Module``s;
 * ``models`` — model factories and ``GANModel`` (eval and train steps);
-* ``evaluate``, ``train`` — the CLIs; they run on the CUDA device unless
-  ``--device cpu`` is given;
+* ``evaluate``, ``train``, ``serve``, ``infer.export`` — the CLIs; they run
+  on the CUDA device unless ``--device cpu`` is given;
 * ``config``, ``data``, ``infer``, ``native``, ``utils`` — host code.
 
 The package imports nothing of ``afcm_tpu``, not even its modules that are

@@ -27,7 +27,7 @@ import torch
 from .data import get_test_loaders
 from .data.h5_dataset import _is_standard_pipeline
 from .infer.predictor import StandardPredictor, subject_id
-from .models import GANModel, build_eval_model
+from .models import GANModel, build_eval_model, check_model_name
 from .ops.modulated_conv import set_conv_impl
 from .utils.metrics import evaluate_3D, evaluate_slice
 from .utils.nifti import read_nifti, write_nifti
@@ -196,6 +196,49 @@ def pipeline_norm_range(cfg):
     return _is_standard_pipeline(cfg.loaders.test.transformer.raw)
 
 
+def detect_norm_range(cfg):
+    """Strict ingest decision for the serving export (the port's copy of
+    ``afcm_tpu/evaluate.py:86-128``): an artifact has one ingest dtype, so
+    uint8 is chosen only when every test volume will ship as bytes, checked
+    from the h5 metadata (dtype reads, no volume data; h5py is imported only
+    here). Mixed or non-uint8 storage falls back to float ingest with a
+    printed note; with no test data reachable, or the NII cascade (whose
+    loader bins volumes to uint8), the config's range is assumed and noted."""
+    rng = pipeline_norm_range(cfg)
+    if rng is None:
+        return None
+    if cfg.loaders.get("dataset_mode", "cmsr") != "cmsr":
+        return rng
+    from .data.h5_dataset import StandardHDF5Dataset
+    try:
+        files = StandardHDF5Dataset.traverse_paths(
+            list(cfg.loaders.test.file_paths), cfg.loaders)
+    except (OSError, TypeError):
+        files = []
+    if not files:
+        print("export note: no test volumes reachable — assuming uint8 "
+              f"storage (config Normalize range {tuple(rng)}); re-export "
+              "with `tpu.transfer_dtype float32` if the data is not uint8.")
+        return rng
+    import h5py
+    keys = list(dict.fromkeys(list(cfg.loaders.raw_internal_path_in) +
+                              list(cfg.loaders.raw_internal_path_out)))
+    for path in files:
+        try:
+            with h5py.File(path, "r") as f:
+                dtypes = {f[k].dtype for k in keys if k in f}
+        except OSError as exc:
+            print(f"export note: cannot read {path} ({exc}); "
+                  "falling back to float32 ingest.")
+            return None
+        if dtypes != {np.dtype(np.uint8)}:
+            print(f"export note: {path} stores {sorted(map(str, dtypes))} "
+                  "(not uint8) — the loader will ship float batches, so "
+                  "the artifact uses float32 ingest.")
+            return None
+    return rng
+
+
 def checkpoint_tag(cfg) -> str:
     return str(cfg.epoch) if cfg.epoch else "latest"
 
@@ -222,9 +265,7 @@ def build_serving_forward(cfg, device):
     config (the caller resets the conv implementation when it ends), build
     the model, load ``<tag>_net_G_ema.pth`` strictly, move the weights to
     the device once and return ``(forward, run_dir)``."""
-    if getattr(cfg.model, "name", "stylegan3") != "stylegan3":
-        raise NotImplementedError(f"model {cfg.model.name} is not ported yet "
-                                  "(ROADMAP items A10-A11)")
+    check_model_name(cfg)
     compute_dtype = configure_numerics(cfg)
     model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
     run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)

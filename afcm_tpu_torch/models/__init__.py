@@ -1,8 +1,12 @@
 """Model registry: config -> generator, discriminator, GANModel
 (``afcm_tpu/models/__init__.py``).
 
-Only the alias-free StyleGAN3 generator is ported; CoModGAN is ROADMAP item
-A10 and raises until it lands.
+Two generator families: the alias-free StyleGAN3 generator (``netG:
+stylegan3``) and the co-modulated StyleGAN2 generator of the CoModGAN
+baseline (``netG: comodgan``). ``tpu.compute_dtype`` reaches the StyleGAN3
+generator and the discriminator; the CoModGAN generator computes in float32,
+as in the JAX package, whose synthesis keys for it take no compute dtype.
+The pix2pix baseline is not ported.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..nn import CoModDiscriminator, Stylegan3Generator
+from ..nn import CoModDiscriminator, CoModGenerator, Stylegan3Generator
 from .gan_model import GANConfig, GANModel
 
 # The generator of configs/adni/stylegan3/cmsr.yml as afcm_tpu.config
@@ -43,6 +47,14 @@ _SG3_SYNTH_KEYS = {
     "conv_kernel", "filter_size", "lrelu_upsampling", "use_radial_filters",
     "conv_clamp", "compute_dtype",
 }
+# ``afcm_tpu/models/__init__.py:30-34``, with the synthesizer's name
+_COMOD_SYNTH_KEYS = {
+    "channel_base", "channel_max", "dropout_rate", "skip_resolution",
+    "channel_attention", "resample_filter", "architecture", "conv_clamp",
+    "cond_mod",
+}
+_GENERATORS = {"stylegan3": (Stylegan3Generator, _SG3_SYNTH_KEYS),
+               "comodgan": (CoModGenerator, _COMOD_SYNTH_KEYS)}
 
 
 def build_generator(g_cfg: Dict[str, Any],
@@ -51,16 +63,21 @@ def build_generator(g_cfg: Dict[str, Any],
     from ``generator``."""
     g_cfg = dict(g_cfg)
     net_g = g_cfg.pop("netG")
-    if net_g != "stylegan3":
-        raise NotImplementedError(
-            f"generator [{net_g}] is not ported yet (ROADMAP item A10)")
-    synthesis_kwargs = {k: v for k, v in
-                        dict(g_cfg.get("synthesis_kwargs") or {}).items()
-                        if k in _SG3_SYNTH_KEYS}
-    mapping_kwargs = {k: v for k, v in
-                      dict(g_cfg.get("mapping_kwargs") or {}).items()
-                      if k in ("num_layers", "lr_multiplier", "w_avg_beta")}
-    return Stylegan3Generator(
+    if net_g not in _GENERATORS:
+        raise NotImplementedError(f"Generator model name [{net_g}] is not recognized")
+    cls, keys = _GENERATORS[net_g]
+    raw = dict(g_cfg.get("synthesis_kwargs") or {})
+    synthesis_kwargs = {k: v for k, v in raw.items() if k in keys}
+    mapping_kwargs = dict(g_cfg.get("mapping_kwargs") or {})
+    if net_g == "comodgan":
+        # the synthesizer's name picks its class; the mapper's kwargs, its
+        # name included, go to CoModGenerator as they are
+        if raw.get("name"):
+            synthesis_kwargs["name"] = raw["name"]
+    else:
+        mapping_kwargs = {k: v for k, v in mapping_kwargs.items()
+                          if k in ("num_layers", "lr_multiplier", "w_avg_beta")}
+    return cls(
         z_dim=g_cfg["z_dim"], c_dim=g_cfg["c_dim"], w_dim=g_cfg["w_dim"],
         img_resolution=g_cfg["img_resolution"],
         img_channels_in=g_cfg["img_channels_in"],
@@ -92,18 +109,32 @@ def build_discriminator(d_cfg: Dict[str, Any],
         generator=generator)
 
 
+def _with_compute_dtype(g_cfg: Dict[str, Any], compute_dtype: str) -> Dict[str, Any]:
+    """``g_cfg`` with ``compute_dtype`` in the synthesis kwargs of the
+    StyleGAN3 generator; a CoModGAN generator's config is returned as it is
+    (its G stays float32, ``afcm_tpu/models/__init__.py:99-110``)."""
+    g_cfg = dict(g_cfg)
+    if g_cfg.get("netG") == "stylegan3":
+        g_cfg["synthesis_kwargs"] = dict(g_cfg.get("synthesis_kwargs") or {},
+                                         compute_dtype=compute_dtype)
+    return g_cfg
+
+
+def check_model_name(cfg) -> None:
+    """The port's model families: StyleGAN3 and CoModGAN; pix2pix raises."""
+    name = getattr(cfg.model, "name", "stylegan3")
+    if name not in ("stylegan3", "comodgan"):
+        raise NotImplementedError(f"model {name} is not ported (ROADMAP item A11)")
+
+
 def build_gan_model(cfg, generator: Optional[torch.Generator] = None) -> GANModel:
     """GANModel from a full config tree, as ``afcm_tpu/models/__init__.py:93-139``
-    assembles it: ``tpu.compute_dtype`` drives both nets, G_ema starts as a
-    copy of G. Random weights are drawn from ``generator``."""
-    if getattr(cfg.model, "name", "stylegan3") != "stylegan3":
-        raise NotImplementedError(f"model {cfg.model.name} is not ported yet "
-                                  "(ROADMAP items A10-A11)")
-    g_cfg = dict(cfg.model.G)
-    d_cfg = dict(cfg.model.D)
+    assembles it: ``tpu.compute_dtype`` drives D and the StyleGAN3 G, G_ema
+    starts as a copy of G. Random weights are drawn from ``generator``."""
+    check_model_name(cfg)
     compute_dtype = cfg.tpu.compute_dtype
-    g_cfg["synthesis_kwargs"] = dict(g_cfg.get("synthesis_kwargs") or {},
-                                     compute_dtype=compute_dtype)
+    g_cfg = _with_compute_dtype(cfg.model.G, compute_dtype)
+    d_cfg = dict(cfg.model.D)
     d_cfg.setdefault("compute_dtype", compute_dtype)
     net_g = build_generator(g_cfg, generator=generator)
     net_d = build_discriminator(d_cfg, generator=generator)
@@ -125,14 +156,14 @@ def build_gan_model(cfg, generator: Optional[torch.Generator] = None) -> GANMode
 
 def build_eval_model(g_cfg: Dict[str, Any], compute_dtype: str = "float32",
                      generator: Optional[torch.Generator] = None) -> GANModel:
-    """Inference GANModel: only the EMA generator, built from ``g_cfg`` in
-    ``compute_dtype`` (the config's ``tpu.compute_dtype``)."""
-    g_cfg = dict(g_cfg)
-    g_cfg["synthesis_kwargs"] = dict(g_cfg.get("synthesis_kwargs") or {},
-                                     compute_dtype=compute_dtype)
+    """Inference GANModel: only the EMA generator, built from ``g_cfg``
+    (a StyleGAN3 G in ``compute_dtype``, the config's ``tpu.compute_dtype``;
+    a CoModGAN G in float32)."""
+    g_cfg = _with_compute_dtype(g_cfg, compute_dtype)
     config = GANConfig(z_dim=g_cfg.get("z_dim", 512), c_dim=g_cfg.get("c_dim", 0))
     return GANModel(config, build_generator(g_cfg, generator=generator))
 
 
 __all__ = ["CMSR_ADNI_G", "GANConfig", "GANModel", "build_discriminator",
-           "build_eval_model", "build_gan_model", "build_generator"]
+           "build_eval_model", "build_gan_model", "build_generator",
+           "check_model_name"]

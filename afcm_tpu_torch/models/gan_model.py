@@ -9,9 +9,16 @@ program over an immutable state; here PyTorch runs it eagerly and updates
 the modules, the Adam states and the EMA copy in place. On CUDA tensors the
 generator's forward runs kernel K1 and its backward kernel K2.
 
+The generator's train-mode forwards draw their noise (CoModGAN) and
+co-modulation dropout from the step's ``torch.Generator``; the target batch
+goes to G as ``ref_img`` for the CoModGAN ``RefMappingNetwork``. A CoModGAN
+G updates its mapper's ``w_avg`` in each train-mode forward, twice a step
+unless the forward is shared, as the JAX step's ``moments`` do
+(``:239-291``), and ``ema_update`` copies it into G_ema. The StyleGAN3 step
+updates neither ``w_avg`` nor ``magnitude_ema`` (``_run_g`` passes no
+``update_emas``, ``:153-156``), and neither does this.
+
 Not ported: style mixing (``:162-192``; default off, ROADMAP A8) and remat.
-The StyleGAN3 step updates neither ``w_avg`` nor ``magnitude_ema``
-(``_run_g`` passes no ``update_emas``, ``:153-156``), and neither does this.
 """
 
 from __future__ import annotations
@@ -52,6 +59,17 @@ class GANConfig:
     blur_fade_kimg: float = 0.0
     style_mixing_prob: float = 0.0
     shared_g_fwd: bool = False
+
+
+def eval_forward(generator: nn.Module, c_dim: int, cond_img, slice_idx, z,
+                 ref_img=None):
+    """A generator in eval mode with const noise, c taken from slice_idx:
+    the body of ``GANModel.eval_step``, which the serving export traces."""
+    if c_dim > 0:
+        c = slice_idx.reshape(-1, c_dim)
+    else:
+        c = torch.zeros((cond_img.shape[0], 1), device=cond_img.device)
+    return generator(z, c, cond_img, ref_img=ref_img, train=False, noise_mode="const")
 
 
 class GANModel:
@@ -135,11 +153,13 @@ class GANModel:
         if cfg.shared_g_fwd:
             # One forward serves both phases: its graph is kept and the G
             # head's gradient flows back through it after the D update.
-            fake_shared = gen(z, c, real_a, train=True, generator=generator)
+            fake_shared = gen(z, c, real_a, ref_img=real_b, train=True,
+                              generator=generator)
             fake_d = fake_shared.detach()
         else:
             with torch.no_grad():
-                fake_d = gen(z, c, real_a, train=True, generator=generator)
+                fake_d = gen(z, c, real_a, ref_img=real_b, train=True,
+                             generator=generator)
 
         real_ab = self._d_input(real_a, real_b)
         r1_on = cfg.lambda_r1 > 0 and with_r1
@@ -159,7 +179,7 @@ class GANModel:
 
         # ---- G phase, through the updated D (stylegan3_model.py:126-135) ----
         fake_b = fake_shared if cfg.shared_g_fwd else \
-            gen(z, c, real_a, train=True, generator=generator)
+            gen(z, c, real_a, ref_img=real_b, train=True, generator=generator)
         gen_logits = self._run_d(self._d_input(real_a, fake_b), c, sigma)
         loss_g_gan = losses.softplus_g_loss(gen_logits)
         loss_g_l1 = losses.l1_loss(self._blur(fake_b, sigma),
@@ -194,18 +214,18 @@ class GANModel:
     # -- inference -----------------------------------------------------------
 
     def eval_step(self, cond_img, slice_idx, z=None,
-                  generator: Optional[torch.Generator] = None):
-        """EMA forward, eval mode (``train=False``; reference: comodgan_model.py:114-126).
+                  generator: Optional[torch.Generator] = None, ref_img=None):
+        """EMA forward with const noise (``afcm_tpu/models/gan_model.py:318-337``;
+        reference: comodgan_model.py:114-126).
 
         ``z`` [N, z_dim] is drawn from ``generator`` (a ``torch.Generator``
-        on the device of ``cond_img``) when not given."""
-        n = cond_img.shape[0]
+        on the device of ``cond_img``) when not given. ``ref_img`` is the
+        target batch where there is one (validation), for the CoModGAN
+        ``RefMappingNetwork``; the serving flow has none, like the
+        reference's set_test_input, and the other mappers ignore it."""
         if z is None:
-            z = torch.randn((n, self.z_dim), generator=generator,
+            z = torch.randn((cond_img.shape[0], self.z_dim), generator=generator,
                             device=cond_img.device)
-        if self.c_dim > 0:
-            c = slice_idx.reshape(-1, self.c_dim)
-        else:
-            c = torch.zeros((n, 1), device=cond_img.device)
         with torch.inference_mode():
-            return self.generator_ema(z, c, cond_img, train=False)
+            return eval_forward(self.generator_ema, self.c_dim, cond_img, slice_idx, z,
+                                ref_img)

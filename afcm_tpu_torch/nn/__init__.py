@@ -1,8 +1,10 @@
 """Network modules of the port (``afcm_tpu/nn``)."""
 
+from .comodgan import (CoModGenerator, CoModSynthesisNetwork, RefMappingNetwork,
+                       get_synthesizer)
 from .discriminator import (CoModDiscriminator, DiscriminatorBlock,
                             DiscriminatorEpilogue)
-from .layers import (Conv2dLayer, FullyConnected, MinibatchStdLayer,
+from .layers import (CALayer, Conv2dLayer, FullyConnected, MinibatchStdLayer,
                      adaptive_avg_pool2d, normalize_2nd_moment)
 from .mapping import MappingNetwork
 from .stylegan3 import (EncoderLayer, LayerSpec, Stylegan3Generator,
@@ -10,9 +12,10 @@ from .stylegan3 import (EncoderLayer, LayerSpec, Stylegan3Generator,
                         compute_synthesis_layout)
 
 __all__ = [
-    "CoModDiscriminator", "Conv2dLayer", "DiscriminatorBlock",
+    "CALayer", "CoModDiscriminator", "CoModGenerator", "CoModSynthesisNetwork",
+    "Conv2dLayer", "DiscriminatorBlock",
     "DiscriminatorEpilogue", "EncoderLayer", "FullyConnected", "LayerSpec",
-    "MappingNetwork", "MinibatchStdLayer", "Stylegan3Generator", "SynthesisLayer",
+    "MappingNetwork", "MinibatchStdLayer", "RefMappingNetwork", "Stylegan3Generator", "SynthesisLayer",
     "SynthesisLayout", "SynthesisNetwork", "adaptive_avg_pool2d",
-    "compute_synthesis_layout", "normalize_2nd_moment",
+    "compute_synthesis_layout", "get_synthesizer", "normalize_2nd_moment",
 ]

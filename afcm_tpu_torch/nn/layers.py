@@ -109,6 +109,67 @@ class MinibatchStdLayer(nn.Module):
         return torch.cat([x, y.to(x.dtype)], dim=1)
 
 
+def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator],
+            keep_mask: Optional[torch.Tensor] = None):
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
+    kept values by 1 / (1 - rate). The mask is ``keep_mask`` when given (the
+    tests pass flax's), else drawn from an explicit generator, never the
+    global RNG, so a train step is reproducible from its seed."""
+    if not train or rate == 0:
+        return x
+    if rate >= 1:
+        return torch.zeros_like(x)
+    if keep_mask is None:
+        if generator is None:
+            raise ValueError("train-mode dropout needs a generator or a keep_mask")
+        keep_mask = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+    return torch.where(keep_mask, x / (1 - rate), torch.zeros_like(x))
+
+
+def uniform_parameter(shape, fan_in: int,
+                      generator: Optional[torch.Generator]) -> nn.Parameter:
+    """torch's default init of nn.Conv2d and nn.Linear (kaiming_uniform with
+    a = sqrt(5) for the weight, and the bias): U[-b, b], b = 1/sqrt(fan_in)."""
+    bound = 1 / np.sqrt(fan_in)
+    return nn.Parameter((torch.rand(shape, generator=generator) * 2 - 1) * bound)
+
+
+class Conv1x1(nn.Module):
+    """A torch-default 1x1 conv, applied to a pooled [N, C] vector."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = uniform_parameter((out_channels, in_channels, 1, 1),
+                                        in_channels, generator)
+        self.bias = uniform_parameter((out_channels,), in_channels, generator)
+
+    def forward(self, y):
+        return F.linear(y, self.weight[:, :, 0, 0].to(y.dtype), self.bias.to(y.dtype))
+
+
+class CALayer(nn.Module):
+    """Squeeze-excite channel attention, RCAB-style
+    (``afcm_tpu/nn/layers.py:135-160``; reference: CoModGAN/layers.py:795-811):
+    mean over space, 1x1 conv down by ``reduction``, ReLU, 1x1 conv up,
+    sigmoid, and the input scaled per channel. The reference builds
+    ``conv_du`` from plain nn.Conv2d layers, so both convs take torch's
+    default init; the names are the reference's, which the JAX package's
+    Dense layers are translated to (``utils/port.py``). Returns the scaled
+    input and the [N, C, 1, 1] attention."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        mid = channels // reduction
+        self.conv_du = nn.Sequential(Conv1x1(channels, mid, generator), nn.ReLU(),
+                                     Conv1x1(mid, channels, generator), nn.Sigmoid())
+
+    def forward(self, x):
+        y = self.conv_du(x.mean(dim=(2, 3)))[:, :, None, None]
+        return x * y, y
+
+
 def adaptive_avg_pool2d(x, output_size):
     """NCHW adaptive average pooling. torch's bin edges floor(i*H/oh) ..
     ceil((i+1)*H/oh) are those of the JAX function's general case, and give

@@ -3,10 +3,12 @@ embed + normalize + concat, lrelu MLP at lr_multiplier 0.01, broadcast to
 ``num_ws`` and truncation toward the ``w_avg`` buffer.
 
 The discriminator's label-only mapper is the same class with ``z_dim`` 0,
-``num_ws`` None and ``w_avg_beta`` None (no ``w_avg`` buffer). Training
-never updates ``w_avg``: the JAX StyleGAN3 train step calls the generator
-without ``update_emas`` (``afcm_tpu/models/gan_model.py:153-156``), so the
-port does not either; the EMA update belongs to the CoModGAN family.
+``num_ws`` None and ``w_avg_beta`` None (no ``w_avg`` buffer). The
+``w_avg`` EMA update (``update_w_avg``, ``afcm_tpu/nn/mapping.py:60-63``)
+runs where the CoModGAN generator asks for it, in every train-mode forward
+(``afcm_tpu/nn/comodgan.py:440-442``). The StyleGAN3 train step never asks:
+the JAX step calls that generator without ``update_emas``
+(``afcm_tpu/models/gan_model.py:153-156``), so its ``w_avg`` stays put.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class MappingNetwork(nn.Module):
             self.register_buffer("w_avg", torch.zeros(w_dim))
 
     def forward(self, z, c=None, truncation_psi: float = 1.0,
-                truncation_cutoff: Optional[int] = None):
+                truncation_cutoff: Optional[int] = None,
+                update_w_avg: bool = False):
         x = None
         if self.z_dim > 0:
             assert z.shape[-1] == self.z_dim
@@ -53,6 +56,12 @@ class MappingNetwork(nn.Module):
 
         for idx in range(self.num_layers):
             x = getattr(self, f"fc{idx}")(x)
+
+        if update_w_avg and self.w_avg_beta is not None and self.num_ws is not None:
+            # in place: the buffer is state, not part of the graph
+            with torch.no_grad():
+                mean_w = x.detach().mean(dim=0)
+                self.w_avg.copy_(mean_w + (self.w_avg - mean_w) * self.w_avg_beta)
 
         if self.num_ws is not None:
             x = x[:, None, :].repeat(1, self.num_ws, 1)

@@ -31,7 +31,7 @@ from torch import nn
 from ..ops import design_lowpass_filter, filtered_lrelu, modulated_conv2d
 from ..ops.modulated_conv import conv2d
 from .layers import (Conv2dLayer, FullyConnected, adaptive_avg_pool2d,
-                     normal_parameter)
+                     dropout, normal_parameter)
 from .mapping import MappingNetwork
 
 # ---------------------------------------------------------------------------
@@ -392,23 +392,9 @@ class SynthesisNetwork(nn.Module):
 
     def dropout(self, x, train: bool, generator: Optional[torch.Generator],
                 keep_mask: Optional[torch.Tensor] = None):
-        """flax ``nn.Dropout`` (``afcm_tpu/nn/stylegan3.py:487``): keep with
-        probability 1 - rate, scale the kept values by 1 / (1 - rate). The
-        mask is ``keep_mask`` when given (the tests pass flax's), else drawn
-        from an explicit generator, never the global RNG, so a train step is
-        reproducible from its seed."""
-        rate = self.dropout_rate
-        if not train or rate == 0:
-            return x
-        if rate >= 1:
-            return torch.zeros_like(x)
-        if keep_mask is None:
-            if generator is None:
-                raise ValueError("train-mode dropout needs a generator or a "
-                                 "keep_mask")
-            keep_mask = torch.rand(x.shape, generator=generator,
-                                   device=x.device) < 1 - rate
-        return torch.where(keep_mask, x / (1 - rate), torch.zeros_like(x))
+        """The co-modulation dropout at this network's rate (``layers.dropout``,
+        flax's ``nn.Dropout``, ``afcm_tpu/nn/stylegan3.py:487``)."""
+        return dropout(x, self.dropout_rate, train, generator, keep_mask)
 
 
 class Stylegan3Generator(nn.Module):
@@ -430,9 +416,13 @@ class Stylegan3Generator(nn.Module):
             z_dim=z_dim, c_dim=c_dim, w_dim=w_dim,
             num_ws=self.synthesis.num_ws, generator=generator, **mapping_kwargs)
 
-    def forward(self, z, c, cond_img, truncation_psi: float = 1.0,
+    def forward(self, z, c, cond_img, ref_img=None, truncation_psi: float = 1.0,
                 truncation_cutoff=None, train: bool = False,
+                noise_mode: str = "random",
                 generator: Optional[torch.Generator] = None):
+        """``ref_img`` and ``noise_mode`` are taken for the CoModGAN
+        generator's call signature and unused, as in the JAX package
+        (``afcm_tpu/nn/stylegan3.py:530-533``)."""
         ws = self.mapping(z, c, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, cond_img, train=train, generator=generator)

@@ -11,12 +11,12 @@ from .conv2d_resample import conv2d_resample
 from .filter_design import design_lowpass_filter, filter_size, setup_filter
 from .filtered_lrelu import filtered_lrelu
 from .modulated_conv import (conv2d, get_conv_impl, modulated_conv2d,
-                             set_conv_impl)
-from .upfirdn2d import gaussian_blur2d, upfirdn2d
+                             modulated_conv2d_resample, set_conv_impl)
+from .upfirdn2d import gaussian_blur2d, upfirdn2d, upsample2d
 
 __all__ = [
     "activation_funcs", "bias_act", "conv2d", "conv2d_resample",
     "design_lowpass_filter", "filter_size", "filtered_lrelu", "gaussian_blur2d",
-    "get_conv_impl", "modulated_conv2d", "set_conv_impl", "setup_filter",
-    "upfirdn2d",
+    "get_conv_impl", "modulated_conv2d", "modulated_conv2d_resample",
+    "set_conv_impl", "setup_filter", "upfirdn2d", "upsample2d",
 ]

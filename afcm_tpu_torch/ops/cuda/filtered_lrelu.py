@@ -1,12 +1,20 @@
 """Kernels K1 and K2: the fused filtered leaky ReLU, forward and backward,
-CUDA C++ for Hopper.
+CUDA C++ for Hopper, bound as ``torch.library`` operators.
 
-``filtered_lrelu_cuda`` runs ``csrc/filtered_lrelu.cu`` (K1, the port of
+``afcm_tpu_torch::filtered_lrelu`` (``filtered_lrelu_op``) runs
+``csrc/filtered_lrelu.cu`` (K1, the port of
 ``afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:414-500``, kernel ``:273-290``)
-as the forward of an autograd Function whose backward is
-``csrc/filtered_lrelu_bwd.cu`` (K2, the port of ``bwd_kernel``,
-``:292-323``, behind the ``custom_vjp`` at ``:485-495``). The forward saves
-only its input and the bias; K2 recomputes the pre-activation from them.
+on a CUDA tensor; its registered backward is
+``afcm_tpu_torch::filtered_lrelu_bwd`` (``filtered_lrelu_bwd_op``), which
+runs ``csrc/filtered_lrelu_bwd.cu`` (K2, the port of ``bwd_kernel``,
+``:292-323``, behind the ``custom_vjp`` at ``:485-495``). On a CPU tensor
+both operators compute the plain versions. The forward saves only its
+input and the bias; K2 recomputes the pre-activation from them. Being
+operators with fake (shape) implementations, the calls stay single nodes of
+a ``torch.export`` graph, so an exported generator keeps K1.
+``filtered_lrelu_cuda`` and ``filtered_lrelu_bwd_cuda`` take the reference's
+arguments (numpy taps, padding, flip_filter) and call the operators on CUDA
+tensors only.
 ``launches`` and ``bwd_launches`` count the launches of K1 and K2. Both
 kernels' tiles are planned here (``plan_fwd_tile``, ``plan_bwd_tile``):
 which instantiation takes the call, the tile and its windows, and the shared
@@ -24,9 +32,9 @@ import functools
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from ..bias_act import bias_act
+from ..filter_design import filter_size
 from ..upfirdn2d import parse_padding, upfirdn2d
 
 # Launches of the CUDA kernels in this process (tests and chip_smoke.py read
@@ -182,20 +190,47 @@ def filtered_lrelu_plain(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
     return upfirdn2d(x, fd, down=down, flip_filter=flip_filter)
 
 
+def _upfirdn2d_adjoint(dy, f, in_shape, up=1, down=1, padding=0, gain=1,
+                       flip_filter=False):
+    """The transpose of ``upfirdn2d(x, f, up, down, padding, gain=gain,
+    flip_filter)`` for an x of ``in_shape``, applied to dy: upfirdn2d with
+    up and down swapped and the filter flipped (the reference's
+    torch_utils/ops/upfirdn2d.py backward)."""
+    f = None if f is None else np.asarray(f, np.float32)
+    fw, fh = filter_size(f)
+    px0, _, py0, _ = parse_padding(padding)
+    ih, iw = in_shape[2], in_shape[3]
+    oh, ow = dy.shape[2], dy.shape[3]
+    p = [fw - px0 - 1, iw * up - ow * down + px0 - up + 1,
+         fh - py0 - 1, ih * up - oh * down + py0 - up + 1]
+    return upfirdn2d(dy, f, up=down, down=up, padding=p, gain=gain,
+                     flip_filter=not flip_filter)
+
+
 def filtered_lrelu_bwd_plain(x, dy, fu=None, fd=None, b=None, up=1, down=1,
                              padding=0, gain=np.sqrt(2), slope=0.2, clamp=None,
                              flip_filter=False):
     """(dx, db) of ``filtered_lrelu_plain`` at (x, b) for the output
-    gradient ``dy``, by autograd; db is None when b is None."""
-    with torch.enable_grad():
-        inputs = [x.detach().requires_grad_(True)]
-        if b is not None:
-            inputs.append(b.detach().requires_grad_(True))
-        y = filtered_lrelu_plain(inputs[0], fu, fd, inputs[1] if b is not None
-                                 else None, up, down, padding, gain, slope,
-                                 clamp, flip_filter)
-        grads = torch.autograd.grad(y, inputs, dy)
-    return grads[0], (grads[1] if b is not None else None)
+    gradient ``dy``, written out as the transposes of its two FIR passes
+    around the leaky ReLU's and the clamp's masks (the derivatives autograd
+    takes of them: slope where the pre-activation is not > 0, zero where the
+    activation lies outside ±clamp); db is None when b is None. No autograd,
+    so it also runs where autograd is off (inside an operator's kernel)."""
+    px0, px1, py0, py1 = parse_padding(padding)
+    pad = [px0, px1, py0, py1]
+    with torch.no_grad():
+        pre = upfirdn2d(bias_act(x, b), fu, up=up, padding=pad, gain=up ** 2,
+                        flip_filter=flip_filter)
+        d_act = _upfirdn2d_adjoint(dy.to(pre.dtype), fd, pre.shape, down=down,
+                                   flip_filter=flip_filter)
+        d_pre = d_act * torch.where(pre > 0, 1.0, slope).to(pre.dtype) * gain
+        if clamp is not None:
+            act = torch.where(pre > 0, pre, pre * slope) * gain
+            d_pre = torch.where((act >= -clamp) & (act <= clamp), d_pre,
+                                torch.zeros_like(d_pre))
+        dx = _upfirdn2d_adjoint(d_pre, fu, x.shape, up=up, padding=pad, gain=up ** 2,
+                                flip_filter=flip_filter).to(x.dtype)
+    return dx, (None if b is None else _bias_grad(dx, b))
 
 
 def slope_ambiguous(x, fu=None, b=None, up=1, padding=0, gain=np.sqrt(2),
@@ -276,7 +311,8 @@ def _correlation_taps(f, scale: float, flip_filter: bool) -> np.ndarray:
 
 
 class _Plan:
-    """The static arguments of one call, checked and in the kernels' form."""
+    """The static arguments of one call on x (a tensor or its shape),
+    checked and in the kernels' form."""
 
     def __init__(self, x, fu, fd, up, down, padding, gain, slope, clamp,
                  flip_filter):
@@ -286,7 +322,7 @@ class _Plan:
         self.px0, px1, self.py0, py1 = parse_padding(padding)
         self.gu = _correlation_taps(fu, self.up, flip_filter)
         self.gd = _correlation_taps(fd, 1.0, flip_filter)
-        self.n, self.c, self.in_h, self.in_w = map(int, x.shape)
+        self.n, self.c, self.in_h, self.in_w = map(int, getattr(x, "shape", x))
         taps = (len(self.gu) - 1) + (len(self.gd) - 1)
         self.out_w = (self.in_w * self.up + self.px0 + px1 - taps + self.down - 1) // self.down
         self.out_h = (self.in_h * self.up + self.py0 + py1 - taps + self.down - 1) // self.down
@@ -296,7 +332,6 @@ class _Plan:
         self.gain, self.slope = float(gain), float(slope)
         self.has_clamp = clamp is not None
         self.clamp = float(clamp) if self.has_clamp else 0.0
-        self._fwd_tile = self._bwd_tile = None
 
     def scalars(self, dtype):
         return (_DTYPES[dtype], self.n, self.c, self.in_h, self.in_w,
@@ -306,20 +341,17 @@ class _Plan:
                 int(self.has_clamp))
 
     def fwd_tile(self):
-        """K1's tile plan in the C entry point's order."""
-        if self._fwd_tile is None:
-            self._fwd_tile = plan_fwd_tile(self.up, self.down, len(self.gu),
-                                           len(self.gd), self.out_h, self.out_w)
-        t = self._fwd_tile
+        """K1's tile plan in the C entry point's order (the planner caches
+        it per geometry and size)."""
+        t = plan_fwd_tile(self.up, self.down, len(self.gu), len(self.gd),
+                          self.out_h, self.out_w)
         return (t["tile_y"], t["tile_x"], t["mid_y"], t["mid_x"], t["in_y"], t["in_x"],
                 t["smem_bytes"], int(t["specialised"]))
 
     def bwd_tile(self):
         """K2's tile plan in the C entry point's order."""
-        if self._bwd_tile is None:
-            self._bwd_tile = plan_bwd_tile(self.up, self.down, len(self.gu),
-                                           len(self.gd), self.in_h, self.in_w)
-        t = self._bwd_tile
+        t = plan_bwd_tile(self.up, self.down, len(self.gu), len(self.gd),
+                          self.in_h, self.in_w)
         return (t["tile"], t["mid"], t["in_tile"], t["dy_tile"], t["smem_bytes"],
                 int(t["specialised"]))
 
@@ -369,49 +401,167 @@ def _bias_grad(dx, b):
     return dx.sum((0, 2, 3), dtype=torch.float32).to(b.dtype)
 
 
-class _FilteredLRelu(torch.autograd.Function):
-    """K1 forward, K2 backward. First order only: R1 differentiates D alone,
-    and nothing differentiates G twice."""
+# ---------------------------------------------------------------------------
+# The operators: K1 as ``afcm_tpu_torch::filtered_lrelu`` and K2 as
+# ``afcm_tpu_torch::filtered_lrelu_bwd``, defined and implemented with the
+# low-level ``torch.library.Library``, whose call costs the host less than a
+# ``torch.library.custom_op``'s (PERF.md §6). The schema holds the taps
+# in the kernels' correlation order as float lists (empty: the 1-tap
+# identity filter), not yet scaled by the up gain, and the four paddings;
+# torch.export keeps each call as one node of the graph. CPU tensors take
+# the plain versions, CUDA tensors the kernels.
 
-    @staticmethod
-    def forward(ctx, x, b, plan):
-        ctx.plan = plan
-        ctx.save_for_backward(x, b)
-        return _launch_fwd(x, b, plan)
+_LIB = torch.library.Library("afcm_tpu_torch", "DEF")
+_STATIC = ("float[] fu, float[] fd, int up, int down, int px0, int px1, int py0, "
+           "int py1, float gain, float slope, float? clamp")
+_LIB.define(f"filtered_lrelu(Tensor x, Tensor? b, {_STATIC}) -> Tensor")
+_LIB.define(f"filtered_lrelu_bwd(Tensor x, Tensor? b, Tensor dy, {_STATIC}) -> Tensor")
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dy):
-        x, b = ctx.saved_tensors
-        # autograd may hand over a strided gradient; the kernel reads it dense
-        dx = _launch_bwd(x, b, dy.to(x.dtype).contiguous(), ctx.plan)
-        db = _bias_grad(dx, b) if ctx.needs_input_grad[1] else None
-        return dx, db, None
+
+@functools.lru_cache(maxsize=1024)
+def _op_arguments(fu, fd, padding, flip_filter):
+    taps = [[] if f is None else
+            _correlation_taps(np.frombuffer(f[0], np.float32).reshape(f[1]), 1.0,
+                              flip_filter).tolist() for f in (fu, fd)]
+    return (*taps, *padding)
+
+
+def _taps_key(f):
+    if f is None:
+        return None
+    f = np.asarray(f, np.float32)
+    return f.tobytes(), f.shape
+
+
+def op_arguments(fu, fd, padding, flip_filter):
+    """(fu, fd, px0, px1, py0, py1) of the operators for numpy taps in the
+    reference's order: the taps flipped into correlation order unless
+    ``flip_filter``, as float lists; converted once per filter content.
+    Raises on radial (2-D) filters and on more taps than the kernels take,
+    as the kernels would."""
+    return _op_arguments(_taps_key(fu), _taps_key(fd), tuple(parse_padding(padding)),
+                         bool(flip_filter))
+
+
+def _op_taps(taps):
+    return np.asarray(taps, np.float32) if len(taps) else None
+
+
+@functools.lru_cache(maxsize=1024)
+def _op_plan(shape, fu, fd, up, down, padding, gain, slope, clamp):
+    """The _Plan of an operator call, once per shape and argument tuple: the
+    taps go back to numpy on the first call only."""
+    return _Plan(shape, _op_taps(fu), _op_taps(fd), up, down, padding, gain,
+                 slope, clamp, True)
+
+
+def _plan_of(x, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp):
+    return _op_plan(tuple(x.shape), tuple(fu), tuple(fd), up, down,
+                    (px0, px1, py0, py1), gain, slope, clamp)
+
+
+def _fwd_plain(x, b, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp):
+    return filtered_lrelu_plain(x, _op_taps(fu), _op_taps(fd), b, up, down,
+                                [px0, px1, py0, py1], gain, slope, clamp,
+                                flip_filter=True)
+
+
+def _fwd_k1(x, b, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp):
+    _check_input("filtered_lrelu", x, b)
+    if b is not None:
+        b = b.to(x.dtype).contiguous()
+    return _launch_fwd(x, b, _plan_of(x, fu, fd, up, down, px0, px1, py0, py1,
+                                      gain, slope, clamp))
+
+
+def _fwd_fake(x, b, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp):
+    # _Plan's output size, on symbolic sizes too
+    taps = max(len(fu) - 1, 0) + max(len(fd) - 1, 0)
+    n, c, in_h, in_w = x.shape
+    out_h = (in_h * up + py0 + py1 - taps + down - 1) // down
+    out_w = (in_w * up + px0 + px1 - taps + down - 1) // down
+    return x.new_empty((n, c, out_h, out_w))
+
+
+def _bwd_plain(x, b, dy, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp):
+    return filtered_lrelu_bwd_plain(x, dy, _op_taps(fu), _op_taps(fd), b, up, down,
+                                    [px0, px1, py0, py1], gain, slope, clamp,
+                                    flip_filter=True)[0]
+
+
+def _bwd_k2(x, b, dy, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp):
+    _check_input("filtered_lrelu_bwd", x, b)
+    plan = _plan_of(x, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp)
+    want = (plan.n, plan.c, plan.out_h, plan.out_w)
+    if tuple(dy.shape) != want or dy.device != x.device:
+        raise ValueError(f"dy of shape {tuple(dy.shape)} on {dy.device}; the "
+                         f"forward's output is {want} on {x.device}")
+    if b is not None:
+        b = b.to(x.dtype).contiguous()
+    # autograd may hand over a strided gradient; the kernel reads it dense
+    return _launch_bwd(x, b, dy.to(x.dtype).contiguous(), plan)
+
+
+def _bwd_fake(x, b, dy, *args):
+    return torch.empty_like(x)
+
+
+def _setup_context(ctx, inputs, output):
+    x, b, *ctx.args = inputs
+    ctx.save_for_backward(x, b)
+
+
+def _backward(ctx, dy):
+    """K2 for dx, and db as dx summed over batch and space. First order
+    only: R1 differentiates D alone, and nothing differentiates G twice."""
+    x, b = ctx.saved_tensors
+    dx = filtered_lrelu_bwd_op(x, b, dy, *ctx.args)
+    db = _bias_grad(dx, b) if ctx.needs_input_grad[1] else None
+    return (dx, db) + (None,) * len(ctx.args)
+
+
+for _name, _plain, _kernel_fn, _fake in (("filtered_lrelu", _fwd_plain, _fwd_k1, _fwd_fake),
+                                         ("filtered_lrelu_bwd", _bwd_plain, _bwd_k2,
+                                          _bwd_fake)):
+    _LIB.impl(_name, _plain, "CPU")
+    _LIB.impl(_name, _kernel_fn, "CUDA")
+    torch.library.register_fake(f"afcm_tpu_torch::{_name}", _fake, lib=_LIB)
+torch.library.register_autograd("afcm_tpu_torch::filtered_lrelu", _backward,
+                                setup_context=_setup_context, lib=_LIB)
+# filtered_lrelu_op(x, b, fu, fd, up, down, px0, px1, py0, py1, gain, slope, clamp)
+filtered_lrelu_op = torch.ops.afcm_tpu_torch.filtered_lrelu.default
+# filtered_lrelu_bwd_op(x, b, dy, fu, ...): dx of filtered_lrelu_op at (x, b) for dy
+filtered_lrelu_bwd_op = torch.ops.afcm_tpu_torch.filtered_lrelu_bwd.default
+
+
+def filtered_lrelu_call(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
+                        gain=np.sqrt(2), slope=0.2, clamp=None, flip_filter=False):
+    """The operator for ``filtered_lrelu_plain``'s arguments, on any device."""
+    fu, fd, px0, px1, py0, py1 = op_arguments(fu, fd, padding, flip_filter)
+    return filtered_lrelu_op(x, b, fu, fd, int(up), int(down), px0, px1, py0, py1,
+                             float(gain), float(slope),
+                             None if clamp is None else float(clamp))
 
 
 def filtered_lrelu_cuda(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
                         gain=np.sqrt(2), slope=0.2, clamp=None,
                         flip_filter=False):
-    """Kernel K1 on a CUDA tensor, differentiable through kernel K2; same
-    arguments and result as ``filtered_lrelu_plain``."""
+    """Kernel K1 on a CUDA tensor through the operator, differentiable
+    through kernel K2; same arguments and result as ``filtered_lrelu_plain``."""
     _check_input("filtered_lrelu_cuda", x, b)
-    if b is not None:
-        b = b.to(x.dtype).contiguous()
-    plan = _Plan(x, fu, fd, up, down, padding, gain, slope, clamp, flip_filter)
-    return _FilteredLRelu.apply(x, b, plan)
+    return filtered_lrelu_call(x, fu, fd, b, up, down, padding, gain, slope, clamp,
+                               flip_filter)
 
 
 def filtered_lrelu_bwd_cuda(x, dy, fu=None, fd=None, b=None, up=1, down=1,
                             padding=0, gain=np.sqrt(2), slope=0.2, clamp=None,
                             flip_filter=False):
-    """Kernel K2 on CUDA tensors: (dx, db) of the forward at (x, b) for the
-    output gradient ``dy``, as ``filtered_lrelu_bwd_plain``."""
+    """Kernel K2 on CUDA tensors through the operator: (dx, db) of the
+    forward at (x, b) for the output gradient ``dy``, as
+    ``filtered_lrelu_bwd_plain``."""
     _check_input("filtered_lrelu_bwd_cuda", x, b)
-    plan = _Plan(x, fu, fd, up, down, padding, gain, slope, clamp, flip_filter)
-    want = (plan.n, plan.c, plan.out_h, plan.out_w)
-    if tuple(dy.shape) != want or dy.device != x.device:
-        raise ValueError(f"dy of shape {tuple(dy.shape)} on {dy.device}; the "
-                         f"forward's output is {want} on {x.device}")
-    xb = None if b is None else b.to(x.dtype).contiguous()
-    dx = _launch_bwd(x, xb, dy.to(x.dtype).contiguous(), plan)
+    fu, fd, px0, px1, py0, py1 = op_arguments(fu, fd, padding, flip_filter)
+    dx = filtered_lrelu_bwd_op(x, b, dy, fu, fd, int(up), int(down), px0, px1, py0,
+                               py1, float(gain), float(slope),
+                               None if clamp is None else float(clamp))
     return dx, (None if b is None else _bias_grad(dx, b))

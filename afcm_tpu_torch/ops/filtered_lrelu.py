@@ -1,19 +1,22 @@
 """filtered_lrelu — bias, up-FIR, leaky ReLU, down-FIR
 (``afcm_tpu/ops/filtered_lrelu.py:105-162``).
 
-Dispatch is by device, not by a routing table: a CPU tensor takes the plain
-composition (and autograd's backward of it), a CUDA tensor takes the
-autograd Function of ``ops/cuda/filtered_lrelu.py`` (kernel K1 forward,
-kernel K2 backward) whether or not grad is enabled; it raises on anything
-the kernels cannot run rather than falling back.
+Every call with filters goes through the custom operator
+``afcm_tpu_torch::filtered_lrelu`` of ``ops/cuda/filtered_lrelu.py``, on
+every device: a CUDA tensor takes kernel K1 (and kernel K2 in the
+backward), whether or not grad is enabled, and raises on anything the
+kernels cannot run rather than falling back; a CPU tensor takes the plain
+composition. Radial (2-D) filters, which no shipped config uses and the
+operator's schema does not hold, take the plain composition on the CPU and
+raise on the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .cuda.filtered_lrelu import filtered_lrelu_cuda, filtered_lrelu_plain
-from .upfirdn2d import parse_padding
+from .cuda.filtered_lrelu import (filtered_lrelu_call, filtered_lrelu_cuda,
+                                  filtered_lrelu_plain)
 
 
 def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
@@ -31,15 +34,17 @@ def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
     assert x.ndim == 4
     assert isinstance(up, (int, np.integer)) and up >= 1
     assert isinstance(down, (int, np.integer)) and down >= 1
-    kwargs = dict(fu=fu, fd=fd, b=b, up=up, down=down,
-                  padding=parse_padding(padding), gain=float(gain),
-                  slope=float(slope), clamp=clamp, flip_filter=flip_filter)
+    kwargs = dict(fu=fu, fd=fd, b=b, up=up, down=down, padding=padding,
+                  gain=float(gain), slope=float(slope), clamp=clamp,
+                  flip_filter=flip_filter)
     # The pure elementwise case (toRGB: no filters, up = down = 1) stays on
     # plain torch ops on every device: the TPU kernel declines it too
     # (afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:428-429).
     if fu is None and fd is None and up == 1 and down == 1:
         return filtered_lrelu_plain(x, **kwargs)
-    if x.device.type == "cpu":
+    radial = any(f is not None and np.ndim(f) != 1 for f in (fu, fd))
+    if radial and x.device.type == "cpu":
         return filtered_lrelu_plain(x, **kwargs)
-    return filtered_lrelu_cuda(x, **kwargs)
-
+    if x.device.type == "cuda":
+        return filtered_lrelu_cuda(x, **kwargs)
+    return filtered_lrelu_call(x, **kwargs)

@@ -136,3 +136,32 @@ def modulated_conv2d(x, w, s, demodulate: bool = True, padding=0,
     if demodulate:
         x = x * dcoefs.to(x.dtype)[:, :, None, None]
     return x
+
+
+def modulated_conv2d_resample(x, weight, styles, noise=None, up: int = 1,
+                              down: int = 1, padding: int = 0,
+                              resample_filter=None, demodulate: bool = True,
+                              flip_weight: bool = True):
+    """StyleGAN2-style modulated conv with fused resampling
+    (``afcm_tpu/ops/modulated_conv.py:187-221``; reference:
+    CoModGAN/layers.py:19-77): the scale-activations factorization with the
+    demodulation coefficients from one [N, I] x [I, O] product, the conv
+    through ``conv2d_resample`` (and so ``conv2d`` and its int8 routing),
+    and the noise added after the demodulation."""
+    from .conv2d_resample import conv2d_resample
+
+    batch, in_channels = x.shape[0], weight.shape[1]
+    assert styles.shape == (batch, in_channels)
+    weight = weight.float()
+    styles = styles.float()
+
+    x = x * styles.to(x.dtype)[:, :, None, None]
+    x = conv2d_resample(x, weight, f=resample_filter, up=up, down=down,
+                        padding=padding, flip_weight=flip_weight)
+    if demodulate:
+        w_sq = torch.sum(torch.square(weight), dim=(2, 3))          # [O, I]
+        dcoefs = torch.rsqrt(torch.square(styles) @ w_sq.T + 1e-8)  # [N, O]
+        x = x * dcoefs.to(x.dtype)[:, :, None, None]
+    if noise is not None:
+        x = x + noise.to(x.dtype)
+    return x

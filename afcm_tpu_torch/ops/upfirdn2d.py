@@ -6,7 +6,8 @@ which ``F.conv2d`` lacks, so the port zero-stuffs explicitly; each
 separable pass is one depthwise conv (``depthwise_conv2d``).
 
 ``gaussian_blur2d`` (``:306-333``) is the training blur fade on the
-discriminator's inputs and the L1 targets.
+discriminator's inputs and the L1 targets; ``upsample2d`` (``:283-292``)
+carries the CoModGAN skip image up a resolution.
 
 Not ported: the banded-matmul route (``:110-145``, ``:176-181``), which is
 TPU routing, and the custom VJP (``:217-270``). That VJP exists to keep the
@@ -130,6 +131,18 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     x = _zero_stuff(_zero_stuff(x, upx, 3), upy, 2)
     x = F.pad(x, (px0, px1, py0, py1))
     return depthwise_conv2d(x, f, stride=(downy, downx))
+
+
+def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
+    """Upsample NCHW images by an integer factor with the FIR filter f
+    (``afcm_tpu/ops/upfirdn2d.py:283-292``)."""
+    upx, upy = parse_scaling(up)
+    padx0, padx1, pady0, pady1 = parse_padding(padding)
+    fw, fh = filter_size(_as_np_filter(f))
+    p = [padx0 + (fw + upx - 1) // 2, padx1 + (fw - upx) // 2,
+         pady0 + (fh + upy - 1) // 2, pady1 + (fh - upy) // 2]
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
+                     gain=gain * upx * upy)
 
 
 def gaussian_blur2d(x, sigma, max_radius: int):

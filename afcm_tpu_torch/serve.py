@@ -2,18 +2,18 @@
 for every test subject, the evaluate flow minus scoring (no targets needed).
 
     python -m afcm_tpu_torch.serve --config-file configs/adni/stylegan3/cmsr.yml \
-        [--device cpu] [--out DIR] [epoch latest] [KEY VALUE ...]
+        [--artifact serving.pt2] [--device cpu] [--out DIR] [epoch latest] [KEY VALUE ...]
 
-Serves in process: the EMA generator of ``<tag>_net_G_ema.pth`` on the
-device, built by the same function as the evaluate CLI's
-(``evaluate.build_serving_forward``), so the routing and precision are those
-the evaluation was scored at. Subjects stream through the pipelined
+Serves either in process, the default: the EMA generator of
+``<tag>_net_G_ema.pth`` on the device, built by the same function as the
+evaluate CLI's (``evaluate.build_serving_forward``), so the routing and
+precision are those the evaluation was scored at; or from an artifact of
+``afcm_tpu_torch.infer.export`` (``--artifact``), with no checkpoint read
+(``afcm_tpu/serve.py:41-51``). Subjects stream through the pipelined
 predictor (``tpu.pipeline_depth``); per-subject NIfTI heads are written
 write-behind. It runs on the CUDA device and raises when there is none,
-unless ``--device cpu`` asks for the CPU. Serving from an exported artifact
-(``--artifact``) is not ported yet: the export needs the fused
-``filtered_lrelu`` kernel registered as a custom operator (ROADMAP item
-A12).
+unless ``--device cpu`` asks for the CPU (an artifact serves only on the
+device type it was exported on).
 """
 
 from __future__ import annotations
@@ -73,16 +73,16 @@ def main(argv=None):
     device_name = pop_flag(argv, "--device")
     cfg = default_argument_parser(argv)
     ensure_volumetric(cfg, "afcm_tpu_torch.serve")
-    if artifact is not None:
-        raise NotImplementedError(
-            "serving from an exported artifact is not ported yet (ROADMAP item "
-            "A12): the export needs the filtered_lrelu kernel registered as a "
-            "custom operator; serve in process, without --artifact")
     device = resolve_device(device_name)
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""))
     try:
-        forward, run_dir = build_serving_forward(cfg, device)
+        if artifact is not None:
+            from .infer.export import serving_forward
+            forward = serving_forward(artifact, device=device)
+            run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
+        else:
+            forward, run_dir = build_serving_forward(cfg, device)
         out_dir = out_dir or os.path.join(run_dir, "serve")
         serve_subjects(forward, get_test_loaders(cfg), out_dir, cfg,
                        patch_halo=cfg.predictor.patch_halo,

@@ -50,12 +50,14 @@ def to_device(batch, device) -> Dict[str, torch.Tensor]:
 def validate(model: GANModel, val_loader, device,
              generator: torch.Generator) -> Optional[Dict[str, float]]:
     """PSNR/SSIM of the EMA generator over the val split
-    (``afcm_tpu/train.py:53-73``)."""
+    (``afcm_tpu/train.py:53-73``); the target batch goes to G as ``ref_img``,
+    like the reference's forward_ema (comodgan_model.py:114-116), for the
+    RefMappingNetwork mapper."""
     c_psnr, c_ssim = [], []
     for batch in val_loader:
         inputs = to_device(batch, device)
-        fake = model.eval_step(inputs["A"], inputs["slice_idx"],
-                               generator=generator).cpu().numpy()
+        fake = model.eval_step(inputs["A"], inputs["slice_idx"], generator=generator,
+                               ref_img=inputs["B"]).cpu().numpy()
         preds = np.clip((fake[:, None] + 1) / 2, 0, 1)
         real = np.clip((batch["B"][:, None] + 1) / 2, 0, 1)
         result = evaluate_2D(preds, real)

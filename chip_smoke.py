@@ -6,9 +6,11 @@
 Drives the port's main paths — CMSR serving with the shipped ADNI alias-free
 generator, the CMSR training step of that generator and its discriminator,
 the int8 serving path (tpu.conv_int8 True), all at full width and depth
-(random weights from a seed), the five measurement probes and the serve
-entry point's loop — and checks the hand-written kernels on them: K1 and K2
-(the fused filtered leaky ReLU forward and backward), K3 (the int8 3x3 conv
+(random weights from a seed), the five measurement probes, the serve entry
+point's loop, the serving export, and the CoModGAN baseline's serving,
+int8 and training paths — and checks the hand-written kernels on them: K1
+and K2 (the fused filtered leaky ReLU forward and backward, bound as the
+torch.library operators afcm_tpu_torch::filtered_lrelu{,_bwd}), K3 (the int8 3x3 conv
 with its dequantizing epilogue; K4, its straight-through autograd Function,
 has no kernel of its own) with its two quantizer kernels, and the probe
 kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
@@ -59,7 +61,8 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    with numpy from the seed, batch 2, at the path's shapes (512 -> 512 at
    36^2 and 52^2, padding 2, and 38^2 without padding), at 362 -> 512 148^2,
    91 -> 128 and 64 -> 64 at 276^2, and with padding 1 and 0 and an
-   extra_scale: the bf16 outputs are equal bit for bit (the count of
+   extra_scale, and at batch 16 at the CoModGAN path's shapes (512 -> 512
+   at 10^2, 18^2 and 34^2 without padding): the bf16 outputs are equal bit for bit (the count of
    unequal elements is printed and must be 0), and the whole quantized conv
    is >= 50 dB from the fp32 conv of the unquantized inputs; the activation
    and the weight quantizer kernels against their plain versions (packed
@@ -92,9 +95,31 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
 10. the serve entry point's loop (afcm_tpu_torch.serve.serve_subjects) over
    the phantom at full width in float32, with the float32 fetch and with
    tpu.fetch_dtype bfloat16: 28 K1 launches per batch, the bf16-fetched
-   volume >= 50 dB from the float32-fetched one, NIfTI heads written.
+   volume >= 50 dB from the float32-fetched one, NIfTI heads written;
+11. the serving export (afcm_tpu_torch.infer.export): (a) the host's cost
+   of a filtered_lrelu call through the custom operator against K1's launch
+   alone (µs a call; 28 calls against 2% of the bf16 b16 forward); the
+   shipped generator exported at bf16 b16 with uint8 ingest: its MB and its
+   28 filtered_lrelu nodes, then served over the phantom by
+   serve.serve_subjects in a fresh Python process that imports only the
+   port, whose volume must equal the in-process one within 1e-4 * max (bit
+   equality printed) with 28 K1 launches per batch; the bf16-fetch artifact
+   >= 50 dB from the float32-fetched one, a symbolic-batch artifact at batch
+   1 and 16, a bf16-weights artifact < 0.65x the size and > 40 dB from the
+   float one; the artifact's forward and the in-process forward timed
+   (slices/s, median of 3 windows);
+12. the CoModGAN baseline (configs/adni/comodgan/ccsr.yml, random weights):
+   (a) the phantom through serve_and_score under compute dtype bf16 (G in
+   float32, TF32 on): finite volume and scores, no K1 launch, the forward
+   timed at b16 (with --trace DIR traced too); (b) the routed conv shapes
+   timed as in 8b; (c) the phantom under tpu.conv_int8 True: 9 launches of
+   K3 and of each quantizer per batch, >= 30 dB from the float volume; (d)
+   the train CLI's loop on the config at bf16 b16: finite losses, no K1 or
+   K2, w_avg moved in G and G_ema, ms/step and img/s (median of 3 windows),
+   peak memory; (e) the EMA generator exported and served from a fresh
+   process equal to in-process, with no filtered_lrelu node.
 
-Then prints the kernels' JSON line (per kernel: launches on its main paths,
+Then prints the total seconds, the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
 of the timed inputs, the library call's time where there is one) and, last,
 {"ok": true, "device": ...}. Any failure raises and exits non-zero; without CUDA nothing is printed.
@@ -124,8 +149,9 @@ from afcm_tpu_torch import probes, serve
 from afcm_tpu_torch import train as train_cli
 from afcm_tpu_torch.data.demo import phantom_test_loader, phantom_train_loaders
 from afcm_tpu_torch.evaluate import (configure_numerics, load_generator_ema,
-                                     make_forward_fn, serve_and_score,
+                                     make_forward_fn, normalize_uint8, serve_and_score,
                                      set_matmul_precision)
+from afcm_tpu_torch.infer import export
 from afcm_tpu_torch.models import CMSR_ADNI_G, build_eval_model, build_generator
 from afcm_tpu_torch.ops import (conv2d_gradfix, get_conv_impl, modulated_conv,
                                 set_conv_impl)
@@ -139,6 +165,7 @@ from afcm_tpu_torch.probes import (element_windows, fir_roofline, int8_kernel,
 from afcm_tpu_torch.utils.profiling import cuda_median_ms, cuda_ms
 
 SEED = 0
+REPO = os.path.dirname(os.path.abspath(__file__))
 # One full-size layer per filter variant of the shipped generator: the
 # kernel's input is the 3x3 conv's output, layer size + 2.
 VARIANT_LAYERS = {
@@ -152,11 +179,20 @@ LAYERS_WITH_KERNEL = 28        # 29 layers; toRGB is elementwise
 # Convs that mode 'int8' routes to K3: 512 -> 512 at 36^2 (6 layers) and
 # 52^2 (4), padding 2, and the bottleneck conv e_16x16 at 38^2, padding 0.
 INT8_ROUTED = 11
+# The CoModGAN baseline (configs/adni/comodgan/ccsr.yml): mode 'int8' routes
+# nine 512 -> 512 convs a batch, padding 0, at these input sizes (the
+# encoder's conv_layer0 and conv0/conv1 of blocks b8, b16, b32); its 6^2
+# convs are declined. tests/test_torch_comodgan.py holds the count.
+CCSR_CONFIG = os.path.join(REPO, "configs/adni/comodgan/ccsr.yml")
+COMOD_INT8_SIZES = (10, 18, 34)
+COMOD_INT8_ROUTED = 9
+PHANTOM_RANGE = (0.0, 255.0)   # the phantom loader's Normalize range: uint8 ingest
+PHANTOM_SHAPE = (24, 256, 256)  # the served phantom subject
+COND_SHAPE = (4, 256, 256)      # a batch element: the 4-slice window
 # Published peaks of one H100 SXM (dense): the rates the bounds are taken at.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 INT8_OP_PER_S = 1979e12
-REPO = os.path.dirname(os.path.abspath(__file__))
 TRAIN_CONFIG = os.path.join(REPO, "configs/adni/stylegan3/cmsr.yml")
 TRAIN_BATCH = 16
 WARM_STEPS, WINDOW_STEPS, WINDOWS = 3, 4, 3
@@ -655,20 +691,22 @@ def int8_case(n, i, o, h, p, extra, seed):
 
 
 def check_conv_int8():
-    """Phase 8a: K3 against its plain version, bit for bit."""
-    cases = [(512, 512, 36, 2, False), (512, 512, 52, 2, False),
-             (512, 512, 38, 0, False), (362, 512, 148, 2, False),
-             (91, 128, 276, 2, False), (64, 64, 276, 2, False),
-             (181, 256, 84, 1, True), (91, 181, 40, 0, True)]
+    """Phase 8a: K3 against its plain version, bit for bit: batch 2 at the
+    StyleGAN3 path's shapes and others, batch 16 at the CoModGAN path's."""
+    cases = [(2, 512, 512, 36, 2, False), (2, 512, 512, 52, 2, False),
+             (2, 512, 512, 38, 0, False), (2, 362, 512, 148, 2, False),
+             (2, 91, 128, 276, 2, False), (2, 64, 64, 276, 2, False),
+             (2, 181, 256, 84, 1, True), (2, 91, 181, 40, 0, True)] + \
+        [(SERVE_BATCH, 512, 512, h, 0, False) for h in COMOD_INT8_SIZES]
     set_matmul_precision("float32")
     unequal_total, worst = 0, 0.0
-    for idx, (i, o, h, p, extra) in enumerate(cases):
-        x, w, es, xq, wq, scale, xp, wp = int8_case(2, i, o, h, p, extra, SEED + 10 + idx)
+    for idx, (n, i, o, h, p, extra) in enumerate(cases):
+        x, w, es, xq, wq, scale, xp, wp = int8_case(n, i, o, h, p, extra, SEED + 10 + idx)
         got = k3.int8_conv_cuda(xp, wp, scale, o)
         torch.cuda.synchronize()
         want = k3.int8_conv_plain(xq, wq, scale, p)
         size = h + 2 * p - 2
-        if got.shape != want.shape or tuple(got.shape) != (2, o, size, size) \
+        if got.shape != want.shape or tuple(got.shape) != (n, o, size, size) \
                 or got.dtype != torch.bfloat16:
             raise AssertionError(f"K3 gave {tuple(got.shape)} {got.dtype}, plain "
                                  f"{tuple(want.shape)}")
@@ -680,7 +718,7 @@ def check_conv_int8():
         if extra:
             ref = ref * es[:, :, None, None]
         db = psnr(full, ref)
-        phase("8a K3 vs plain", channels=[i, o], size=h, padding=p,
+        phase("8a K3 vs plain", channels=[i, o], size=h, padding=p, batch=n,
               extra_scale=extra, out=list(got.shape), unequal_elements=unequal,
               max_abs_err=err, wrapper_equal=bool(torch.equal(full, got)),
               psnr_vs_fp32_conv_db=db)
@@ -707,21 +745,23 @@ def bit_unequal(got, want):
 def check_quantizers():
     """Phase 8a, the quantizer kernels against their plain versions, bit
     for bit: the packed int8 tensors and the scales, at the three routed
-    shapes and a ragged one, float32 and bfloat16 inputs, sample 0 all zero.
+    shapes and a ragged one (batch 3) and the CoModGAN path's three (batch
+    16), float32 and bfloat16 inputs, sample 0 all zero.
     Then a NaN in one sample and one weight channel, which must reach the
     scale and the conv's output as in the plain version. Returns per kernel
     the total of unequal elements and the largest |kernel - plain| over the
     packed integers and the scales."""
-    cases = [(512, 512, 36, 2), (512, 512, 52, 2), (512, 512, 38, 0), (91, 160, 41, 1)]
+    cases = [(3, 512, 512, 36, 2), (3, 512, 512, 52, 2), (3, 512, 512, 38, 0),
+             (3, 91, 160, 41, 1)] + [(SERVE_BATCH, 512, 512, h, 0) for h in COMOD_INT8_SIZES]
     totals = {"activations": 0, "weights": 0}
     worst = {"activations": 0.0, "weights": 0.0}
 
     def max_abs(got, want):
         return float((got.double() - want.double()).abs().max())
-    for idx, (i, o, h, p) in enumerate(cases):
+    for idx, (n, i, o, h, p) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             rng = np.random.RandomState(SEED + 50 + idx)
-            x = torch.from_numpy(rng.randn(3, i, h, h).astype(np.float32)).cuda().to(dtype)
+            x = torch.from_numpy(rng.randn(n, i, h, h).astype(np.float32)).cuda().to(dtype)
             w = torch.from_numpy((rng.randn(o, i, 3, 3) / np.sqrt(9 * i))
                                  .astype(np.float32)).cuda().to(dtype)
             x[0] = 0                            # the scale's floor, 1e-8 / 127
@@ -739,7 +779,7 @@ def check_quantizers():
                        w_scale_unequal=bit_unequal(w_scale, want_ws))
             errs = dict(x_max_abs_err=max(max_abs(xp, want_xp), max_abs(x_scale, want_xs)),
                         w_max_abs_err=max(max_abs(wp, want_wp), max_abs(w_scale, want_ws)))
-            phase("8a quantizer vs plain", channels=[i, o], size=h, padding=p,
+            phase("8a quantizer vs plain", channels=[i, o], size=h, padding=p, batch=n,
                   dtype=str(dtype).split(".")[1], packed_x=list(xp.shape),
                   packed_w=list(wp.shape), launches=list(launched), **row, **errs)
             if any(row.values()) or launched != (1, 1):
@@ -790,67 +830,106 @@ def conv3x3_shapes(synthesis):
     return shapes
 
 
-def time_conv_int8():
-    """Phase 8b: every distinct conv shape at batch 16. Returns K3's sums
-    over the shapes mode 'int8' routes (the serving path's)."""
-    synthesis = shipped_model("bfloat16").generator_ema.synthesis
-    sums = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=(0.0, "operations", 0.0),
+def conv_shape_row(i, o, h, p, seed):
+    """One conv shape at batch 16: K3 alone with the idle share of its pixel
+    tiles, the quantizer kernels and their plain versions, quantize + K3
+    (the fused path the wrapper takes), the float conv of the path with the
+    knob off (conv2d_gradfix.conv2d in bf16), cuDNN's bf16 conv of the same
+    quantized integers, and the plain version, beside the bound. Returns
+    the row and the bound (ms, bound_by)."""
+    x, w, _, xq, wq, scale, xp, wp = int8_case(SERVE_BATCH, i, o, h, p, False, seed)
+    size = h + 2 * p - 2
+    ops = 2 * 9 * o * i * size * size * SERVE_BATCH
+    moved = sum(t.numel() * t.element_size() for t in (xp, wp, scale)) + \
+        SERVE_BATCH * o * size * size * 2
+    by_ops, by_bytes = 1e3 * ops / INT8_OP_PER_S, 1e3 * moved / HBM_BYTES_PER_S
+    least = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
+    xb, wb = x.bfloat16(), w.bfloat16()
+    xqb, wqb = xq.bfloat16(), wq.bfloat16()     # the integers are exact in bf16
+    # the quantizers move x (or w) in once and the packed tensor and scales out
+    qx_bytes = xb.numel() * 2 + xp.numel() + 4 * SERVE_BATCH
+    qw_bytes = w.numel() * 4 + wp.numel() + 4 * o
+    row = dict(channels=[i, o], size=h, padding=p, batch=SERVE_BATCH,
+               routed_by_int8_gate=modulated_conv._int8_gate(x.shape, w.shape),
+               g_ops=ops / 1e9, mbytes=moved / 1e6,
+               tile_rows=k3.plan_tile_rows(size),
+               tile_idle_share=k3.tile_idle_share(size, size),
+               k3_ms=cuda_median_ms(lambda: k3.int8_conv_cuda(xp, wp, scale, o)),
+               quantize_k3_ms=cuda_median_ms(lambda: k3.conv3x3_int8_cuda(x, w, p)),
+               quantize_k3_bf16_x_ms=cuda_median_ms(
+                   lambda: k3.conv3x3_int8_cuda(xb, w, p)),
+               quantize_x_bf16_ms=cuda_median_ms(
+                   lambda: k3.quantize_pack_activations_cuda(xb, p)),
+               quantize_x_plain_ms=cuda_median_ms(
+                   lambda: k3.quantize_pack_activations_plain(xb, p), repeats=3, warmup=1),
+               quantize_x_bound_ms=1e3 * qx_bytes / HBM_BYTES_PER_S,
+               quantize_w_ms=cuda_median_ms(lambda: k3.quantize_pack_weights_cuda(w)),
+               quantize_w_plain_ms=cuda_median_ms(
+                   lambda: k3.quantize_pack_weights_plain(w), repeats=3, warmup=1),
+               quantize_w_bound_ms=1e3 * qw_bytes / HBM_BYTES_PER_S,
+               float_conv_bf16_ms=cuda_median_ms(
+                   lambda: conv2d_gradfix.conv2d(xb, wb, padding=p)),
+               library_ms=cuda_median_ms(
+                   lambda: torch.nn.functional.conv2d(xqb, wqb, padding=p)),
+               plain_ms=cuda_median_ms(
+                   lambda: k3.int8_conv_plain(xq, wq, scale, p), repeats=3, warmup=1),
+               bound_ms=least[0], bound_by=least[1])
+    row["k3_top_per_s"] = ops / row["k3_ms"] / 1e9
+    if i == o == 512 and p == 0 and h in COMOD_INT8_SIZES:
+        # the CoModGAN generator's float conv: fp32, TF32 as its config sets
+        set_matmul_precision("bfloat16")
+        row["float_conv_tf32_ms"] = cuda_median_ms(
+            lambda: conv2d_gradfix.conv2d(x, w, padding=p))
+        set_matmul_precision("float32")
+    return row, least
+
+
+def add_conv_sums(sums, row, least):
+    """Add a routed shape's K3 and quantizer times to the kernels line's sums."""
+    for key in ("ms", "plain_ms", "library_ms"):
+        sums[key] += row["k3_ms" if key == "ms" else key]
+    sums["bound"] = add_bound(sums["bound"], least)
+    for q, name in (("qx", "quantize_x"), ("qw", "quantize_w")):
+        sums[q + "_ms"] += row[name + ("_bf16_ms" if q == "qx" else "_ms")]
+        sums[q + "_plain_ms"] += row[name + "_plain_ms"]
+        sums[q + "_bound_ms"] += row[name + "_bound_ms"]
+
+
+def conv_sums():
+    return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=(0.0, "operations", 0.0),
                 qx_ms=0.0, qx_plain_ms=0.0, qx_bound_ms=0.0,
                 qw_ms=0.0, qw_plain_ms=0.0, qw_bound_ms=0.0)
+
+
+def time_conv_int8():
+    """Phase 8b: every distinct conv shape of the shipped generator at batch
+    16. Returns K3's sums over the shapes mode 'int8' routes (the serving
+    path's)."""
+    synthesis = shipped_model("bfloat16").generator_ema.synthesis
+    sums = conv_sums()
     gated = 0
     for idx, ((i, o, h, p), count) in enumerate(conv3x3_shapes(synthesis).items()):
-        x, w, _, xq, wq, scale, xp, wp = int8_case(SERVE_BATCH, i, o, h, p, False,
-                                                    SEED + 30 + idx)
-        size = h + 2 * p - 2
-        ops = 2 * 9 * o * i * size * size * SERVE_BATCH
-        moved = sum(t.numel() * t.element_size() for t in (xp, wp, scale)) + \
-            SERVE_BATCH * o * size * size * 2
-        by_ops, by_bytes = 1e3 * ops / INT8_OP_PER_S, 1e3 * moved / HBM_BYTES_PER_S
-        least = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
-        xb, wb = x.bfloat16(), w.bfloat16()
-        xqb, wqb = xq.bfloat16(), wq.bfloat16()     # the integers are exact in bf16
-        routed = modulated_conv._int8_gate(x.shape, w.shape)   # what mode 'int8' takes
-        # the quantizers move x (or w) in once and the packed tensor and scales out
-        qx_bytes = xb.numel() * 2 + xp.numel() + 4 * SERVE_BATCH
-        qw_bytes = w.numel() * 4 + wp.numel() + 4 * o
-        row = dict(channels=[i, o], size=h, padding=p, batch=SERVE_BATCH, layers=count,
-                   routed_by_int8_gate=routed, g_ops=ops / 1e9, mbytes=moved / 1e6,
-                   tile_rows=k3.plan_tile_rows(size),
-                   tile_idle_share=k3.tile_idle_share(size, size),
-                   k3_ms=cuda_median_ms(lambda: k3.int8_conv_cuda(xp, wp, scale, o)),
-                   quantize_k3_ms=cuda_median_ms(lambda: k3.conv3x3_int8_cuda(x, w, p)),
-                   quantize_k3_bf16_x_ms=cuda_median_ms(
-                       lambda: k3.conv3x3_int8_cuda(xb, w, p)),
-                   quantize_x_bf16_ms=cuda_median_ms(
-                       lambda: k3.quantize_pack_activations_cuda(xb, p)),
-                   quantize_x_plain_ms=cuda_median_ms(
-                       lambda: k3.quantize_pack_activations_plain(xb, p), repeats=3, warmup=1),
-                   quantize_x_bound_ms=1e3 * qx_bytes / HBM_BYTES_PER_S,
-                   quantize_w_ms=cuda_median_ms(lambda: k3.quantize_pack_weights_cuda(w)),
-                   quantize_w_plain_ms=cuda_median_ms(
-                       lambda: k3.quantize_pack_weights_plain(w), repeats=3, warmup=1),
-                   quantize_w_bound_ms=1e3 * qw_bytes / HBM_BYTES_PER_S,
-                   float_conv_bf16_ms=cuda_median_ms(
-                       lambda: conv2d_gradfix.conv2d(xb, wb, padding=p)),
-                   library_ms=cuda_median_ms(
-                       lambda: torch.nn.functional.conv2d(xqb, wqb, padding=p)),
-                   plain_ms=cuda_median_ms(
-                       lambda: k3.int8_conv_plain(xq, wq, scale, p), repeats=3, warmup=1),
-                   bound_ms=least[0], bound_by=least[1])
-        row["k3_top_per_s"] = ops / row["k3_ms"] / 1e9
-        phase("8b conv shapes", **row)
-        if routed:
+        row, least = conv_shape_row(i, o, h, p, SEED + 30 + idx)
+        phase("8b conv shapes", layers=count, **row)
+        if row["routed_by_int8_gate"]:
             gated += count
-            for key in ("ms", "plain_ms", "library_ms"):
-                sums[key] += row["k3_ms" if key == "ms" else key]
-            sums["bound"] = add_bound(sums["bound"], least)
-            for q, name in (("qx", "quantize_x"), ("qw", "quantize_w")):
-                sums[q + "_ms"] += row[name + ("_bf16_ms" if q == "qx" else "_ms")]
-                sums[q + "_plain_ms"] += row[name + "_plain_ms"]
-                sums[q + "_bound_ms"] += row[name + "_bound_ms"]
-        del x, w, xq, wq, xp, wp, xb, wb, xqb, wqb
+            add_conv_sums(sums, row, least)
+        torch.cuda.empty_cache()
     if gated != INT8_ROUTED:
         raise AssertionError(f"the gate takes {gated} convs of the layout, want {INT8_ROUTED}")
+    return sums
+
+
+def time_comodgan_convs():
+    """Phase 12b: the CoModGAN path's routed conv shapes (512 -> 512 at
+    10^2, 18^2 and 34^2, padding 0; 3 layers each) at batch 16, as phase 8b
+    times its shapes, with the TF32 conv the float leg runs there. Returns
+    the sums over the three shapes."""
+    sums = conv_sums()
+    for idx, h in enumerate(COMOD_INT8_SIZES):
+        row, least = conv_shape_row(512, 512, h, 0, SEED + 70 + idx)
+        phase("12b CoModGAN conv shapes", layers=3, **row)
+        add_conv_sums(sums, row, least)
     return sums
 
 
@@ -1400,12 +1479,367 @@ def serve_phantom_cli_loop(device):
     return launches
 
 
+# A fresh process that imports only the port: loading the artifact needs
+# the custom operators, which importing afcm_tpu_torch's ops registers.
+SERVE_ARTIFACT = """
+import json, sys
+import numpy as np
+from afcm_tpu_torch import serve
+from afcm_tpu_torch.data.demo import phantom_test_loader
+from afcm_tpu_torch.evaluate import set_matmul_precision
+from afcm_tpu_torch.infer.export import serving_forward
+from afcm_tpu_torch.ops.cuda import conv_int8 as k3, filtered_lrelu as k1
+path, out, dtype, seed, batch = sys.argv[1:6]
+set_matmul_precision(dtype)
+loader = phantom_test_loader(depth=24, size=256, batch_size=int(batch), seed=int(seed))
+forward = serving_forward(path, seed=int(seed))
+k1.launches = k3.launches = 0
+result = serve.serve_subjects(forward, [loader], out + "_heads", keep_volumes=True)
+(volume,) = result["volumes"].values()
+np.save(out, volume)
+print(json.dumps({"k1_launches": k1.launches, "k3_launches": k3.launches,
+                  "batches": len(loader), "patches_per_s": result["patches_per_s"],
+                  "jax_or_afcm_tpu_loaded": sorted(m for m in sys.modules if m.split(".")[0]
+                                                   in ("jax", "flax", "optax", "afcm_tpu"))}))
+"""
+
+
+def serve_artifact_in_fresh_process(path, out_dir, compute_dtype):
+    """The artifact served over the phantom by serve.serve_subjects in a new
+    Python process; returns its volume and what it counted."""
+    out = os.path.join(out_dir, "served.npy")
+    proc = subprocess.run([sys.executable, "-c", SERVE_ARTIFACT, path, out, compute_dtype,
+                           str(SEED), str(SERVE_BATCH)], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"serving the artifact in a fresh process failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    if info["jax_or_afcm_tpu_loaded"]:
+        raise AssertionError(f"the serving process loaded {info['jax_or_afcm_tpu_loaded']}")
+    return np.load(out), info
+
+
+def served_volume(forward):
+    """The phantom's stitched volume through serve.serve_subjects."""
+    loader = phantom_test_loader(depth=24, size=256, batch_size=SERVE_BATCH, seed=SEED)
+    with tempfile.TemporaryDirectory() as out_dir:
+        result = serve.serve_subjects(forward, [loader], out_dir, keep_volumes=True)
+    (volume,) = result["volumes"].values()
+    return volume, len(loader)
+
+
+def volume_psnr(got, want):
+    mse = float(np.mean((got.astype(np.float64) - want) ** 2))
+    return 10 * np.log10(float(want.max() - want.min()) ** 2 / max(mse, 1e-30))
+
+
+def check_artifact(model, compute_dtype, out_dir, label, want_k1):
+    """Export ``model`` (uint8 ingest, batch 16), serve the phantom from the
+    saved artifact in a fresh process and hold the volume to the in-process
+    one (same seed) within 1e-4 * max|in-process|; returns the artifact's
+    path, the exported program and the row."""
+    set_matmul_precision(compute_dtype)
+    norm_range = PHANTOM_RANGE
+    live, _ = served_volume(make_forward_fn(model, "cuda", seed=SEED, norm_range=norm_range))
+    t0 = time.perf_counter()
+    exported = export.export_eval(model, SERVE_BATCH, COND_SHAPE, norm_range=norm_range)
+    export_s = time.perf_counter() - t0
+    path = export.save_exported(exported, os.path.join(out_dir, f"{label}.pt2"))
+    got, info = serve_artifact_in_fresh_process(path, out_dir, compute_dtype)
+    diff = float(np.abs(got - live).max())
+    bound = 1e-4 * float(np.abs(live).max())
+    row = dict(artifact_mb=os.path.getsize(path) / 1e6, export_s=export_s,
+               filtered_lrelu_nodes=export.count_nodes(exported), batches=info["batches"],
+               fresh_process_k1_launches=info["k1_launches"],
+               fresh_process_k3_launches=info["k3_launches"],
+               fresh_process_patches_per_s=info["patches_per_s"],
+               volume=list(got.shape), max_abs_diff_vs_in_process=diff, bound=bound,
+               bit_equal=bool(np.array_equal(got, live)),
+               finite=bool(np.isfinite(got).all()))
+    if row["filtered_lrelu_nodes"] != want_k1 or \
+            info["k1_launches"] != want_k1 * info["batches"] or info["k3_launches"]:
+        raise AssertionError(f"{label}: {row['filtered_lrelu_nodes']} filtered_lrelu nodes and "
+                             f"{info['k1_launches']} K1 launches for {info['batches']} batches "
+                             f"(want {want_k1} each per batch, no K3)")
+    if not (row["finite"] and got.shape == live.shape == PHANTOM_SHAPE and diff <= bound):
+        raise AssertionError(f"{label}: the artifact's volume {got.shape} differs from the "
+                             f"in-process one by {diff} > {bound}")
+    return path, exported, row
+
+
+def time_callable(fn, batch, iters=10, windows=3):
+    """Median slices/s of ``windows`` windows of ``iters`` calls, and the spread."""
+    fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        rates.append(batch * iters / (time.perf_counter() - t0))
+    return float(np.median(rates)), sorted(rates)
+
+
+def dispatch_cost(forward_ms):
+    """Phase 11a: the host's cost of a filtered_lrelu call, on one plane of
+    layer A (K1 takes ~10 µs there, so the host sets the pace): µs a call
+    through the dispatching function, through the operator with its
+    arguments made ahead, through the operator's CUDA implementation called
+    directly, and of K1's launch alone with its plan made ahead. The
+    operator's dispatch is the operator minus its implementation; 28 of it
+    are read against 2% of the bf16 b16 forward. With autograd (training)
+    the operator is timed too."""
+    label = "A up2/down2 (L12_276_64)"
+    x, b, kw, _, _ = variant_case(label, "cuda", SEED + 9)
+    x, b = x[:1, :1].contiguous(), b[:1].contiguous()
+    dispatch = importlib.import_module("afcm_tpu_torch.ops.filtered_lrelu")
+    plan = k1._Plan(x, kw["fu"], kw["fd"], kw["up"], kw["down"], kw["padding"],
+                    kw["gain"], kw["slope"], kw["clamp"], False)
+    fu, fd, *pad = k1.op_arguments(kw["fu"], kw["fd"], kw["padding"], False)
+    args = (fu, fd, kw["up"], kw["down"], *pad, float(kw["gain"]), float(kw["slope"]),
+            float(kw["clamp"]))
+    calls = 3000
+
+    def per_call_us(fn):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / calls
+    with torch.inference_mode():
+        us = dict(path_us=per_call_us(lambda: dispatch.filtered_lrelu(x, b=b, **kw)),
+                  operator_us=per_call_us(lambda: k1.filtered_lrelu_op(x, b, *args)),
+                  implementation_us=per_call_us(lambda: k1._fwd_k1(x, b, *args)),
+                  launch_only_us=per_call_us(lambda: k1._launch_fwd(x, b, plan)))
+    xg = x.clone().requires_grad_(True)
+    us["operator_autograd_us"] = per_call_us(lambda: k1.filtered_lrelu_op(xg, b, *args))
+    us["kernel_device_us"] = 1e3 * cuda_ms(lambda: k1._launch_fwd(x, b, plan), iters=200)
+    extra_ms = LAYERS_WITH_KERNEL * (us["operator_us"] - us["implementation_us"]) / 1e3
+    phase("11a dispatch cost", x=list(x.shape), binding="torch.library.Library define/impl",
+          **us, dispatch_ms_per_forward=extra_ms, forward_ms=forward_ms,
+          share_of_forward=extra_ms / forward_ms,
+          over_two_percent=bool(extra_ms > 0.02 * forward_ms))
+
+
+def export_shipped(device, forward_ms):
+    """Phase 11: the serving export of the shipped CMSR EMA generator (bf16,
+    batch 16, uint8 ingest) served from a fresh process equal to in-process,
+    its K1 nodes and launches; the bf16 fetch, the symbolic batch, bf16
+    weights; the artifact's forward timed beside the in-process forward.
+    Returns the K1 launches of the served artifact."""
+    dispatch_cost(forward_ms)
+    model = shipped_model("bfloat16")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        path, exported, row = check_artifact(model, "bfloat16", out_dir, "cmsr",
+                                             LAYERS_WITH_KERNEL)
+        phase("11 export", model="CMSR_ADNI_G", compute_dtype="bfloat16",
+              batch=SERVE_BATCH, **row)
+        norm_range = PHANTOM_RANGE
+        full, _ = served_volume(export.serving_forward(exported, seed=SEED))
+        fetched, _ = served_volume(export.serving_forward(export.export_eval(
+            model, SERVE_BATCH, COND_SHAPE, norm_range=norm_range,
+            fetch_dtype="bfloat16"), seed=SEED))
+        fetch_db = volume_psnr(fetched, full)
+
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        a = torch.randint(0, 256, (SERVE_BATCH, *COND_SHAPE), generator=gen, device=device,
+                          dtype=torch.uint8)
+        s = torch.rand((SERVE_BATCH, 1), generator=gen, device=device)
+        z = torch.randn((SERVE_BATCH, model.z_dim), generator=gen, device=device)
+        symbolic = export.export_eval(model, None, COND_SHAPE, norm_range=norm_range)
+        shapes = {}
+        for n in (1, SERVE_BATCH):
+            with torch.no_grad():
+                out = symbolic.module()(a[:n], s[:n], z[:n])
+            shapes[n] = list(out.shape)
+            if tuple(out.shape) != (n, 1, *PHANTOM_SHAPE[1:]) or not torch.isfinite(out).all():
+                raise AssertionError(f"symbolic-batch artifact at batch {n}: {shapes[n]}")
+        half_path = export.save_exported(export.export_eval(
+            model, SERVE_BATCH, COND_SHAPE, norm_range=norm_range,
+            weights_dtype="bfloat16"), os.path.join(out_dir, "bf16_weights.pt2"))
+        half = export.load_exported(half_path)[0].module()
+        module = export.load_exported(path)[0].module()
+        with torch.no_grad():
+            weights_db = psnr(half(a, s, z), module(a, s, z))
+        size_ratio = os.path.getsize(half_path) / os.path.getsize(path)
+
+        set_matmul_precision("bfloat16")
+        with torch.no_grad():
+            artifact_rate, artifact_spread = time_callable(lambda: module(a, s, z), SERVE_BATCH)
+        live_rate, live_spread = time_callable(
+            lambda: model.eval_step(normalize_uint8(a, *norm_range), s, z=z), SERVE_BATCH)
+        phase("11 export variants", bf16_fetch_psnr_db=fetch_db, symbolic_batch_shapes=shapes,
+              bf16_weights_size_ratio=size_ratio, bf16_weights_psnr_db=weights_db,
+              artifact_slices_per_s=artifact_rate, artifact_spread=artifact_spread,
+              in_process_slices_per_s=live_rate, in_process_spread=live_spread)
+        if not fetch_db >= 50:
+            raise AssertionError(f"bf16-fetched artifact {fetch_db:.2f} dB from the float32 one")
+        if not (size_ratio < 0.65 and weights_db > 40):
+            raise AssertionError(f"bf16-weights artifact: {size_ratio:.3f} of the size, "
+                                 f"{weights_db:.2f} dB")
+        return row["fresh_process_k1_launches"]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def ccsr_config(*opts):
+    from afcm_tpu_torch.config import default_argument_parser
+    return default_argument_parser(["--config-file", CCSR_CONFIG, "tpu.compute_dtype",
+                                    "bfloat16", *opts])
+
+
+@functools.lru_cache(maxsize=None)
+def comodgan_model():
+    """The CoModGAN baseline's EMA generator (ccsr.yml; float32 whatever the
+    compute dtype), random weights from SEED, on the card."""
+    model = build_eval_model(dict(ccsr_config().model.G), compute_dtype="bfloat16",
+                             generator=torch.Generator().manual_seed(SEED))
+    model.generator_ema.to("cuda")
+    return model
+
+
+def comodgan_serving(device, trace_dir=None):
+    """Phases 12a and 12c: the CoModGAN phantom served under the config's
+    numerics through serve_and_score (no K1) and timed, then under
+    tpu.conv_int8 True (K3 and each quantizer 9 times a batch, >= 30 dB from
+    the float volume). Returns the int8 path's launches."""
+    model = comodgan_model()
+    try:
+        configure_numerics(ccsr_config())
+        loader = phantom_test_loader(depth=24, size=256, batch_size=SERVE_BATCH, seed=SEED)
+        forward = make_forward_fn(model, device, seed=SEED, norm_range=loader.norm_range)
+        k1.launches = k3.launches = 0                 # the CoModGAN path's run starts here
+        with tempfile.TemporaryDirectory() as out_dir:
+            scores = serve_and_score(forward, [loader], out_dir, "t1_hr4sr")
+        (subject,) = scores["subjects"].values()
+        float_launches = (k1.launches, k3.launches)
+        float_vol, batches = served_volume(make_forward_fn(model, device, seed=SEED,
+                                                           norm_range=loader.norm_range))
+        cond, c, z = forward_inputs(SERVE_BATCH, device)
+        torch.cuda.reset_peak_memory_stats()
+        rate, spread = time_callable(lambda: model.eval_step(cond, c, z=z), SERVE_BATCH)
+        metrics = [scores[k] for k in ("psnr", "ssim", "psnr_slice", "ssim_slice")]
+        phase("12a CoModGAN serve", config=os.path.relpath(CCSR_CONFIG, REPO),
+              compute_dtype="bfloat16", generator_dtype=str(
+                  next(model.generator_ema.parameters()).dtype).split(".")[1],
+              batch=SERVE_BATCH, batches=batches, volume=list(subject["shape"]),
+              finite=subject["finite"], psnr=metrics[0], ssim=metrics[1],
+              k1_launches=float_launches[0], k3_launches=float_launches[1],
+              slices_per_s=rate, spread=spread, ms_per_batch=1e3 * SERVE_BATCH / rate,
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if float_launches != (0, 0):
+            raise AssertionError(f"the float CoModGAN path launched {float_launches} K1/K3")
+        if not (subject["finite"] and subject["shape"] == PHANTOM_SHAPE
+                and np.isfinite(metrics).all()):
+            raise AssertionError(f"bad CoModGAN volume {subject} or metrics")
+        if trace_dir is not None:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                with torch.profiler.record_function("traced_forwards"):
+                    for _ in range(5):
+                        model.eval_step(cond, c, z=z)
+                    torch.cuda.synchronize()
+            summarize_trace(prof, "comodgan_bfloat16_b16", "traced_forwards", 5, trace_dir,
+                            layers=None, phase_name="12 trace", unit="forward")
+
+        configure_numerics(ccsr_config("tpu.conv_int8", "True"))
+        if get_conv_impl() != "int8":
+            raise AssertionError(f"configure_numerics left conv impl {get_conv_impl()}")
+        k1.launches = k3.launches = 0                 # the CoModGAN int8 path's run
+        k3.quantize_launches = k3.weight_quantize_launches = 0
+        int8_vol, batches = served_volume(make_forward_fn(model, device, seed=SEED,
+                                                          norm_range=loader.norm_range))
+        launches = (k1.launches, k3.launches, k3.quantize_launches,
+                    k3.weight_quantize_launches)
+        int8_rate, int8_spread = time_callable(lambda: model.eval_step(cond, c, z=z),
+                                               SERVE_BATCH)
+    finally:
+        set_conv_impl("xla")
+    db = volume_psnr(int8_vol, float_vol)
+    phase("12c CoModGAN int8", batches=batches, k1=launches[0], k3=launches[1],
+          quantize_activations=launches[2], quantize_weights=launches[3],
+          per_batch=COMOD_INT8_ROUTED, psnr_vs_float_db=db,
+          finite=bool(np.isfinite(int8_vol).all()), slices_per_s=int8_rate,
+          spread=int8_spread)
+    if launches != (0,) + (COMOD_INT8_ROUTED * batches,) * 3:
+        raise AssertionError(f"{launches} K1/K3/quantizer launches for {batches} CoModGAN int8 "
+                             f"batches; want no K1 and {COMOD_INT8_ROUTED} of each other per batch")
+    if not (np.isfinite(int8_vol).all() and db >= 30):
+        raise AssertionError(f"CoModGAN int8 volume {db:.2f} dB from the float one, < 30")
+    return launches
+
+
+def comodgan_train(device):
+    """Phase 12d: the train CLI's loop on the CCSR config over a phantom, bf16
+    b16: finite losses, no K1 or K2, w_avg moved from its zero init in G
+    and G_ema, median ms/step and img/s of 3 windows, peak memory."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_comodgan_")
+    never = str(10 ** 9)
+    cfg = ccsr_config("checkpoints_dir", out_dir, "name", "smoke_comodgan",
+                      "trainer.display_freq", never, "trainer.print_freq", never,
+                      "trainer.save_latest_freq", never, "trainer.save_epoch_freq", never)
+    loaders = phantom_train_loaders(depth=4 * TRAIN_BATCH, size=256, batch_size=TRAIN_BATCH,
+                                    seed=SEED)
+    warm, window, windows = 2, 3, 3
+    bounds = [warm + i * window for i in range(windows + 1)]
+    monitor = StepMonitor(bounds)
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.bwd_launches = 0
+    t0 = time.perf_counter()
+    val = train_cli.train(cfg, max_iters=TRAIN_BATCH * bounds[-1], loaders=loaders,
+                          device=device, on_step=monitor)
+    seconds = time.perf_counter() - t0
+    ms = [1e3 * (monitor.times[b] - monitor.times[a]) / window
+          for a, b in zip(bounds, bounds[1:])]
+    run_dir = os.path.join(out_dir, cfg.name)
+    w_avg = {name: float(torch.load(os.path.join(run_dir, f"latest_net_{name}.pth"),
+                                    weights_only=True)["mapping.w_avg"].abs().max())
+             for name in ("G", "G_ema")}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    finite = monitor.losses_finite()
+    phase("12d CoModGAN train bf16 b16", config=os.path.relpath(CCSR_CONFIG, REPO),
+          batch=TRAIN_BATCH, shared_g_fwd=bool(cfg.tpu.shared_g_fwd),
+          steps=len(monitor.counts), ms_per_step=float(np.median(ms)), spread_ms=sorted(ms),
+          img_per_s=1e3 * TRAIN_BATCH / float(np.median(ms)),
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          launches_per_step=sorted(set(monitor.counts)), losses_finite=finite,
+          last_losses={k: float(v) for k, v in monitor.metrics[-1].items()},
+          w_avg_max_abs=w_avg, val=val, seconds=seconds)
+    if not finite:
+        raise AssertionError("non-finite losses in the CoModGAN train steps")
+    if sorted(set(monitor.counts)) != [(0, 0)]:
+        raise AssertionError(f"the CoModGAN train step launched K1/K2: {monitor.counts}")
+    if not min(w_avg.values()) > 0:
+        raise AssertionError(f"w_avg did not move from its init: {w_avg}")
+    torch.cuda.empty_cache()
+
+
+def comodgan_export():
+    """Phase 12e: the CoModGAN EMA generator exported (no filtered_lrelu
+    node) and served from a fresh process equal to in-process."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        configure_numerics(ccsr_config())
+        _, _, row = check_artifact(comodgan_model(), "bfloat16", out_dir, "comodgan", 0)
+        phase("12e CoModGAN export", batch=SERVE_BATCH, **row)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", metavar="DIR",
-                        help="also trace each leg of phase 6 and one train "
-                             "step of phase 7 into DIR")
+                        help="also trace each leg of phase 6, one train step "
+                             "of phase 7 and the CoModGAN forward of phase 12 into DIR")
     args = parser.parse_args(argv)
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
     device = torch.device("cuda")
@@ -1435,7 +1869,7 @@ def main(argv=None):
     if serve_launches != (LAYERS_WITH_KERNEL * batches, 0, 0):
         raise AssertionError(f"{serve_launches} K1/K2/K3 launches for {batches} "
                              f"batches; want {LAYERS_WITH_KERNEL} K1 per batch")
-    time_forward(device, args.trace)
+    legs = time_forward(device, args.trace)
 
     bwd_worst, bwd_ms, bwd_plain_ms, bwd_bound = check_backward_variants(device)
     check_generator_backward(device)
@@ -1452,6 +1886,11 @@ def main(argv=None):
     int8_launches = serve_phantom_int8(device)
     probe_entries = run_probes(check_probe_kernels(device))
     cli_serve_launches = serve_phantom_cli_loop(device)
+    export_launches = export_shipped(device, 1e3 * SERVE_BATCH / legs["bfloat16_b16"])
+    comodgan_int8 = comodgan_serving(device, args.trace)
+    comodgan_sums = time_comodgan_convs()
+    comodgan_train(device)
+    comodgan_export()
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},
@@ -1461,7 +1900,11 @@ def main(argv=None):
                       "quantize_int8": int8_launches[2],
                       "quantize_weights_int8": int8_launches[3]},
           probes={e["name"]: e["launches"] for e in probe_entries},
-          serve_entry_point={"filtered_lrelu": cli_serve_launches})
+          serve_entry_point={"filtered_lrelu": cli_serve_launches},
+          export_artifact={"filtered_lrelu": export_launches},
+          comodgan_int8={"filtered_lrelu": comodgan_int8[0], "conv_int8": comodgan_int8[1],
+                         "quantize_int8": comodgan_int8[2],
+                         "quantize_weights_int8": comodgan_int8[3]})
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
     if not all(int8_launches[1:]):
@@ -1474,18 +1917,22 @@ def main(argv=None):
     if jax_loaded:
         raise AssertionError(f"the port's path loaded {jax_loaded[:5]}")
 
+    phase("total", seconds=time.perf_counter() - started)
+    comodgan_timed = "the CoModGAN path's three conv shapes (512 -> 512 at 10^2, 18^2, 34^2 p0)"
     print(json.dumps({"kernels": [
         {"name": "filtered_lrelu", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/filtered_lrelu.cu",
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:273",
+         "binding": "torch.library operator afcm_tpu_torch::filtered_lrelu",
          "launches": serve_launches[0] + train_launches["filtered_lrelu"]
-         + int8_launches[0] + cli_serve_launches,
+         + int8_launches[0] + cli_serve_launches + export_launches,
          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
         {"name": "filtered_lrelu_bwd", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/filtered_lrelu_bwd.cu",
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:292",
+         "binding": "torch.library operator afcm_tpu_torch::filtered_lrelu_bwd",
          "launches": train_launches["filtered_lrelu_bwd"],
          "max_abs_err": bwd_worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
@@ -1493,7 +1940,7 @@ def main(argv=None):
         {"name": "conv_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/conv_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:129",
-         "launches": int8_launches[1],
+         "launches": int8_launches[1] + comodgan_int8[1],
          "max_abs_err": int8_worst, "unequal_elements": unequal,
          "ms": int8_sums["ms"], "plain_ms": int8_sums["plain_ms"],
          "bound_ms": int8_sums["bound"][0], "bound_by": int8_sums["bound"][1],
@@ -1501,28 +1948,39 @@ def main(argv=None):
          "library": "cuDNN's bf16 conv (F.conv2d) of the same quantized integers",
          "timed_at": "the int8 path's three conv shapes (512 -> 512 at 36^2 and "
                      "52^2 p2, 38^2 p0), batch 16, one call each, summed",
+         "comodgan": {"timed_at": comodgan_timed + ", batch 16, one call each, summed",
+                      "ms": comodgan_sums["ms"], "plain_ms": comodgan_sums["plain_ms"],
+                      "bound_ms": comodgan_sums["bound"][0],
+                      "bound_by": comodgan_sums["bound"][1],
+                      "library_ms": comodgan_sums["library_ms"]},
          "autograd": "K4 = conv3x3_int8_ste: K3 forward, fp32 conv adjoint backward"},
         {"name": "quantize_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:258-262",
-         "launches": int8_launches[2],
+         "launches": int8_launches[2] + comodgan_int8[2],
          "max_abs_err": quantizer_worst["activations"],
          "unequal_elements": quantizer_unequal["activations"],
          "ms": int8_sums["qx_ms"], "plain_ms": int8_sums["qx_plain_ms"],
          "bound_ms": int8_sums["qx_bound_ms"], "bound_by": "bytes", "library_ms": None,
          "timed_at": "the int8 path's three conv inputs (512 channels at 36^2 and 52^2 "
                      "p2, 38^2 p0), batch 16, bf16, one call each (amax and "
-                     "quantize-and-pack kernels), summed"},
+                     "quantize-and-pack kernels), summed",
+         "comodgan": {"ms": comodgan_sums["qx_ms"], "plain_ms": comodgan_sums["qx_plain_ms"],
+                      "bound_ms": comodgan_sums["qx_bound_ms"], "bound_by": "bytes",
+                      "timed_at": comodgan_timed + " inputs, batch 16, bf16"}},
         {"name": "quantize_weights_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:276-280",
-         "launches": int8_launches[3],
+         "launches": int8_launches[3] + comodgan_int8[3],
          "max_abs_err": quantizer_worst["weights"],
          "unequal_elements": quantizer_unequal["weights"],
          "ms": int8_sums["qw_ms"], "plain_ms": int8_sums["qw_plain_ms"],
          "bound_ms": int8_sums["qw_bound_ms"], "bound_by": "bytes", "library_ms": None,
          "timed_at": "the int8 path's 512 -> 512 3x3 weights, float32, one call per "
-                     "routed shape, summed"},
+                     "routed shape, summed",
+         "comodgan": {"ms": comodgan_sums["qw_ms"], "plain_ms": comodgan_sums["qw_plain_ms"],
+                      "bound_ms": comodgan_sums["qw_bound_ms"], "bound_by": "bytes",
+                      "timed_at": comodgan_timed + " weights, float32"}},
         *probe_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -5,7 +5,9 @@
 Reads ``<checkpoint_dir>/<tag>_net_G_ema.msgpack`` (written by
 ``afcm_tpu.utils.checkpoint.save_generator_only``) and writes
 ``<checkpoint_dir>/<tag>_net_G_ema.pth``: a torch state_dict under the
-reference's names, which ``python -m afcm_tpu_torch.evaluate`` loads. When
+reference's names (of either generator family, StyleGAN3 or CoModGAN, with
+its ``moments`` and ``constants``: ``w_avg``, ``magnitude_ema``,
+``noise_const``), which ``python -m afcm_tpu_torch.evaluate`` loads. When
 the run dir also holds the full train state ``<tag>_state.msgpack``
 (``afcm_tpu.utils.checkpoint.save_state``), it writes ``<tag>_net_G.pth``
 and ``<tag>_net_D.pth`` from it as well. Needs JAX/flax (to read the

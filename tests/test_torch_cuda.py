@@ -804,3 +804,46 @@ def test_probe_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="multiples"):
         p8.nine_tap_int8(_probe_int8(cuda, (9, 128, 64), 0), _probe_int8(cuda, (1, 64, 256), 1),
                          "slices", 100, 8)
+
+
+@pytest.mark.parametrize("name", ["A_u2d2", "odd_nonsquare_nobias", "u3d2"])
+def test_operators_pass_opcheck_on_the_card(cuda, name):
+    """The custom operators' CUDA kernels (K1, K2) under
+    torch.library.opcheck: schema, fake shapes against the kernel's output,
+    the registered backward, AOTAutograd with dynamic shapes."""
+    x, b, kw = _case(CASES[name], cuda)
+    taps_u, taps_d, *pad = k1.op_arguments(kw["fu"], kw["fd"], kw["padding"],
+                                           kw["flip_filter"])
+    args = (taps_u, taps_d, kw["up"], kw["down"], *pad, float(kw["gain"]), kw["slope"],
+            kw["clamp"])
+    bg = None if b is None else b.clone().requires_grad_(True)
+    torch.library.opcheck(k1.filtered_lrelu_op, (x.clone().requires_grad_(True), bg) + args)
+    y = k1.filtered_lrelu_op(x, b, *args)
+    torch.testing.assert_close(y, k1.filtered_lrelu_cuda(x, b=b, **kw), rtol=0, atol=0)
+    torch.library.opcheck(k1.filtered_lrelu_bwd_op, (x, b, torch.randn_like(y)) + args)
+
+
+def test_exported_generator_launches_k1(cuda):
+    """A tiny alias-free generator exported on the card keeps its
+    filtered_lrelu calls as operator nodes: the loaded artifact launches K1
+    once per node and equals the in-process eval step."""
+    from afcm_tpu_torch.infer import export
+    from afcm_tpu_torch.models import build_eval_model
+    g_cfg = dict(netG="stylegan3", z_dim=32, c_dim=1, w_dim=32, img_resolution=64,
+                 img_channels_in=4, img_channels_out=1, mapping_kwargs=dict(num_layers=2),
+                 synthesis_kwargs=dict(channel_base=1024, channel_max=16, num_layers=8,
+                                       num_critical=2, margin_size=10, skip_resolution=32,
+                                       lrelu_upsampling=2, conv_clamp=256))
+    model = build_eval_model(g_cfg, generator=torch.Generator().manual_seed(0))
+    model.generator_ema.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.rand((3, 4, 64, 64), generator=gen, device=cuda) * 2 - 1
+    s = torch.rand((3, 1), generator=gen, device=cuda)
+    z = torch.randn((3, 32), generator=gen, device=cuda)
+    exported = export.export_eval(model, None, (4, 64, 64))
+    nodes = export.count_nodes(exported)
+    before = k1.launches
+    got = exported.module()(a, s, z)
+    torch.cuda.synchronize()
+    assert nodes == 16 and k1.launches - before == nodes
+    torch.testing.assert_close(got, model.eval_step(a, s, z=z), rtol=0, atol=1e-6)

@@ -139,8 +139,6 @@ def test_build_gan_model_eval_step(tiny):
                           generator=torch.Generator().manual_seed(3))
     want = np.asarray(jgen.apply(variables, z.numpy(), c, cond))
     np.testing.assert_allclose(got.numpy(), want, **GEN_TOL)
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_generator({"netG": "comodgan", **TINY})
 
 
 def test_jax_checkpoint_converts_to_port_weights(tiny, tmp_path):

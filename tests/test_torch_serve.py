@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from afcm_tpu.nn import Stylegan3Generator as JaxGenerator  # noqa: E402
 from afcm_tpu_torch import serve  # noqa: E402
+from afcm_tpu_torch.config import default_argument_parser  # noqa: E402
 from afcm_tpu_torch.data.demo import phantom_test_loader  # noqa: E402
 from afcm_tpu_torch.evaluate import (fetch_dtype_or_none,  # noqa: E402
                                      make_forward_fn)
@@ -112,7 +113,6 @@ def test_fetch_dtype_values():
 
 def _tiny_run(tmp_path):
     """A demo tree with one test subject and a checkpoint of the tiny config."""
-    from afcm_tpu_torch.config import default_argument_parser
     from afcm_tpu_torch.data.demo import write_demo_tree
     write_demo_tree(str(tmp_path / "data"), n_train=0, n_val=0, n_test=1,
                     depth=8, size=64)
@@ -141,11 +141,29 @@ def test_serve_cli_writes_the_volumes(tmp_path, capsys):
     assert (tmp_path / "elsewhere" / "subject_test_0_predictions0.nii.gz").exists()
 
 
-def test_serve_cli_refuses_an_artifact(tmp_path):
-    argv = ["--config-file", os.path.join(REPO, "configs/demo/cmsr_tiny.yml"),
-            "checkpoints_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A12"):
-        serve.main(["--device", "cpu", "--artifact", str(tmp_path / "serving.pt2")] + argv)
+def test_serve_cli_refuses_an_artifact(tmp_path, capsys):
+    """--artifact serves from an exported artifact, with no checkpoint read;
+    it refuses one whose ingest dtype the loader does not ship (uint8
+    ingest, float32 batches), and one served on another device type."""
+    pytest.importorskip("h5py")
+    from afcm_tpu_torch.infer import export
+    argv, run_dir = _tiny_run(tmp_path)
+    model = build_eval_model(dict(default_argument_parser(argv).model.G),
+                             generator=torch.Generator().manual_seed(0))
+    good = export.save_exported(export.export_eval(model, 2, (4, 64, 64)),
+                                str(tmp_path / "serving.pt2"))
+    (run_dir / "latest_net_G_ema.pth").unlink()
+    out_dir = serve.main(["--device", "cpu", "--artifact", good] + argv)
+    assert (run_dir / "serve" / "subject_test_0_predictions0.nii.gz").exists()
+    assert out_dir == str(run_dir / "serve")
+    assert "served 1 subjects / 8 patches" in capsys.readouterr().out
+    uint8 = export.save_exported(export.export_eval(model, 2, (4, 64, 64),
+                                                    norm_range=(0.0, 255.0)),
+                                 str(tmp_path / "uint8.pt2"))
+    with pytest.raises(TypeError, match="ingest"):
+        serve.main(["--device", "cpu", "--artifact", uint8] + argv)
+    with pytest.raises(ValueError, match="exported on cpu"):
+        export.serving_forward(good, device="meta")
 
 
 def test_serve_cli_refuses_pix2pix(tmp_path):

@@ -158,7 +158,8 @@ def test_port_imports_without_jax():
         "             'utils.profiling', 'serve', 'ops.cuda.probe_stream',\n"
         "             'ops.cuda.probe_int8', 'probes.fir_roofline',\n"
         "             'probes.stream_diag', 'probes.element_windows',\n"
-        "             'probes.int8_matmul', 'probes.int8_kernel'):\n"
+        "             'probes.int8_matmul', 'probes.int8_kernel',\n"
+        "             'infer.export', 'nn.comodgan', 'nn.ca_variants'):\n"
         "    assert 'afcm_tpu_torch.' + name in names, names\n"
         "assert not any(m.split('.')[0] in blocked\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
