@@ -1,6 +1,7 @@
 """Host-side data pipeline of the port: h5/NIfTI volume stores, slice-window
-assembly, augmentation, batch loaders (the port's own copy of
-``afcm_tpu/data``), and the in-memory phantom subjects of ``demo``."""
+assembly, augmentation, batch loaders, the pix2pix image-folder and the
+template datasets (the port's own copy of ``afcm_tpu/data``), and the
+in-memory phantom subjects of ``demo``."""
 
 from .h5_dataset import (AbstractVolumeDataset, CmsrDataset,
                          StandardHDF5Dataset, calculate_stats)

@@ -12,6 +12,7 @@ nothing of the JAX package.
 
 from __future__ import annotations
 
+import os
 import queue
 import random as _random
 import threading
@@ -167,10 +168,40 @@ def create_dataset(loaders_config, phase: str, direction: str = "AtoB",
         from .nii_dataset import StandardNIIDataset
         return CmsrDataset(loaders_config, phase=phase,
                            dataset_cls=StandardNIIDataset)
-    if mode in ("aligned", "unaligned", "single", "template"):
-        raise NotImplementedError(
-            f"dataset_mode {mode}: the pix2pix image-folder datasets and the "
-            "template dataset are not ported yet (ROADMAP item A11)")
+    if mode in ("aligned", "unaligned", "single"):
+        from .image_datasets import (AlignedDataset, SingleDataset,
+                                     UnalignedDataset)
+        max_size = loaders_config.get("max_dataset_size", 0) or float("inf")
+        common = dict(dataroot=loaders_config["dataroot"],
+                      preprocess=loaders_config.get("preprocess",
+                                                    "resize_and_crop"),
+                      load_size=loaders_config.get("load_size", 286),
+                      crop_size=loaders_config.get("crop_size", 256),
+                      max_dataset_size=max_size)
+        # the aligned/unaligned folder layout has no val split; reference
+        # pix2pix validates on the test folder when present, else on train
+        # (unaligned layouts use testA/testB suffixed directories)
+        if phase == "val":
+            has_test = os.path.isdir(
+                os.path.join(common["dataroot"], "test")) or os.path.isdir(
+                os.path.join(common["dataroot"], "testA"))
+            phase = "test" if has_test else "train"
+        if mode == "aligned":
+            return AlignedDataset(phase=phase, direction=direction,
+                                  input_nc=input_nc, output_nc=output_nc,
+                                  **common)
+        if mode == "unaligned":
+            return UnalignedDataset(
+                phase=phase,
+                serial_batches=loaders_config.get("serial_batches", False),
+                direction=direction, input_nc=input_nc, output_nc=output_nc,
+                **common)
+        common.pop("dataroot")
+        return SingleDataset(dataroot=loaders_config["dataroot"],
+                             input_nc=input_nc, **common)
+    if mode == "template":
+        from .template_dataset import TemplateDataset
+        return TemplateDataset(loaders_config, phase=phase)
     raise NotImplementedError(f"dataset_mode {mode}")
 
 

@@ -6,7 +6,9 @@ stylegan3``) and the co-modulated StyleGAN2 generator of the CoModGAN
 baseline (``netG: comodgan``). ``tpu.compute_dtype`` reaches the StyleGAN3
 generator and the discriminator; the CoModGAN generator computes in float32,
 as in the JAX package, whose synthesis keys for it take no compute dtype.
-The pix2pix baseline is not ported.
+``build_model`` dispatches on ``model.name`` as the JAX registry does: the
+two GAN families assemble a ``GANModel``, ``pix2pix`` the baseline's
+``Pix2PixModel`` (UNet G, PatchGAN or PixelGAN D), which computes in float32.
 """
 
 from __future__ import annotations
@@ -121,10 +123,23 @@ def _with_compute_dtype(g_cfg: Dict[str, Any], compute_dtype: str) -> Dict[str, 
 
 
 def check_model_name(cfg) -> None:
-    """The port's model families: StyleGAN3 and CoModGAN; pix2pix raises."""
+    """The model families: StyleGAN3, CoModGAN and the pix2pix baseline,
+    which the volumetric entry points refuse (``evaluate.ensure_volumetric``)."""
     name = getattr(cfg.model, "name", "stylegan3")
-    if name not in ("stylegan3", "comodgan"):
-        raise NotImplementedError(f"model {name} is not ported (ROADMAP item A11)")
+    if name not in ("stylegan3", "comodgan", "pix2pix"):
+        raise NotImplementedError(f"model name [{name}] is not recognized")
+
+
+def build_model(cfg, generator: Optional[torch.Generator] = None):
+    """Top-level model factory (``afcm_tpu/models/__init__.py:86-99``):
+    ``stylegan3`` and ``comodgan`` assemble the co-modulated ``GANModel``,
+    ``pix2pix`` the baseline conditional GAN. Random weights are drawn from
+    ``generator``."""
+    check_model_name(cfg)
+    if getattr(cfg.model, "name", "stylegan3") == "pix2pix":
+        from .pix2pix_model import build_pix2pix_model
+        return build_pix2pix_model(cfg, generator=generator)
+    return build_gan_model(cfg, generator=generator)
 
 
 def build_gan_model(cfg, generator: Optional[torch.Generator] = None) -> GANModel:
@@ -166,4 +181,4 @@ def build_eval_model(g_cfg: Dict[str, Any], compute_dtype: str = "float32",
 
 __all__ = ["CMSR_ADNI_G", "GANConfig", "GANModel", "build_discriminator",
            "build_eval_model", "build_gan_model", "build_generator",
-           "check_model_name"]
+           "build_model", "check_model_name"]

@@ -7,6 +7,9 @@ from .discriminator import (CoModDiscriminator, DiscriminatorBlock,
 from .layers import (CALayer, Conv2dLayer, FullyConnected, MinibatchStdLayer,
                      adaptive_avg_pool2d, normalize_2nd_moment)
 from .mapping import MappingNetwork
+from .motion import (MotionMappingNetwork, MotionSynthesisNetwork,
+                     StyleGANVDiscriminator, StyleGANVGenerator)
+from .pix2pix import NLayerDiscriminator, PixelDiscriminator, UnetGenerator
 from .stylegan3 import (EncoderLayer, LayerSpec, Stylegan3Generator,
                         SynthesisLayer, SynthesisLayout, SynthesisNetwork,
                         compute_synthesis_layout)
@@ -15,7 +18,10 @@ __all__ = [
     "CALayer", "CoModDiscriminator", "CoModGenerator", "CoModSynthesisNetwork",
     "Conv2dLayer", "DiscriminatorBlock",
     "DiscriminatorEpilogue", "EncoderLayer", "FullyConnected", "LayerSpec",
-    "MappingNetwork", "MinibatchStdLayer", "RefMappingNetwork", "Stylegan3Generator", "SynthesisLayer",
-    "SynthesisLayout", "SynthesisNetwork", "adaptive_avg_pool2d",
+    "MappingNetwork", "MinibatchStdLayer", "MotionMappingNetwork",
+    "MotionSynthesisNetwork", "NLayerDiscriminator", "PixelDiscriminator",
+    "RefMappingNetwork", "StyleGANVDiscriminator", "StyleGANVGenerator",
+    "Stylegan3Generator", "SynthesisLayer", "SynthesisLayout", "SynthesisNetwork",
+    "UnetGenerator", "adaptive_avg_pool2d",
     "compute_synthesis_layout", "get_synthesizer", "normalize_2nd_moment",
 ]

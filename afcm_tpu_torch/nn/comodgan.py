@@ -381,8 +381,10 @@ def get_synthesizer(name: str):
         from .ca_variants import CAINSynthesisNetwork
         return CAINSynthesisNetwork
     if name == "MotionSynthesisNetwork":
-        raise NotImplementedError("MotionSynthesisNetwork (afcm_tpu/nn/motion.py) is "
-                                  "not ported yet (ROADMAP item A11)")
+        # CoModGenerator passes it no motion_v_dim, as in the JAX package;
+        # StyleGANVGenerator (nn/motion.py) builds it
+        from .motion import MotionSynthesisNetwork
+        return MotionSynthesisNetwork
     raise NotImplementedError(f"synthesizer {name}")
 
 

@@ -4,12 +4,18 @@
         [--device cpu] [KEY VALUE ...]
 
 The loop of ``afcm_tpu/train.py:76-229``: epochs with the per-epoch LR
-factor, one ``GANModel.train_step`` per batch (lazy R1 chosen on the host),
-periodic loss printing, periodic validation (PSNR/SSIM) with best-by-SSIM
-checkpoints, ``max_iters`` (in images, as there) and, at the end,
-``latest_net_G_ema.pth`` for ``afcm_tpu_torch.evaluate``. It runs on the
-CUDA device and raises when there is none, unless ``--device cpu`` asks for
-the CPU.
+factor, one ``train_step`` per batch of the model ``models.build_model``
+makes of the config (a ``GANModel``, with lazy R1 chosen on the host, or the
+pix2pix baseline's ``Pix2PixModel``), periodic loss printing, periodic
+validation (PSNR/SSIM) with best-by-SSIM checkpoints, ``max_iters`` (in
+images, as there) and, at the end, the checkpoint: for the GAN families with
+``latest_net_G_ema.pth`` for ``afcm_tpu_torch.evaluate``; for pix2pix
+``latest_net_G.pth``, ``latest_net_D.pth`` (their batch-norm statistics
+among the buffers) and ``latest_optim.pth``. It runs on the CUDA device and
+raises when there is none, unless ``--device cpu`` asks for the CPU.
+``tpu.compute_dtype`` sets TF32 for every model: off at the default
+``float32``, on otherwise, also for pix2pix, whose networks compute in
+float32 whatever it says (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 
 from .data import get_train_loaders
 from .evaluate import check_device_knobs, resolve_device, set_matmul_precision
-from .models import GANModel, build_gan_model
+from .models import GANModel, build_model
 from .models.schedulers import LRScheduler
 from .utils import checkpoint as ckpt
 from .utils.metrics import evaluate_2D
@@ -47,12 +53,13 @@ def to_device(batch, device) -> Dict[str, torch.Tensor]:
             for k, v in arrays.items()}
 
 
-def validate(model: GANModel, val_loader, device,
+def validate(model, val_loader, device,
              generator: torch.Generator) -> Optional[Dict[str, float]]:
-    """PSNR/SSIM of the EMA generator over the val split
-    (``afcm_tpu/train.py:53-73``); the target batch goes to G as ``ref_img``,
-    like the reference's forward_ema (comodgan_model.py:114-116), for the
-    RefMappingNetwork mapper."""
+    """PSNR/SSIM of ``model.eval_step`` over the val split (the EMA
+    generator of a ``GANModel``, pix2pix's G on its running statistics;
+    ``afcm_tpu/train.py:53-73``); the target batch goes to G as
+    ``ref_img``, like the reference's forward_ema
+    (comodgan_model.py:114-116), for the RefMappingNetwork mapper."""
     c_psnr, c_ssim = [], []
     for batch in val_loader:
         inputs = to_device(batch, device)
@@ -89,14 +96,14 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
         loaders = get_train_loaders(cfg, seed=seed)
     print(f"The number of training images = {len(loaders['train'].dataset)}")
 
-    model = build_gan_model(cfg, generator=torch.Generator().manual_seed(seed))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     model.to(device)
     rng = torch.Generator(device=device).manual_seed(seed)
 
     run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
     if cfg.continue_train:
         tag = str(cfg.epoch) if cfg.epoch else "latest"
-        if ckpt.checkpoint_exists(run_dir, tag):
+        if ckpt.checkpoint_exists(run_dir, tag, model):
             print(f"resuming from {run_dir}/{tag}")
             ckpt.load_state(model, run_dir, tag)
 
@@ -129,10 +136,13 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
             total_iters += batch_size
             epoch_iter += batch_size
 
-            # lazy R1: the host picks the steps that run the penalty
-            with_r1 = r1_interval <= 1 or opt_steps % r1_interval == 0
+            # lazy R1: the host picks the steps that run the penalty (the
+            # GAN families; pix2pix has no R1)
+            step_kwargs = {}
+            if isinstance(model, GANModel):
+                step_kwargs["with_r1"] = r1_interval <= 1 or opt_steps % r1_interval == 0
             metrics = model.train_step(to_device(batch, device), float(total_iters),
-                                       with_r1=with_r1, generator=rng)
+                                       generator=rng, **step_kwargs)
             opt_steps += 1
             if on_step is not None:
                 on_step(opt_steps, metrics)
@@ -177,7 +187,7 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
         if stop:
             break
 
-    ckpt.save_state(model, run_dir, "latest")      # with latest_net_G_ema.pth
+    ckpt.save_state(model, run_dir, "latest")      # G_ema's too but for pix2pix
     final_val = validate(model, loaders["val"], device, rng) or last_val
     return final_val or {}
 

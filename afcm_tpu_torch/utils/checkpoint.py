@@ -1,8 +1,10 @@
 """Checkpoints of the port's training state (``afcm_tpu/utils/checkpoint.py``).
 
 Per tag, the reference's per-network files ``{tag}_net_G.pth``,
-``{tag}_net_D.pth`` and ``{tag}_net_G_ema.pth`` (torch state_dicts under
-the reference's names; reference: models/base_model.py:144-160), plus
+``{tag}_net_D.pth`` and, for the GAN families, ``{tag}_net_G_ema.pth``
+(torch state_dicts under the reference's names, the pix2pix networks'
+batch-norm statistics among their buffers; reference:
+models/base_model.py:144-160), plus
 ``{tag}_optim.pth`` with both Adam states and the step count, which the
 reference drops and the JAX package keeps, so a resume continues the
 optimization exactly. ``afcm_tpu_torch.evaluate`` loads
@@ -28,11 +30,17 @@ def _cpu(state):
     return {k: v.detach().cpu() for k, v in state.items()}
 
 
+def _nets(model):
+    """The networks ``model`` has: G and D, and G_ema but for pix2pix."""
+    return {suffix: getattr(model, attr) for suffix, attr in _NETS.items()
+            if getattr(model, attr, None) is not None}
+
+
 def save_state(model, checkpoint_dir: str, tag: str) -> None:
-    """Write the three networks and the optimizer state of ``model``."""
+    """Write the networks and the optimizer state of ``model``."""
     os.makedirs(checkpoint_dir, exist_ok=True)
-    for suffix, attr in _NETS.items():
-        _save(_cpu(getattr(model, attr).state_dict()),
+    for suffix, net in _nets(model).items():
+        _save(_cpu(net.state_dict()),
               os.path.join(checkpoint_dir, f"{tag}_net_{suffix}.pth"))
     _save({"opt_G": model.opt_G.state_dict(), "opt_D": model.opt_D.state_dict(),
            "step": model.step}, os.path.join(checkpoint_dir, f"{tag}_optim.pth"))
@@ -44,16 +52,17 @@ def load_state(model, checkpoint_dir: str, tag: str) -> None:
         return torch.load(os.path.join(checkpoint_dir, name), map_location="cpu",
                           weights_only=True)
 
-    for suffix, attr in _NETS.items():
-        getattr(model, attr).load_state_dict(load(f"{tag}_net_{suffix}.pth"),
-                                             strict=True)
+    for suffix, net in _nets(model).items():
+        net.load_state_dict(load(f"{tag}_net_{suffix}.pth"), strict=True)
     optim = load(f"{tag}_optim.pth")
     model.opt_G.load_state_dict(optim["opt_G"])
     model.opt_D.load_state_dict(optim["opt_D"])
     model.step = int(optim["step"])
 
 
-def checkpoint_exists(checkpoint_dir: str, tag: str) -> bool:
+def checkpoint_exists(checkpoint_dir: str, tag: str, model) -> bool:
+    """Whether every file ``save_state`` writes for ``model`` is there."""
+    names = [f"net_{suffix}" for suffix in _nets(model)] + ["optim"]
     return all(os.path.exists(os.path.join(checkpoint_dir, f"{tag}_{name}.pth"))
-               for name in ("net_G", "net_D", "net_G_ema", "optim"))
+               for name in names)
 

@@ -2,9 +2,12 @@
 
 Module and buffer names mirror the JAX package's, which mirror the
 reference state_dict, so ``variables_to_state_dict`` (the port's own copy
-of the JAX package's, numpy only) is the whole translation of weights;
-``load_jax_train_state`` also carries optax's Adam state into
-``torch.optim.Adam``, so that both packages can step from one state.
+of the JAX package's, numpy only) is the whole translation of weights.
+``jax_state_dict`` applies it to each collection of a variable tree, the
+pix2pix networks' ``batch_stats`` included, which the JAX package's
+function does not walk; ``load_jax_train_state`` also carries optax's Adam
+state into ``torch.optim.Adam``, so that both packages can step from one
+state (a ``GANTrainState`` or a ``Pix2PixState``).
 """
 
 from __future__ import annotations
@@ -54,12 +57,27 @@ def variables_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
+# Every collection of the JAX package's variable trees: trainable
+# parameters, the mapper's and layers' EMAs, the fixed noise and Fourier
+# features, and the pix2pix batch norms' running statistics.
+COLLECTIONS = ("params", "moments", "constants", "batch_stats")
+
+
+def jax_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A torch state_dict (float32 tensors) of every collection of an
+    ``afcm_tpu`` variable tree, each flattened by ``variables_to_state_dict``."""
+    state: Dict[str, torch.Tensor] = {}
+    for name in COLLECTIONS:
+        flat = variables_to_state_dict({"params": variables.get(name) or {}})
+        state.update({k: torch.from_numpy(np.array(v, np.float32))
+                      for k, v in flat.items()})
+    return state
+
+
 def load_jax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
-    """Load a ``{"params", "moments", "constants"}`` tree of numpy arrays
-    into ``module`` with ``strict=True``; returns the module."""
-    state = {k: torch.from_numpy(np.array(v, np.float32))
-             for k, v in variables_to_state_dict(variables).items()}
-    module.load_state_dict(state, strict=True)
+    """Load a variable tree of numpy arrays (any of ``COLLECTIONS``) into
+    ``module`` with ``strict=True``; returns the module."""
+    module.load_state_dict(jax_state_dict(variables), strict=True)
     return module
 
 
@@ -93,24 +111,44 @@ def _load_adam(optimizer: torch.optim.Adam, module: nn.Module, opt_state):
             "exp_avg_sq": torch.from_numpy(np.array(nu[name], np.float32)).to(p.device)}
 
 
-def load_jax_train_state(model, state):
-    """Load an ``afcm_tpu`` ``GANTrainState`` of numpy arrays (or the dict
-    that flax's ``msgpack_restore`` makes of one) into a training
-    ``GANModel``: G, G_ema and D with their moments, both Adam states
-    (optax's ``count``, ``mu``, ``nu`` and learning rate) and the step.
-    Returns the model."""
-    def get(name):
-        return state[name] if isinstance(state, Mapping) else getattr(state, name)
+def _get(state, name, *default):
+    if isinstance(state, Mapping):
+        return state.get(name, *default) if default else state[name]
+    return getattr(state, name, *default)
 
-    constants = get("constants_G") or {}
-    load_jax_variables(model.generator, {"params": get("params_G"),
-                                         "moments": get("moments_G"),
-                                         "constants": constants})
-    load_jax_variables(model.generator_ema, {"params": get("params_G_ema"),
-                                             "moments": get("moments_G_ema"),
-                                             "constants": constants})
-    load_jax_variables(model.discriminator, {"params": get("params_D")})
-    _load_adam(model.opt_G, model.generator, get("opt_state_G"))
-    _load_adam(model.opt_D, model.discriminator, get("opt_state_D"))
-    model.step = int(np.asarray(get("step")))
+
+def is_pix2pix_state(state) -> bool:
+    """Whether ``state`` is a pix2pix ``Pix2PixState`` (or its msgpack dict)."""
+    return ("stats_G" in state) if isinstance(state, Mapping) else hasattr(state, "stats_G")
+
+
+def train_state_networks(state) -> Dict[str, Mapping]:
+    """The variable trees of the trained G and D of an ``afcm_tpu`` train
+    state: with their batch-norm statistics in a ``Pix2PixState``, G with
+    its moments and constants in a ``GANTrainState``."""
+    if is_pix2pix_state(state):
+        return {net: {"params": _get(state, f"params_{net}"),
+                      "batch_stats": _get(state, f"stats_{net}")} for net in ("G", "D")}
+    return {"G": {"params": _get(state, "params_G"), "moments": _get(state, "moments_G"),
+                  "constants": _get(state, "constants_G", None) or {}},
+            "D": {"params": _get(state, "params_D")}}
+
+
+def load_jax_train_state(model, state):
+    """Load an ``afcm_tpu`` train state of numpy arrays (or the dict that
+    flax's ``msgpack_restore`` makes of one) into a training model: a
+    ``GANTrainState`` into a ``GANModel`` (G, G_ema and D, G's with their
+    moments), a ``Pix2PixState`` into a ``Pix2PixModel`` (G and D with
+    their batch-norm statistics); both Adam states (optax's ``count``,
+    ``mu``, ``nu`` and learning rate) and the step. Returns the model."""
+    nets = train_state_networks(state)
+    load_jax_variables(model.generator, nets["G"])
+    load_jax_variables(model.discriminator, nets["D"])
+    if not is_pix2pix_state(state):
+        load_jax_variables(model.generator_ema, dict(
+            nets["G"], params=_get(state, "params_G_ema"),
+            moments=_get(state, "moments_G_ema")))
+    _load_adam(model.opt_G, model.generator, _get(state, "opt_state_G"))
+    _load_adam(model.opt_D, model.discriminator, _get(state, "opt_state_D"))
+    model.step = int(np.asarray(_get(state, "step")))
     return model

@@ -7,8 +7,10 @@ Drives the port's main paths — CMSR serving with the shipped ADNI alias-free
 generator, the CMSR training step of that generator and its discriminator,
 the int8 serving path (tpu.conv_int8 True), all at full width and depth
 (random weights from a seed), the five measurement probes, the serve entry
-point's loop, the serving export, and the CoModGAN baseline's serving,
-int8 and training paths — and checks the hand-written kernels on them: K1
+point's loop, the serving export, the CoModGAN baseline's serving,
+int8 and training paths, and the pix2pix baseline's training, with the
+StyleGAN-V family and grid_sample held against the CPU — and checks the
+hand-written kernels on them: K1
 and K2 (the fused filtered leaky ReLU forward and backward, bound as the
 torch.library operators afcm_tpu_torch::filtered_lrelu{,_bwd}), K3 (the int8 3x3 conv
 with its dequantizing epilogue; K4, its straight-through autograd Function,
@@ -117,7 +119,28 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    the train CLI's loop on the config at bf16 b16: finite losses, no K1 or
    K2, w_avg moved in G and G_ema, ms/step and img/s (median of 3 windows),
    peak memory; (e) the EMA generator exported and served from a fresh
-   process equal to in-process, with no filtered_lrelu node.
+   process equal to in-process, with no filtered_lrelu node;
+13. the pix2pix baseline (configs/adni/base.yml with the channel counts of
+   the 4-slice window, model.G.input_nc 4 model.D.input_nc 5; random
+   weights): (a) the full-width UNet G and PatchGAN D at batch 2, fp32 with
+   TF32 off, on the card against the same modules on the CPU with the same
+   weights and dropout masks: G's output and the statistics G and D move in
+   a train-mode step, each within 1e-3 * max|CPU|, and the gradients of a
+   step's D and G losses on the running statistics, per net within 1e-3 in
+   ||card - CPU|| / ||CPU|| (or 10x the float32 rounding floor measured on
+   the CPU, where larger; each tensor's error printed); the train-mode
+   step's gradients printed;
+   (b) the train CLI's loop at b32 over a phantom subject: finite losses,
+   every running statistic of G and D moved, no launch of a kernel of the
+   port, median ms/step and img/s over 3 windows with the spread, peak
+   memory; (c) the saved latest_net_G.pth loaded into a freshly built model
+   gives the live model's output on a val batch, bit for bit;
+14. the StyleGAN-V generator and discriminator at 256^2 and the CCSR
+   config's widths, batch 4, fp32 with TF32 off, on the card against the
+   CPU: the outputs within 1e-3 * max|CPU|, every parameter's gradient per
+   net as in 13a; grid_sample (built from gathers) against F.grid_sample within
+   1e-5 on an affine warp of a [32, 5, 256^2] discriminator input, both
+   timed, and its backward.
 
 Then prints the total seconds, the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
@@ -130,6 +153,7 @@ anything loaded jax, flax, optax or the JAX package afcm_tpu.
 
 import argparse
 import contextlib
+import copy
 import functools
 import gzip
 import importlib
@@ -152,8 +176,11 @@ from afcm_tpu_torch.evaluate import (configure_numerics, load_generator_ema,
                                      make_forward_fn, normalize_uint8, serve_and_score,
                                      set_matmul_precision)
 from afcm_tpu_torch.infer import export
-from afcm_tpu_torch.models import CMSR_ADNI_G, build_eval_model, build_generator
-from afcm_tpu_torch.ops import (conv2d_gradfix, get_conv_impl, modulated_conv,
+from afcm_tpu_torch.models import (CMSR_ADNI_G, build_eval_model, build_generator,
+                                   build_model)
+from afcm_tpu_torch.models.losses import gan_loss, l1_loss
+from afcm_tpu_torch.nn import motion
+from afcm_tpu_torch.ops import (conv2d_gradfix, get_conv_impl, grid_sample, modulated_conv,
                                 set_conv_impl)
 from afcm_tpu_torch.ops.cuda import _build
 from afcm_tpu_torch.ops.cuda import conv_int8 as k3
@@ -196,6 +223,30 @@ INT8_OP_PER_S = 1979e12
 TRAIN_CONFIG = os.path.join(REPO, "configs/adni/stylegan3/cmsr.yml")
 TRAIN_BATCH = 16
 WARM_STEPS, WINDOW_STEPS, WINDOWS = 3, 4, 3
+# The pix2pix baseline of configs/adni/base.yml (unet_256 ngf 64, basic D
+# ndf 64, b32). As shipped its channel counts are the pix2pix defaults, 1
+# and 2, which the 4-slice window does not fit (ROADMAP C8): these make it
+# run.
+PIX2PIX_CONFIG = os.path.join(REPO, "configs/adni/base.yml")
+PIX2PIX_CHANNELS = ("model.G.input_nc", "4", "model.D.input_nc", "5")
+PIX2PIX_BATCH = 32
+# The StyleGAN-V family at the CCSR config's widths (channel_base 16384,
+# channel_max 512, 256^2, the 4-slice window in) with StyleGAN-V's motion
+# defaults (512-d motion codes, a knot every 32 frames, 11-tap trajectory
+# convs, 256 aligned time frequencies over periods of 16-1024 frames).
+STYLEGANV_G = dict(
+    z_dim=512, c_dim=1, w_dim=512, motion_v_dim=512, img_resolution=256,
+    img_channels_in=4, img_channels_out=1, max_num_frames=1024,
+    mapping_kwargs=dict(num_layers=8),
+    synthesis_kwargs=dict(channel_base=16384, channel_max=512, skip_resolution=256,
+                          cond_mod=True, global_enc=True),
+    motion_mapping_kwargs=dict(motion_z_dim=512, motion_z_distance=32, motion_kernel_size=11,
+                               time_encoder_kwargs=dict(dim=256, min_period_len=16,
+                                                        max_period_len=1024)))
+STYLEGANV_D = dict(c_dim=1, img_resolution=256, img_channels=1, num_frames=3,
+                   channel_base=16384, channel_max=512, concat_res=16,
+                   num_frames_div_factor=4, max_num_frames=1024)
+MOTION_BATCH = 4
 
 
 def phase(name, **fields):
@@ -1833,6 +1884,312 @@ def comodgan_export():
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+def rel_errors(got, want):
+    """max|got - want| / max|want| of each tensor of two dicts."""
+    return {k: float((got[k].double().cpu() - want[k].double().cpu()).abs().max()) /
+            max(float(want[k].abs().max()), 1e-30) for k in want}
+
+
+def grad_errors(got, want):
+    """||got - want|| / ||want|| over all the gradients of each net: the
+    keys "<net>.grad.<parameter>", grouped by <net>."""
+    sums = {}
+    for k in want:
+        if ".grad." in k:
+            num, den = sums.get(k.split(".grad.")[0], (0.0, 0.0))
+            sums[k.split(".grad.")[0]] = (
+                num + float((got[k].double().cpu() - want[k].double().cpu()).square().sum()),
+                den + float(want[k].double().square().sum()))
+    return {net: (num / max(den, 1e-300)) ** 0.5 for net, (num, den) in sums.items()}
+
+
+def card_against_cpu(name, fn, nets, inputs, device, bound=1e-3, **fields):
+    """``fn(nets, inputs)`` -> dict of tensors, run on the card (float32,
+    TF32 off) and on the CPU with the same weights and inputs. Each forward
+    tensor (output, statistics) within ``bound`` · max|CPU|. The gradients
+    ("<net>.grad.<parameter>") are held per net: ||card - CPU|| / ||CPU||
+    over all of them within ``bound``, or within 10x the rounding floor
+    where that is larger: how far two CPU runs move from the CPU's own
+    result when every weight and input is nudged by a relative 2^-24 (half
+    an ulp). Float32 cannot hold every gradient tensor to ``bound``: one
+    summed from terms that cancel (a noise strength's over the image, a
+    bias's) or through few-sample batch norms moves by up to ~1e-1 of its
+    maximum under such a nudge, on either device; each tensor's error and
+    floor are printed. Nets under "info." are printed, not held."""
+    nudge = torch.Generator().manual_seed(SEED + 16)
+
+    def copies(dev, eps=0.0):
+        out = []
+        for net in nets:
+            net = copy.deepcopy(net).to(dev)
+            with torch.no_grad():
+                for v in [*net.parameters(), *net.buffers()]:
+                    if eps and v.is_floating_point():
+                        v.mul_(1 + eps * torch.randn(v.shape, generator=nudge))
+            out.append(net)
+        return out, [(x * (1 + eps * torch.randn(x.shape, generator=nudge))
+                      if eps and x.is_floating_point() else x).to(dev) for x in inputs]
+
+    set_matmul_precision("float32")
+    # every run starts from its own copy: fn moves the nets' statistics
+    on_cpu, nudged = copies("cpu"), [copies("cpu", 2.0 ** -24) for _ in range(2)]
+    card = fn(*copies(device))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cpu = fn(*on_cpu)
+    cpu_s = time.perf_counter() - t0
+    runs = [fn(*run) for run in nudged]
+    cross, nets_err = rel_errors(card, cpu), grad_errors(card, cpu)
+    floors = [(rel_errors(run, cpu), grad_errors(run, cpu)) for run in runs]
+    floor = {k: max(f[k] for f, _ in floors) for k in cross}
+    nets_floor = {n: max(f[n] for _, f in floors) for n in nets_err}
+    forward = [k for k in cross if ".grad." not in k]
+    held = [n for n in nets_err if not n.startswith("info.")]
+    allowed = {n: max(bound, 10 * nets_floor[n]) for n in held}
+    grads = sorted((k for k in cross if ".grad." in k), key=cross.get)
+    finite = all(bool(torch.isfinite(v).all()) for v in card.values())
+    phase(name, forward_tensors=len(forward), forward_max_rel_err=max(cross[k] for k in forward),
+          forward_worst=max(forward, key=cross.get), bound_rel=bound,
+          grad_tensors=len(grads), grad_rel_l2_err=nets_err, grad_rel_l2_floor=nets_floor,
+          grad_allowed=allowed, grad_tensors_over_bound=sum(cross[k] > bound for k in grads),
+          grad_largest={k: [cross[k], floor[k]] for k in grads[-4:]},
+          finite=finite, cpu_seconds=cpu_s, **fields)
+    if not (finite and max(cross[k] for k in forward) <= bound):
+        worst = max(forward, key=cross.get)
+        raise AssertionError(f"{name}: {worst} max|card - CPU| / max|CPU| {cross[worst]} > "
+                             f"{bound}")
+    for n in held:
+        if nets_err[n] > allowed[n]:
+            raise AssertionError(f"{name}: {n}'s gradients ||card - CPU|| / ||CPU|| "
+                                 f"{nets_err[n]} > {allowed[n]}")
+
+
+def pix2pix_config(out_dir="checkpoints", *opts):
+    """configs/adni/base.yml with the channel counts that fit the 4-slice
+    window, its periodic display, printing and saving turned off."""
+    from afcm_tpu_torch.config import default_argument_parser
+    never = str(10 ** 9)
+    return default_argument_parser([
+        "--config-file", PIX2PIX_CONFIG, *PIX2PIX_CHANNELS, "checkpoints_dir", out_dir,
+        "name", "smoke_pix2pix", "trainer.display_freq", never, "trainer.print_freq", never,
+        "trainer.save_latest_freq", never, "trainer.save_epoch_freq", never, *opts])
+
+
+def unet_dropout_masks(net, batch, size, seed):
+    """Keep masks (p 0.5) for the UNet's dropout levels at a size^2 input:
+    level k of ``net.levels`` works at size / 2^k."""
+    gen = torch.Generator().manual_seed(seed)
+    return {name: torch.rand((batch, getattr(net, name).up_w.shape[1],
+                              size >> net.levels.index(name), size >> net.levels.index(name)),
+                             generator=gen) < 0.5
+            for name in net.dropout_blocks}
+
+
+def pix2pix_gradients(nets, inputs):
+    """From G, D and [A, B, the keep masks of G's dropout levels]: the
+    gradients of a step's D and G losses (vanilla objective) with both nets
+    in eval mode (running statistics); then a train-mode step's tensors
+    without its update: G's output, the statistics G and D move (D's on the
+    fake, then the real batch), and, under "info.", its gradients through
+    the batch statistics, which the 8-sample batch norms of the UNet's 1-4²
+    levels at batch 2 make jump at float32 resolution (a 2^-24 nudge of the
+    inputs moved one tensor's by 1e-1 on the CPU)."""
+    gen, disc = nets
+    a, b, *keep = inputs
+    out = {}
+    for prefix, train in (("", False), ("info.", True)):
+        fake = gen(a, train=train, dropout_masks=dict(zip(gen.dropout_blocks, keep)))
+        real_ab, fake_ab = torch.cat([a, b], 1), torch.cat([a, fake], 1)
+        loss_d = (gan_loss("vanilla", disc(fake_ab.detach(), train=train), False) +
+                  gan_loss("vanilla", disc(real_ab, train=train), True)) * 0.5
+        loss_g = gan_loss("vanilla", disc(fake_ab, train=train, update_stats=False), True) + \
+            l1_loss(fake, b) * 100
+        for net, tag, loss in ((disc, "D", loss_d), (gen, "G", loss_g)):
+            names, params = zip(*net.named_parameters())
+            out.update({f"{prefix}{tag}.grad.{n}": g for n, g in zip(
+                names, torch.autograd.grad(loss, params, retain_graph=True))})
+    out["fake"] = fake.detach()
+    for tag, net in (("G", gen), ("D", disc)):
+        out.update({f"{tag}.{n}": v.detach().clone() for n, v in net.named_buffers()})
+    return out
+
+
+def check_pix2pix(device):
+    """Phase 13a: the full-width pix2pix G and D at batch 2 on the card
+    against the same modules on the CPU, same weights and dropout masks: a
+    step's output, statistics and gradients (``card_against_cpu``)."""
+    model = build_model(pix2pix_config(), generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.RandomState(SEED + 13)
+    a = torch.from_numpy(rng.randn(2, 4, 256, 256).clip(-1, 1).astype(np.float32))
+    b = torch.from_numpy(rng.randn(2, 1, 256, 256).clip(-1, 1).astype(np.float32))
+    masks = unet_dropout_masks(model.generator, 2, 256, SEED)
+    launches = (k1.launches, k1.bwd_launches, k3.launches)
+    card_against_cpu("13a pix2pix card vs CPU", pix2pix_gradients,
+                     [model.generator, model.discriminator], [a, b, *masks.values()], device,
+                     batch=2, dropout_levels=list(masks),
+                     parameters={n: sum(p.numel() for p in net.parameters()) for n, net in
+                                 (("G", model.generator), ("D", model.discriminator))})
+    if (k1.launches, k1.bwd_launches, k3.launches) != launches:
+        raise AssertionError("the pix2pix nets launched a kernel of the port")
+
+
+@contextlib.contextmanager
+def built_models():
+    """The models the train CLI builds inside the block, in a list."""
+    built = []
+    real = train_cli.build_model
+
+    def build(*args, **kwargs):
+        built.append(real(*args, **kwargs))
+        return built[-1]
+
+    train_cli.build_model = build
+    try:
+        yield built
+    finally:
+        train_cli.build_model = real
+
+
+def train_pix2pix(device):
+    """Phases 13b and 13c: the train CLI's loop on the pix2pix config at b32
+    over a phantom subject, fp32 with TF32 off (the config's compute dtype):
+    finite losses, G's and D's statistics moved, median ms/step and img/s
+    over 3 windows with the spread, peak memory, no launch of a kernel of
+    the port; then the saved latest_net_G.pth in a freshly built model
+    against the live model on a val batch."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pix2pix_")
+    cfg = pix2pix_config(out_dir)
+    loaders = phantom_train_loaders(depth=4 * PIX2PIX_BATCH, size=256,
+                                    batch_size=PIX2PIX_BATCH, seed=SEED)
+    warm, window, windows = 2, 3, 3
+    bounds = [warm + i * window for i in range(windows + 1)]
+    monitor = StepMonitor(bounds)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.bwd_launches = k3.launches = 0    # the pix2pix path's run starts here
+    t0 = time.perf_counter()
+    with built_models() as built:
+        val = train_cli.train(cfg, max_iters=PIX2PIX_BATCH * bounds[-1], loaders=loaders,
+                              device=device, on_step=monitor)
+    seconds = time.perf_counter() - t0
+    launches = {"filtered_lrelu": k1.launches, "filtered_lrelu_bwd": k1.bwd_launches,
+                "conv_int8": k3.launches}
+    ms = [1e3 * (monitor.times[b] - monitor.times[a]) / window
+          for a, b in zip(bounds, bounds[1:])]
+    (model,) = built
+    moved = {name: sum(not torch.equal(v, torch.zeros_like(v) if n.endswith("mean")
+                                       else torch.ones_like(v))
+                       for n, v in net.named_buffers())
+             for name, net in (("G", model.generator), ("D", model.discriminator))}
+    stats = {name: sum(1 for _ in net.buffers())
+             for name, net in (("G", model.generator), ("D", model.discriminator))}
+    finite = monitor.losses_finite()
+    phase("13b pix2pix train fp32 b32", config=os.path.relpath(PIX2PIX_CONFIG, REPO),
+          overrides=list(PIX2PIX_CHANNELS), batch=PIX2PIX_BATCH, tf32=False,
+          steps=len(monitor.counts), ms_per_step=float(np.median(ms)), spread_ms=sorted(ms),
+          img_per_s=1e3 * PIX2PIX_BATCH / float(np.median(ms)),
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          statistics_moved=moved, statistics=stats, launches=launches,
+          losses_finite=finite,
+          last_losses={k: float(v) for k, v in monitor.metrics[-1].items()},
+          val=val, seconds=seconds)
+    if not finite:
+        raise AssertionError("non-finite losses in the pix2pix train steps")
+    if moved != stats:
+        raise AssertionError(f"pix2pix statistics that did not move: {moved} of {stats}")
+    if any(launches.values()):
+        raise AssertionError(f"the pix2pix train step launched {launches}")
+
+    run_dir = os.path.join(out_dir, cfg.name)
+    fresh = build_model(cfg, generator=torch.Generator().manual_seed(SEED + 99))
+    fresh.generator.load_state_dict(torch.load(os.path.join(run_dir, "latest_net_G.pth"),
+                                               weights_only=True), strict=True)
+    fresh.to(device)
+    a = torch.from_numpy(next(iter(loaders["val"]))["A"]).to(device)
+    # cuDNN's default transposed-conv algorithms may round differently from
+    # call to call; its deterministic ones make two equal models agree
+    torch.backends.cudnn.deterministic = True
+    try:
+        live, loaded = model.eval_step(a), fresh.eval_step(a)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    err = float((live - loaded).abs().max())
+    files = sorted(os.listdir(run_dir))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    phase("13c pix2pix reload latest_net_G.pth", batch=list(a.shape),
+          bit_equal=bool(torch.equal(live, loaded)), max_abs_diff=err,
+          finite=bool(torch.isfinite(loaded).all()),
+          files=[n for n in files if n.startswith("latest")])
+    if not (torch.equal(live, loaded) and torch.isfinite(loaded).all()):
+        raise AssertionError(f"the reloaded pix2pix G differs from the live one by {err}")
+    torch.cuda.empty_cache()
+
+
+def styleganv_tensors(nets, inputs):
+    """G's eval-mode output (const noise) and D's logits on it beside the
+    other frames, and every parameter's gradient of one scalar of both."""
+    gen, disc = nets
+    z, c, t, delta_t, cond, motion_z, frames, weight = inputs
+    img = gen(z, c, t, delta_t, cond, motion_z=motion_z, noise_mode="const")
+    logits = disc(torch.cat([frames, img], 1), c, delta_t)
+    loss = (img * weight).sum() + logits.sum()
+    out = {"G.out": img.detach(), "D.out": logits.detach()}
+    for prefix, net in (("G", gen), ("D", disc)):
+        names, params = zip(*net.named_parameters())
+        out.update({f"{prefix}.grad.{n}": g for n, g in zip(
+            names, torch.autograd.grad(loss, params, retain_graph=True))})
+    return out
+
+
+def check_motion(device):
+    """Phase 14: StyleGANVGenerator and StyleGANVDiscriminator at 256^2 and
+    the CCSR config's widths, batch 4, card against the CPU, forward and
+    gradients (``card_against_cpu``); then
+    grid_sample against F.grid_sample within 1e-5 on a warp of a b32
+    discriminator input, both timed, and its backward."""
+    gen = motion.StyleGANVGenerator(**STYLEGANV_G,
+                                    generator=torch.Generator().manual_seed(SEED))
+    disc = motion.StyleGANVDiscriminator(**STYLEGANV_D,
+                                         generator=torch.Generator().manual_seed(SEED + 1))
+    rng = np.random.RandomState(SEED + 14)
+    n, frames, res = MOTION_BATCH, STYLEGANV_D["num_frames"], STYLEGANV_G["img_resolution"]
+    traj, last = gen.motion_mapping.max_traj_len(), STYLEGANV_G["max_num_frames"] - 1
+    inputs = [torch.from_numpy(np.asarray(v, np.float32)) for v in (
+        rng.randn(n, STYLEGANV_G["z_dim"]), rng.rand(n, 1), rng.randint(0, last, (n, 1)),
+        rng.randint(0, last, (n, 1)), rng.randn(n, 4, res, res).clip(-1, 1),
+        rng.randn(n, traj, gen.motion_mapping.motion_z_dim),
+        rng.randn(n, frames - 1, res, res).clip(-1, 1), rng.randn(n, 1, res, res))]
+    params = {"G": sum(p.numel() for p in gen.parameters()),
+              "D": sum(p.numel() for p in disc.parameters())}
+    card_against_cpu("14 StyleGAN-V card vs CPU", styleganv_tensors, [gen, disc], inputs,
+                     device, batch=n, parameters=params, max_traj_len=traj)
+
+    draw = torch.Generator(device=device).manual_seed(SEED + 15)
+    x = torch.randn((32, 5, 256, 256), generator=draw, device=device)
+    angle = (torch.rand((32,), generator=draw, device=device) - 0.5) * 0.5
+    scale = 1 + (torch.rand((32,), generator=draw, device=device) - 0.5) * 0.4
+    theta = torch.stack([torch.stack([scale * torch.cos(angle), -scale * torch.sin(angle),
+                                      torch.zeros_like(angle)], 1),
+                         torch.stack([scale * torch.sin(angle), scale * torch.cos(angle),
+                                      torch.zeros_like(angle)], 1)], 1)
+    grid = torch.nn.functional.affine_grid(theta, list(x.shape), align_corners=False)
+    ours = grid_sample(x, grid)
+    library = torch.nn.functional.grid_sample(x, grid, mode="bilinear",
+                                              padding_mode="zeros", align_corners=False)
+    err = float((ours - library).abs().max())
+    xg = x.clone().requires_grad_(True)
+    weight = torch.randn(ours.shape, generator=draw, device=device)
+    phase("14 grid_sample", x=list(x.shape), grid=list(grid.shape), max_abs_err=err,
+          bound=1e-5, ms=cuda_median_ms(lambda: grid_sample(x, grid)),
+          library_ms=cuda_median_ms(lambda: torch.nn.functional.grid_sample(
+              x, grid, mode="bilinear", padding_mode="zeros", align_corners=False)),
+          backward_ms=cuda_median_ms(lambda: torch.autograd.grad(
+              (grid_sample(xg, grid) * weight).sum(), xg)))
+    if not err <= 1e-5:
+        raise AssertionError(f"grid_sample max|diff| {err} from F.grid_sample > 1e-5")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", metavar="DIR",
@@ -1891,6 +2248,9 @@ def main(argv=None):
     comodgan_sums = time_comodgan_convs()
     comodgan_train(device)
     comodgan_export()
+    check_pix2pix(device)
+    train_pix2pix(device)
+    check_motion(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},

@@ -10,8 +10,10 @@ its ``moments`` and ``constants``: ``w_avg``, ``magnitude_ema``,
 ``noise_const``), which ``python -m afcm_tpu_torch.evaluate`` loads. When
 the run dir also holds the full train state ``<tag>_state.msgpack``
 (``afcm_tpu.utils.checkpoint.save_state``), it writes ``<tag>_net_G.pth``
-and ``<tag>_net_D.pth`` from it as well. Needs JAX/flax (to read the
-msgpack) and torch; ``tag`` defaults to "latest".
+and ``<tag>_net_D.pth`` from it as well: for a pix2pix run, which has no
+EMA generator, these two only, with the batch norms' running statistics
+(``batch_stats``) as the ``mean`` and ``var`` buffers. Needs JAX/flax (to
+read the msgpack) and torch; ``tag`` defaults to "latest".
 """
 
 from __future__ import annotations
@@ -19,20 +21,18 @@ from __future__ import annotations
 import os
 import sys
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from afcm_tpu.utils.checkpoint import (checkpoint_exists,  # noqa: E402
                                        load_generator_only)
-from afcm_tpu_torch.utils.port import variables_to_state_dict  # noqa: E402
+from afcm_tpu_torch.utils.port import (jax_state_dict,  # noqa: E402
+                                       train_state_networks)
 
 
 def _write(variables, path: str) -> str:
-    state = {k: torch.from_numpy(np.array(v, np.float32))
-             for k, v in variables_to_state_dict(variables).items()}
-    torch.save(state, path)
+    torch.save(jax_state_dict(variables), path)
     return path
 
 
@@ -40,6 +40,10 @@ def convert(checkpoint_dir: str, tag: str = "latest") -> str:
     """Write ``<tag>_net_G_ema.pth`` beside the msgpack; returns its path."""
     return _write(load_generator_only(checkpoint_dir, tag),
                   os.path.join(checkpoint_dir, f"{tag}_net_G_ema.pth"))
+
+
+def has_generator_only(checkpoint_dir: str, tag: str = "latest") -> bool:
+    return os.path.exists(os.path.join(checkpoint_dir, f"{tag}_net_G_ema.msgpack"))
 
 
 def convert_train_state(checkpoint_dir: str, tag: str = "latest") -> list:
@@ -50,18 +54,19 @@ def convert_train_state(checkpoint_dir: str, tag: str = "latest") -> list:
     from flax import serialization
     with open(os.path.join(checkpoint_dir, f"{tag}_state.msgpack"), "rb") as f:
         state = serialization.msgpack_restore(f.read())
-    nets = {"G": {"params": state["params_G"], "moments": state["moments_G"],
-                  "constants": state.get("constants_G") or {}},
-            "D": {"params": state["params_D"]}}
     return [_write(variables, os.path.join(checkpoint_dir, f"{tag}_net_{name}.pth"))
-            for name, variables in nets.items()]
+            for name, variables in train_state_networks(state).items()]
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) not in (1, 2):
         raise SystemExit(__doc__)
-    for path in [convert(*argv), *convert_train_state(*argv)]:
+    ema = [convert(*argv)] if has_generator_only(*argv) else []
+    paths = ema + convert_train_state(*argv)
+    if not paths:
+        raise SystemExit(f"no checkpoint of tag {argv[1:] or ['latest']} in {argv[0]}")
+    for path in paths:
         print(f"wrote {path}")
 
 

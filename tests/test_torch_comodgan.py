@@ -184,9 +184,22 @@ def test_cain_synthesis_network_matches_jax():
 
 
 def test_motion_synthesis_names_its_item():
-    from afcm_tpu_torch.nn import get_synthesizer
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_synthesizer("MotionSynthesisNetwork")
+    """get_synthesizer names MotionSynthesisNetwork in both packages: the
+    port's class, whose num_ws and channel widths are the JAX module's at
+    the motion family's test size (tests/test_torch_motion.py holds its
+    forward); a name neither package has raises naming it."""
+    from afcm_tpu.nn.comodgan import get_synthesizer as jax_get_synthesizer
+    from afcm_tpu_torch.nn import get_synthesizer, motion
+    kw = dict(w_dim=16, motion_v_dim=16, img_resolution=32, img_channels_in=4,
+              img_channels_out=1, channel_base=1024, channel_max=32, global_enc=True)
+    want = jax_get_synthesizer("MotionSynthesisNetwork")(**kw)
+    got = get_synthesizer("MotionSynthesisNetwork")(**kw)
+    assert isinstance(got, motion.MotionSynthesisNetwork)
+    assert (got.num_ws, got.early_channels, got.global_w_dim) == (
+        want.num_ws, want.early_channels, want.global_w_dim)
+    for lookup in (jax_get_synthesizer, get_synthesizer):
+        with pytest.raises(NotImplementedError, match="NoSuchNetwork"):
+            lookup("NoSuchNetwork")
 
 
 @pytest.mark.parametrize("up,demodulate", [(2, True), (1, True), (1, False)])

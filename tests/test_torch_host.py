@@ -140,11 +140,143 @@ def test_train_loaders_give_equal_batches(demo_tree):
                 np.testing.assert_array_equal(b[k], jb[k])
 
 
-def test_loader_names_the_unported_datasets():
-    for mode in ("aligned", "template"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tdata.create_dataset({"dataset_mode": mode, "dataroot": "x"}, "train")
+def _image_trees(root):
+    """An aligned A|B tree with train/ and test/, and unaligned trainA/B and
+    testA/B folders, of random RGB PNGs (tests/test_pix2pix.py's layout)."""
+    from PIL import Image
+    rng = np.random.RandomState(0)
+    for sub, n, width in (("al/train", 4, 160), ("al/test", 2, 160), ("un/trainA", 3, 80),
+                          ("un/trainB", 2, 80), ("un/testA", 2, 80), ("un/testB", 2, 80)):
+        os.makedirs(root / sub, exist_ok=True)
+        for i in range(n):
+            Image.fromarray(rng.randint(0, 255, (80, width, 3), np.uint8)).save(
+                root / sub / f"{i}.png")
+    return root
+
+
+IMAGE_BASE = {"load_size": 72, "crop_size": 64, "max_dataset_size": 0,
+              "preprocess": "resize_and_crop"}
+
+
+def test_loader_names_the_unported_datasets(tmp_path):
+    """The four dataset modes the port refused until it had them (aligned,
+    unaligned, single, template) now build the same datasets as the JAX
+    package's create_dataset, the val phase of the image folders on test/;
+    a mode neither package has is named in the error."""
+    pytest.importorskip("PIL")
+    _image_trees(tmp_path)
+    cases = [("aligned", "al", "train", {}), ("aligned", "al", "val", {}),
+             ("unaligned", "un", "val", {"input_nc": 3, "output_nc": 3}),
+             ("single", "un/trainA", "test", {}), ("template", "", "train", {})]
+    for mode, sub, phase, kw in cases:
+        cfg = {"dataset_mode": mode, "dataroot": str(tmp_path / sub), **IMAGE_BASE}
+        want = jdata.create_dataset(cfg, phase, **kw)
+        got = tdata.create_dataset(cfg, phase, **kw)
+        assert type(got).__name__ == type(want).__name__ and len(got) == len(want) > 0
+        np.testing.assert_array_equal(got.get_item(0, rng=random.Random(1))["A"],
+                                      want.get_item(0, rng=random.Random(1))["A"])
+        assert getattr(got, "phase", None) == getattr(want, "phase", None)
+    assert tdata.create_dataset({"dataset_mode": "aligned", "dataroot": str(tmp_path / "al"),
+                                 **IMAGE_BASE}, "val").phase == "test"
+    for module in (jdata, tdata):
+        with pytest.raises(NotImplementedError, match="no_such_mode"):
+            module.create_dataset({"dataset_mode": "no_such_mode"}, "train")
     assert tdata.h5_dataset._is_standard_pipeline is not None
+
+
+@pytest.mark.parametrize("mode", ["aligned", "unaligned", "single", "template"])
+def test_image_datasets_give_equal_items(tmp_path, mode):
+    """Every item of each dataset equal to the JAX package's: the train
+    phase's random crops and flips from one seeded random.Random, BtoA
+    swapping the pair, grayscale and RGB channel counts."""
+    pytest.importorskip("PIL")
+    from afcm_tpu.data import image_datasets as jimg
+    from afcm_tpu.data import template_dataset as jtemplate
+    from afcm_tpu_torch.data import image_datasets as timg
+    from afcm_tpu_torch.data import template_dataset as ttemplate
+    _image_trees(tmp_path)
+    root = str(tmp_path)
+    kw = dict(load_size=72, crop_size=64)
+    if mode == "aligned":
+        variants = [("AlignedDataset", dict(dataroot=f"{root}/al", **kw)),
+                    ("AlignedDataset", dict(dataroot=f"{root}/al", direction="BtoA",
+                                            input_nc=3, **kw)),
+                    ("AlignedDataset", dict(dataroot=f"{root}/al", phase="test", **kw))]
+    elif mode == "unaligned":
+        variants = [("UnalignedDataset", dict(dataroot=f"{root}/un", **kw)),
+                    ("UnalignedDataset", dict(dataroot=f"{root}/un", direction="BtoA",
+                                              input_nc=3, output_nc=3, **kw)),
+                    ("UnalignedDataset", dict(dataroot=f"{root}/un", phase="test",
+                                              serial_batches=False, **kw))]
+    elif mode == "single":
+        variants = [("SingleDataset", dict(dataroot=f"{root}/un/trainA", **kw)),
+                    ("SingleDataset", dict(dataroot=f"{root}/un/trainA", input_nc=3,
+                                           preprocess="scale_width_and_crop", **kw))]
+    else:
+        variants = [("TemplateDataset", dict(loaders_config={"slice_num": 4, "train": {
+            "slice_builder": {"patch_shape": [1, 32, 32]}}}, phase=phase))
+            for phase in ("train", "val")]
+    for name, args in variants:
+        modules = (jtemplate, ttemplate) if mode == "template" else (jimg, timg)
+        want_ds, got_ds = (getattr(m, name)(**args) for m in modules)
+        assert len(got_ds) == len(want_ds) > 0
+        for i in range(len(want_ds)):
+            want = want_ds.get_item(i, rng=random.Random(i))
+            got = got_ds.get_item(i, rng=random.Random(i))
+            assert got.keys() == want.keys()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=f"{name} {k}")
+
+
+def test_image_folder_train_loaders_give_equal_batches(tmp_path):
+    """get_train_loaders on configs/demo/pix2pix_tiny.yml over an aligned
+    tree: the shuffled train batches and the val batches (the test/ folder)
+    equal to the JAX package's."""
+    pytest.importorskip("PIL")
+    _image_trees(tmp_path)
+    argv = ["--config-file", os.path.join(REPO, "configs/demo/pix2pix_tiny.yml"),
+            "loaders.dataroot", str(tmp_path / "al"), "loaders.load_size", "72",
+            "loaders.crop_size", "64"]
+
+    def batches(data, config):
+        random.seed(5)
+        loaders = data.get_train_loaders(config.default_argument_parser(argv), seed=5)
+        return {k: list(v) for k, v in loaders.items()}
+
+    want, got = batches(jdata, jconfig), batches(tdata, tconfig)
+    assert len(want["train"]) == 2 and len(want["val"]) == 1
+    for split in ("train", "val"):
+        assert len(got[split]) == len(want[split])
+        for b, jb in zip(got[split], want[split]):
+            assert b.keys() == jb.keys()
+            for k in jb:
+                np.testing.assert_array_equal(b[k], jb[k])
+
+
+def test_image_pool_tensor2im_and_easydict_equal():
+    """ImagePool's history from one seed, tensor2im of gray and RGB [-1, 1]
+    images, and EasyDict, as the JAX package's."""
+    from afcm_tpu.utils import easydict as jeasy
+    from afcm_tpu.utils import image as jimage
+    from afcm_tpu_torch.utils import easydict as teasy
+    from afcm_tpu_torch.utils import image as timage
+    rng = np.random.RandomState(2)
+    pools = (jimage.ImagePool(3, seed=4), timage.ImagePool(3, seed=4))
+    for _ in range(6):
+        images = rng.randn(2, 1, 4, 4).astype(np.float32)
+        np.testing.assert_array_equal(pools[1].query(images), pools[0].query(images))
+    assert pools[1].num_imgs == pools[0].num_imgs == 3
+    np.testing.assert_array_equal(timage.ImagePool(0).query(images), images)
+    for shape in ((2, 1, 5, 6), (3, 5, 6)):
+        x = rng.uniform(-1.2, 1.2, shape).astype(np.float32)
+        got = timage.tensor2im(x)
+        assert got.dtype == np.uint8 and got.shape == (5, 6, 3)
+        np.testing.assert_array_equal(got, jimage.tensor2im(x))
+    d = teasy.EasyDict(a=1)
+    d.b = 2
+    assert d == jeasy.EasyDict(a=1, b=2) and d.b == 2
+    with pytest.raises(AttributeError):
+        d.c
 
 
 def test_predictor_stitches_equal_volume(tmp_path):

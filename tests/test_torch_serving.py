@@ -138,11 +138,12 @@ def test_device_result_duck_types():
 
 
 def test_port_imports_without_jax():
-    """Every afcm_tpu_torch module imports with jax, flax, optax and the JAX
-    package afcm_tpu blocked."""
+    """Every afcm_tpu_torch module imports with jax, flax, optax, the JAX
+    package afcm_tpu and PIL blocked (the image-folder datasets read their
+    images with PIL, imported where they read one)."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "blocked = ('jax', 'flax', 'optax', 'afcm_tpu')\n"
+        "blocked = ('jax', 'flax', 'optax', 'afcm_tpu', 'PIL')\n"
         "for name in blocked:\n"
         "    sys.modules[name] = None\n"
         "import afcm_tpu_torch\n"
@@ -159,7 +160,11 @@ def test_port_imports_without_jax():
         "             'ops.cuda.probe_int8', 'probes.fir_roofline',\n"
         "             'probes.stream_diag', 'probes.element_windows',\n"
         "             'probes.int8_matmul', 'probes.int8_kernel',\n"
-        "             'infer.export', 'nn.comodgan', 'nn.ca_variants'):\n"
+        "             'infer.export', 'nn.comodgan', 'nn.ca_variants',\n"
+        "             'nn.pix2pix', 'nn.motion', 'ops.grid_sample',\n"
+        "             'models.pix2pix_model', 'models.template_model',\n"
+        "             'data.image_datasets', 'data.template_dataset',\n"
+        "             'utils.image', 'utils.easydict'):\n"
         "    assert 'afcm_tpu_torch.' + name in names, names\n"
         "assert not any(m.split('.')[0] in blocked\n"
         "               for m, v in sys.modules.items() if v is not None)\n"

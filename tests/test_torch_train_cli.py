@@ -77,7 +77,7 @@ def test_train_on_phantom_loaders_resumes(tmp_path):
     assert seen[0][1] > 0 and seen[1][1] == 0     # lazy R1 every 2nd step
 
     cfg = default_argument_parser(argv + ["continue_train", "True"])
-    model = train_cli.build_gan_model(cfg)
+    model = train_cli.build_model(cfg)
     ckpt.load_state(model, str(tmp_path / "demo_tiny"), "latest")
     assert model.step == 2
     assert all(int(s["step"]) == 2 for s in model.opt_G.state.values())
