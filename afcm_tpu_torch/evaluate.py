@@ -24,10 +24,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import parallel
 from .data import get_test_loaders
 from .data.h5_dataset import _is_standard_pipeline
 from .infer.predictor import StandardPredictor, subject_id
 from .models import GANModel, build_eval_model, check_model_name
+from .models.gan_model import eval_forward
 from .ops.modulated_conv import set_conv_impl
 from .utils.metrics import evaluate_3D, evaluate_slice
 from .utils.nifti import read_nifti, write_nifti
@@ -73,6 +75,35 @@ class DeviceResult:
         return arr if dtype is None else arr.astype(dtype, copy=False)
 
 
+class MeshResult:
+    """The results of one batch served over a mesh, one ``DeviceResult``
+    per device in batch order: ``copy_to_host_async()`` starts every copy,
+    ``__array__`` joins them."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def copy_to_host_async(self):
+        for part in self.parts:
+            part.copy_to_host_async()
+
+    def __array__(self, dtype=None, copy=None):
+        return np.concatenate([part.__array__(dtype) for part in self.parts])
+
+
+def mesh_forward(run, device, a, s, z, mesh=None):
+    """One patch batch (host tensors ``a``, ``s`` and the whole batch's
+    ``z``) through ``run(replica_index, a, s, z) -> tensor``: on ``device``,
+    or, over a ``mesh`` of several devices, cut into one contiguous chunk
+    per device of its data axis, every chunk launched on its device before
+    any is waited on. Returns a ``DeviceResult``, or a ``MeshResult``."""
+    if mesh is None:
+        return DeviceResult(run(0, a.to(device), s.to(device), z))
+    chunks = parallel.shard_batch({"a": a, "s": s, "z": z}, mesh)
+    return MeshResult([DeviceResult(run(i, c["a"], c["s"], c["z"]))
+                       for i, c in enumerate(chunks)])
+
+
 def fetch_dtype_or_none(fetch_dtype):
     """``tpu.fetch_dtype`` -> the dtype the output is cast to on the device
     before the copy to the host; None leaves it float32
@@ -85,8 +116,13 @@ def fetch_dtype_or_none(fetch_dtype):
 
 
 def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
-                    eval_z: str = "per-batch", fetch_dtype=None):
+                    eval_z: str = "per-batch", fetch_dtype=None, mesh=None):
     """(A, slice_idx) numpy batch -> ``DeviceResult`` of the EMA generator.
+
+    With a ``mesh`` of several devices (``prepare_mesh_state``) one replica
+    of the EMA generator serves each device of its data axis and each batch
+    is split over them (``mesh_forward``; ``afcm_tpu/evaluate.py:186-201``);
+    z is drawn on the mesh's first device for the whole batch.
 
     ``eval_z="per-batch"`` draws a fresh z for every batch from one seeded
     ``torch.Generator`` (the reference protocol, comodgan_model.py:101-108);
@@ -98,29 +134,38 @@ def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
     predictor accumulates float32 either way."""
     if eval_z not in ("per-batch", "fixed"):
         raise ValueError(f"eval_z {eval_z!r}")
+    if mesh is not None and mesh.devices.size > 1:
+        replicas = parallel.replicate_state(model.generator_ema, mesh)
+        device = mesh.data_devices[0]
+    else:
+        mesh, replicas = None, [model.generator_ema]
     device = torch.device(device)
     out_dtype = fetch_dtype_or_none(fetch_dtype)
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
     fixed_z = {}
 
-    def forward(a_batch, slice_idx):
-        a = torch.from_numpy(np.ascontiguousarray(a_batch)).to(device)
-        s = torch.from_numpy(np.asarray(slice_idx, np.float32)).to(device)
-        if a.dtype == torch.uint8:
-            if norm_range is None:
-                raise ValueError("uint8 batches require make_forward_fn(norm_range=...)")
-            a = normalize_uint8(a, float(norm_range[0]), float(norm_range[1]))
-        n = a.shape[0]
+    def z_of(n):
         if eval_z == "fixed":
             if n not in fixed_z:
                 fixed_z[n] = torch.randn((n, model.z_dim), generator=rng,
                                          device=device)
-            z = fixed_z[n]
-        else:
-            z = torch.randn((n, model.z_dim), generator=rng, device=device)
-        out = model.eval_step(a, s, z=z)
-        return DeviceResult(out if out_dtype is None else out.to(out_dtype))
+            return fixed_z[n]
+        return torch.randn((n, model.z_dim), generator=rng, device=device)
+
+    def run(i, a, s, z):
+        if a.dtype == torch.uint8:
+            a = normalize_uint8(a, float(norm_range[0]), float(norm_range[1]))
+        with torch.inference_mode():
+            out = eval_forward(replicas[i], model.c_dim, a, s, z)
+        return out if out_dtype is None else out.to(out_dtype)
+
+    def forward(a_batch, slice_idx):
+        a = torch.from_numpy(np.ascontiguousarray(a_batch))
+        if a.dtype == torch.uint8 and norm_range is None:
+            raise ValueError("uint8 batches require make_forward_fn(norm_range=...)")
+        s = torch.from_numpy(np.asarray(slice_idx, np.float32))
+        return mesh_forward(run, device, a, s, z_of(a.shape[0]), mesh)
     return forward
 
 
@@ -142,26 +187,24 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def check_device_knobs(cfg, training: bool) -> None:
-    """Refuse the device knobs of ``cfg`` that the port does not implement,
-    where ``afcm_tpu`` honours them (``afcm_tpu/train.py:81-83``,
-    ``:111-120``; ``afcm_tpu/evaluate.py:143-145``), instead of ignoring
-    them: ``tpu.remat`` in training (ROADMAP item A8; serving ignores it in
-    both packages) and a mesh of more than one device, from
-    ``tpu.mesh_shape`` or ``--num-gpus`` (item A12b). The default mesh
-    ``[0, 1]`` puts all devices on the data axis, which is the one card the
-    port uses. A ``tpu.matmul_precision`` other than ``default`` gets one
-    line: the port sets TF32 from ``tpu.compute_dtype`` alone."""
-    if training and cfg.tpu.remat:
+def refuse_model_axis(cfg) -> None:
+    """Refuse a mesh whose model axis is larger than 1 (tensor parallelism,
+    ROADMAP item A12c; ``afcm_tpu/train.py:114-117``), where ``afcm_tpu``
+    honours it, instead of ignoring it."""
+    model = int(cfg.tpu.mesh_shape[1])
+    if model > 1:
         raise NotImplementedError(
-            "tpu.remat is not ported yet (ROADMAP item A8): the port's train "
-            "step keeps every activation; set tpu.remat False")
-    data, model = (max(int(v), 1) for v in cfg.tpu.mesh_shape)
-    if data * model > 1:
-        raise NotImplementedError(
-            f"tpu.mesh_shape {list(cfg.tpu.mesh_shape)} asks for {data * model} "
-            "devices; the port runs on one (data-parallel training and serving "
-            "are ROADMAP item A12b); drop --num-gpus or set tpu.mesh_shape [0, 1]")
+            f"tpu.mesh_shape {list(cfg.tpu.mesh_shape)} asks for a model axis of "
+            f"{model}; tensor parallelism is not ported yet (ROADMAP item A12c): "
+            "the port splits the batch over the data axis alone; set the model "
+            "axis to 1")
+
+
+def check_device_knobs(cfg) -> None:
+    """``refuse_model_axis``, and one line for a ``tpu.matmul_precision``
+    other than ``default``: the port sets TF32 from ``tpu.compute_dtype``
+    alone."""
+    refuse_model_axis(cfg)
     if cfg.tpu.matmul_precision != "default":
         print(f"tpu.matmul_precision {cfg.tpu.matmul_precision} has no effect: the "
               "port sets TF32 from tpu.compute_dtype alone (off for float32)")
@@ -172,7 +215,7 @@ def configure_numerics(cfg) -> str:
     set the conv implementation from ``tpu.conv_int8``
     (``afcm_tpu/evaluate.py:138-142``) and the matmul precision of
     ``tpu.compute_dtype``, and return the compute dtype."""
-    check_device_knobs(cfg, training=False)
+    check_device_knobs(cfg)
     fetch_dtype_or_none(getattr(cfg.tpu, "fetch_dtype", None))     # raises on a bad value
     if getattr(cfg.tpu, "conv_int8", False):
         set_conv_impl("int8", getattr(cfg.tpu, "conv_int8_variant", "dots"),
@@ -260,21 +303,45 @@ def ensure_volumetric(cfg, entry_point: str) -> None:
             "(PSNR/SSIM on the val split), matching the reference's scope.")
 
 
+def serving_mesh(mesh_shape, batch_size: int, device) -> Optional[parallel.Mesh]:
+    """The mesh the serving CLIs serve over. A data axis the config sets
+    (``tpu.mesh_shape [N, 1]``, ``--num-gpus N``) is taken, clamped to a
+    divisor of the batch. The default data axis 0 serves on one device,
+    where ``afcm_tpu`` takes every device: one host thread launches every
+    replica's chunk, and split over four cards the default batch was served
+    slower than on one (PERF.md, §6). Training keeps every card."""
+    if int(mesh_shape[0]) <= 0:
+        return None
+    return parallel.resolve_mesh(mesh_shape, batch_size, device)
+
+
+def prepare_mesh_state(cfg, model: GANModel, device):
+    """The serving mesh of the config (``serving_mesh``;
+    ``afcm_tpu/evaluate.py:148-165``) over the cards, or over the CPU for
+    ``--device cpu``, and the EMA generator's weights moved to ``device``
+    once. Returns the mesh, or None for one device;
+    ``make_forward_fn(mesh=)`` replicates the generator."""
+    model.generator_ema.to(device)
+    return serving_mesh(cfg.tpu.mesh_shape, cfg.loaders.batch_size, device)
+
+
 def build_serving_forward(cfg, device):
     """What the evaluate and serve CLIs share: set the numerics of the
     config (the caller resets the conv implementation when it ends), build
     the model, load ``<tag>_net_G_ema.pth`` strictly, move the weights to
-    the device once and return ``(forward, run_dir)``."""
+    the device (or each device of the config's mesh) once and return
+    ``(forward, run_dir)``."""
     check_model_name(cfg)
     compute_dtype = configure_numerics(cfg)
     model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
     run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
     load_generator_ema(model, run_dir, checkpoint_tag(cfg))
-    model.generator_ema.to(device)      # the weights move to the device once
+    mesh = prepare_mesh_state(cfg, model, device)
     forward = make_forward_fn(model, device,
                               norm_range=pipeline_norm_range(cfg),
                               eval_z=getattr(cfg.tpu, "eval_z", "per-batch"),
-                              fetch_dtype=getattr(cfg.tpu, "fetch_dtype", None))
+                              fetch_dtype=getattr(cfg.tpu, "fetch_dtype", None),
+                              mesh=mesh)
     return forward, run_dir
 
 

@@ -49,11 +49,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..evaluate import DeviceResult, fetch_dtype_or_none, normalize_uint8
+from ..evaluate import fetch_dtype_or_none, mesh_forward, normalize_uint8
 from ..models.gan_model import GANModel, eval_forward
 from ..ops import get_conv_impl, set_conv_impl   # registers the operators
+from ..parallel import local_batch_size
 
 _INFO_FILE = "afcm_serving.json"
+# the mesh's data axis rides on the ExportedProgram object until it is saved
+_DEVICES_ATTR = "afcm_mesh_devices"
 
 
 class _EvalStep(nn.Module):
@@ -114,19 +117,27 @@ def export_eval(model: GANModel, batch_size: Optional[int], img_shape: Sequence[
     """Export the EMA eval step for a fixed ``batch_size`` (the predictor
     pads ragged tails to the loader's batch size); ``batch_size=None``
     exports a symbolic batch dimension, one artifact for any batch size.
+    With a ``mesh`` the artifact records its data axis's device count and
+    serves over that many devices (``serving_forward``); its graph is the
+    one-device step on each device's chunk, ``batch_size`` / devices.
     ``img_shape`` is the conditioning window (C, H, W); with ``norm_range``
     the artifact ingests uint8 and normalizes in the graph, else float32 in
     [-1, 1]. ``weights_dtype="bfloat16"`` stores the floating weights as
     bf16, about half the file. The trace runs on the device of the model's
     weights, with the float conv (conv impl ``xla``), and the process's conv
     setting is restored whatever happens."""
+    devices = 1
     if mesh is not None:
-        raise NotImplementedError("exporting over a mesh is not ported yet (ROADMAP "
-                                  "item A12b): the port serves on one device")
+        if mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"a mesh with a model axis of {mesh.shape['model']}: tensor "
+                "parallelism is not ported yet (ROADMAP item A12c)")
+        devices = mesh.shape["data"]
     device = next(model.generator_ema.parameters()).device
     step = make_eval_fn(model, norm_range=norm_range, fetch_dtype=fetch_dtype,
                         weights_dtype=weights_dtype).eval()
-    n = batch_size or 2
+    # each device of the mesh runs the graph on its chunk of the batch
+    n = local_batch_size(batch_size, devices) if batch_size else 2
     gen = torch.Generator().manual_seed(0)
     if norm_range is not None:
         a = torch.randint(0, 256, (n, *img_shape), generator=gen, dtype=torch.uint8)
@@ -142,9 +153,16 @@ def export_eval(model: GANModel, batch_size: Optional[int], img_shape: Sequence[
     set_conv_impl("xla")
     try:
         with torch.no_grad():
-            return torch.export.export(step, args, dynamic_shapes=dynamic)
+            exported = torch.export.export(step, args, dynamic_shapes=dynamic)
     finally:
         set_conv_impl(old)
+    setattr(exported, _DEVICES_ATTR, devices)
+    return exported
+
+
+def mesh_devices(exported) -> int:
+    """The data axis the artifact was exported over (1 without a mesh)."""
+    return getattr(exported, _DEVICES_ATTR, 1)
 
 
 def exported_device_type(exported) -> str:
@@ -161,7 +179,7 @@ def count_nodes(exported, op_name: str = "filtered_lrelu") -> int:
 def save_exported(exported, path: str) -> str:
     """``torch.export.save`` with the device type the artifact was exported
     on, written atomically: a kill mid-write leaves no truncated artifact."""
-    info = {"device": exported_device_type(exported)}
+    info = {"device": exported_device_type(exported), "devices": mesh_devices(exported)}
     tmp = f"{path}.tmp{os.getpid()}.pt2"
     torch.export.save(exported, tmp, extra_files={_INFO_FILE: json.dumps(info)})
     os.replace(tmp, path)
@@ -173,6 +191,7 @@ def load_exported(path: str):
     extra = {_INFO_FILE: ""}
     exported = torch.export.load(path, extra_files=extra)
     info = json.loads(extra[_INFO_FILE]) if extra[_INFO_FILE] else {}
+    setattr(exported, _DEVICES_ATTR, int(info.get("devices", 1)))
     return exported, info.get("device", exported_device_type(exported))
 
 
@@ -188,40 +207,72 @@ def _input_specs(exported):
     return specs
 
 
-def serving_forward(exported_or_path, seed: int = 0, device=None):
+def replica_module(exported, device) -> nn.Module:
+    """The artifact's module on ``device``: the program as it is where its
+    weights lie, else a copy moved there by ``move_to_device_pass`` (its
+    weights, constants and the devices its graph names)."""
+    from torch.export.passes import move_to_device_pass
+    home = next(iter(exported.state_dict.values())).device
+    device = torch.device(device)
+    if device.type == home.type and device.index in (None, home.index):
+        return exported.module()
+    return move_to_device_pass(exported, device).module()
+
+
+def serving_forward(exported_or_path, seed: int = 0, device=None, mesh=None):
     """The artifact as the ``(a_batch, slice_idx)`` callable
     ``StandardPredictor`` drives: batches go to the artifact's device, z is
     drawn per batch from a ``torch.Generator`` there seeded with ``seed``,
-    and the result stays on the device (``evaluate.DeviceResult``). Raises
-    when ``device`` is not of the type the artifact was exported on, and
-    when a batch's dtype is not the artifact's ingest dtype."""
+    and the result stays on the device (``evaluate.DeviceResult``). An
+    artifact exported over a mesh serves over a ``mesh`` with as many
+    devices on its data axis, one replica of its module on each, each batch
+    split over them (``evaluate.mesh_forward``; ``afcm_tpu/serve.py:43-51``).
+    Raises when ``device`` is not of the type the artifact was exported on,
+    when the mesh's size is not the artifact's, and when a batch's dtype is
+    not the artifact's ingest dtype."""
     if isinstance(exported_or_path, (str, os.PathLike)):
         exported, device_type = load_exported(exported_or_path)
     else:
         exported = exported_or_path
         device_type = exported_device_type(exported)
+    want = mesh_devices(exported)
+    got = 1 if mesh is None else mesh.shape["data"] * mesh.shape["model"]
+    if got != want:
+        raise ValueError(f"the artifact was exported over {want} device(s); it "
+                         f"cannot serve over {got}")
+    if mesh is not None and want > 1:
+        device = mesh.data_devices[0]
+    else:
+        mesh = None
     device = torch.device(device or device_type)
-    if device.type != device_type:
+    devices = [device] if mesh is None else mesh.data_devices
+    if any(d.type != device_type for d in devices):
         raise ValueError(f"the artifact was exported on {device_type}; it cannot "
                          f"serve on {device}: export it again on that device")
     (a_dtype, _), _, (_, z_shape) = _input_specs(exported)
     z_dim = int(z_shape[1])
-    module = exported.module()
+    modules = {}
+    for d in devices:
+        if d not in modules:
+            modules[d] = replica_module(exported, d)
     rng = torch.Generator(device=device)
     rng.manual_seed(seed)
 
+    def run(i, a, s, z):
+        with torch.no_grad():
+            return modules[devices[i]](a, s, z)
+
     def forward(a_batch, slice_idx):
-        a = torch.from_numpy(np.ascontiguousarray(a_batch)).to(device)
+        a = torch.from_numpy(np.ascontiguousarray(a_batch))
         if a.dtype != a_dtype:
             raise TypeError(
                 f"artifact expects {a_dtype} patches but got {a.dtype}: the "
                 "export's ingest mode (uint8 vs float) must match what the loader "
                 "ships; export again with the matching tpu.transfer_dtype (e.g. "
                 "'tpu.transfer_dtype float32')")
-        s = torch.from_numpy(np.asarray(slice_idx, np.float32)).to(device)
+        s = torch.from_numpy(np.asarray(slice_idx, np.float32))
         z = torch.randn((a.shape[0], z_dim), generator=rng, device=device)
-        with torch.no_grad():
-            return DeviceResult(module(a, s, z))
+        return mesh_forward(run, device, a, s, z, mesh)
     return forward
 
 

@@ -40,14 +40,14 @@ CMSR_ADNI_G: Dict[str, Any] = {
 }
 
 # Synthesis keys the port's generator takes. The JAX package also takes
-# remat / remat_min_size (training) and channel_align (TPU layout), and
-# magnitude_ema_beta feeds only the training-time EMA update.
+# channel_align (TPU layout), and magnitude_ema_beta feeds only the
+# training-time EMA update.
 _SG3_SYNTH_KEYS = {
     "channel_base", "channel_max", "num_layers", "num_critical",
     "first_cutoff", "first_stopband", "last_stopband_rel", "margin_size",
     "output_scale", "dropout_rate", "skip_resolution", "cond_mod",
     "conv_kernel", "filter_size", "lrelu_upsampling", "use_radial_filters",
-    "conv_clamp", "compute_dtype",
+    "conv_clamp", "compute_dtype", "remat", "remat_min_size",
 }
 # ``afcm_tpu/models/__init__.py:30-34``, with the synthesizer's name
 _COMOD_SYNTH_KEYS = {
@@ -149,6 +149,11 @@ def build_gan_model(cfg, generator: Optional[torch.Generator] = None) -> GANMode
     check_model_name(cfg)
     compute_dtype = cfg.tpu.compute_dtype
     g_cfg = _with_compute_dtype(cfg.model.G, compute_dtype)
+    if g_cfg.get("netG") == "stylegan3" and cfg.tpu.get("remat", False):
+        # tpu.remat trains with rematerialization (afcm_tpu/models/__init__.py:103-107)
+        g_cfg["synthesis_kwargs"] = dict(
+            g_cfg["synthesis_kwargs"], remat=True,
+            remat_min_size=int(cfg.tpu.get("remat_min_size", 0) or 0))
     d_cfg = dict(cfg.model.D)
     d_cfg.setdefault("compute_dtype", compute_dtype)
     net_g = build_generator(g_cfg, generator=generator)

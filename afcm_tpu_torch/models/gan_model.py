@@ -18,7 +18,16 @@ unless the forward is shared, as the JAX step's ``moments`` do
 updates neither ``w_avg`` nor ``magnitude_ema`` (``_run_g`` passes no
 ``update_emas``, ``:153-156``), and neither does this.
 
-Not ported: style mixing (``:162-192``; default off, ROADMAP A8) and remat.
+Data parallel (``distribute``): on W ranks of a process group, each with
+its contiguous slice of the global batch, the step is the single-device
+step on the global batch, as ``afcm_tpu``'s sharded step is: the draws are
+the global batch's, sliced (``parallel.GlobalDraws``; a given ``z`` is the
+global batch's too), D's minibatch std and the mapper's ``w_avg`` take the
+global batch's statistics, each net's gradient is averaged over the ranks
+in one flat all-reduce before it is scrubbed, and the losses returned are
+the global batch's.
+
+Not ported: style mixing (``:162-192``; default off, ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops import gaussian_blur2d
 from . import losses
 from .train_state import ema_beta, ema_update, make_optimizer, with_lr
@@ -61,6 +71,17 @@ class GANConfig:
     shared_g_fwd: bool = False
 
 
+def global_metrics(metrics: Dict[str, torch.Tensor],
+                   group: Optional[parallel.DataGroup]) -> Dict[str, torch.Tensor]:
+    """The step's losses, detached, averaged over the ranks of ``group``
+    in one all-reduce: the global batch's losses."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if group is None:
+        return metrics
+    values = group.mean_(torch.stack([v.float() for v in metrics.values()]), "metrics")
+    return dict(zip(metrics, values.unbind()))
+
+
 def eval_forward(generator: nn.Module, c_dim: int, cond_img, slice_idx, z,
                  ref_img=None):
     """A generator in eval mode with const noise, c taken from slice_idx:
@@ -86,6 +107,7 @@ class GANModel:
         self.discriminator = discriminator
         self.blur_max_radius = int(np.floor(config.blur_init_sigma * 3.0))
         self.step = 0
+        self.group: Optional[parallel.DataGroup] = None
         if generator is not None:
             self.opt_G = make_optimizer(generator.parameters(), config.lr_g,
                                         config.adam_beta1, config.adam_beta2,
@@ -104,6 +126,13 @@ class GANModel:
     def with_lr(self, lr_g: float, lr_d: float) -> None:
         with_lr(self.opt_G, lr_g)
         with_lr(self.opt_D, lr_d)
+
+    def distribute(self, group: Optional[parallel.DataGroup]) -> None:
+        """Train as one rank of ``group`` (None: alone); the module
+        docstring says what that changes."""
+        self.group = group
+        parallel.attach(self.generator, group)
+        parallel.attach(self.discriminator, group)
 
     # -- helpers -------------------------------------------------------------
 
@@ -130,10 +159,12 @@ class GANModel:
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
         """One D + G + EMA step on ``batch`` ({"A", "B", "slice_idx"} on the
-        model's device); ``cur_nimg`` is the image count after this batch.
-        ``z`` [N, z_dim] and the co-modulation dropout masks are drawn from
-        ``generator`` (a ``torch.Generator`` on the device) unless ``z`` is
-        given. Returns the losses as 0-d tensors, left on the device."""
+        model's device, this rank's slice); ``cur_nimg`` is the image count
+        after this batch. ``z`` [N, z_dim] (of the global batch) and the
+        co-modulation dropout masks are drawn from ``generator`` (a
+        ``torch.Generator`` on the device, seeded alike on every rank)
+        unless ``z`` is given. Returns the losses as 0-d tensors, left on
+        the device."""
         cfg = self.config
         if cfg.style_mixing_prob > 0:
             raise NotImplementedError("style mixing (style_mixing_prob > 0) is "
@@ -141,9 +172,12 @@ class GANModel:
         gen, disc = self.generator, self.discriminator
         real_a, real_b = batch["A"], batch["B"]
         c = self._cond(batch)
+        if self.group is not None:
+            z = self.group.local(z)
+            if generator is not None:
+                generator = parallel.GlobalDraws(generator, self.group)
         if z is None:
-            z = torch.randn((real_a.shape[0], cfg.z_dim), generator=generator,
-                            device=real_a.device)
+            z = parallel.randn((real_a.shape[0], cfg.z_dim), generator, real_a.device)
         sigma = losses.blur_sigma_schedule(cur_nimg, cfg.blur_init_sigma,
                                            cfg.blur_fade_kimg)
         params_g = list(gen.parameters())
@@ -195,18 +229,21 @@ class GANModel:
         self.step += 1
         metrics = {"G_GAN": loss_g_gan, "G_L1": loss_g_l1, "D_real": loss_d_real,
                    "D_fake": loss_d_fake, "D_r1": loss_r1}
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = global_metrics(metrics, self.group)
         metrics["blur_sigma"] = torch.tensor(sigma)
         return metrics
 
-    @staticmethod
-    def _step(optimizer, params, loss):
+    def _step(self, optimizer, params, loss):
         """Gradients of ``loss`` w.r.t. ``params`` (zeros where a parameter
         does not reach the loss, as JAX gives, so every Adam state steps
-        together), NaN/Inf scrubbing, one Adam step."""
+        together), averaged over the ranks, NaN/Inf scrubbing, one Adam
+        step."""
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if self.group is not None:
+            self.group.average_(grads, "grads")
         for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
+            p.grad = g
         losses.nan_to_num_grads(params)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)

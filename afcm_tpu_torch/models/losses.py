@@ -15,6 +15,8 @@ from typing import Callable, Iterable, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
+
 
 def softplus_d_loss(fake_logits, real_logits):
     """Non-saturating D loss: mean softplus(D(fake)), mean softplus(-D(real))."""
@@ -76,8 +78,8 @@ def cal_gradient_penalty(d_fn: Callable, real_data, fake_data,
         interp = fake_data
     elif mode == "mixed":
         if alpha is None:
-            alpha = torch.rand((real_data.shape[0],) + (1,) * (real_data.dim() - 1),
-                               generator=generator, device=real_data.device)
+            alpha = parallel.rand((real_data.shape[0],) + (1,) * (real_data.dim() - 1),
+                                  generator, real_data.device)
         interp = alpha * real_data + (1 - alpha) * fake_data
     else:
         raise NotImplementedError(mode)

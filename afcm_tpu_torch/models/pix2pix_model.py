@@ -24,6 +24,11 @@ come from the ``torch.Generator`` the caller hands over, or are given
 (``dropout_masks``, ``gp_alpha``), which is how the tests pass flax's.
 The networks compute in float32 whatever ``tpu.compute_dtype`` says, as in
 the JAX package.
+
+Data parallel (``distribute``), as ``GANModel``'s step: the draws and the
+given masks and ``gp_alpha`` are the global batch's, sliced; the batch
+norms take the global batch's statistics; each net's gradient is averaged
+over the ranks in one flat all-reduce; the losses are the global batch's.
 """
 
 from __future__ import annotations
@@ -34,9 +39,11 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import parallel
 from ..nn.pix2pix import (NLayerDiscriminator, PixelDiscriminator, UnetGenerator,
                           differentiable_statistics)
 from . import losses
+from .gan_model import global_metrics
 from .train_state import make_optimizer, with_lr
 
 Masks = Optional[Dict[str, torch.Tensor]]
@@ -64,6 +71,7 @@ class Pix2PixModel:
         self.discriminator = discriminator
         self.config = config
         self.step = 0
+        self.group: Optional[parallel.DataGroup] = None
         self.opt_G = make_optimizer(generator.parameters(), config.lr_g, config.beta1,
                                     0.999, 1e-8)
         self.opt_D = make_optimizer(discriminator.parameters(), config.lr_d,
@@ -78,6 +86,12 @@ class Pix2PixModel:
     def with_lr(self, lr_g: float, lr_d: float) -> None:
         with_lr(self.opt_G, lr_g)
         with_lr(self.opt_D, lr_d)
+
+    def distribute(self, group: Optional[parallel.DataGroup]) -> None:
+        """Train as one rank of ``group`` (None: alone)."""
+        self.group = group
+        parallel.attach(self.generator, group)
+        parallel.attach(self.discriminator, group)
 
     def _d_input(self, a, b):
         return torch.cat([a, b], dim=1) if self.config.combine_ab else b
@@ -98,6 +112,13 @@ class Pix2PixModel:
         gen, disc = self.generator, self.discriminator
         real_a, real_b = batch["A"], batch["B"]
         masks_d, masks_g = dropout_masks
+        group = self.group
+        if group is not None:
+            masks_d, masks_g = ({k: group.local(v) for k, v in m.items()}
+                                if m is not None else None for m in (masks_d, masks_g))
+            gp_alpha = group.local(gp_alpha)
+            if generator is not None:
+                generator = parallel.GlobalDraws(generator, group)
 
         # ---- D phase: G's gradient-free forward moves G's statistics ----
         with torch.no_grad():
@@ -126,13 +147,16 @@ class Pix2PixModel:
         self.step += 1
         metrics = {"G_GAN": loss_g_gan, "G_L1": loss_g_l1, "D_real": loss_d_real,
                    "D_fake": loss_d_fake}
-        return {k: v.detach() for k, v in metrics.items()}
+        return global_metrics(metrics, group)
 
-    @staticmethod
-    def _step(optimizer, net: nn.Module, loss) -> None:
-        """Gradients of ``loss`` w.r.t. ``net``'s parameters only, one Adam step."""
+    def _step(self, optimizer, net: nn.Module, loss) -> None:
+        """Gradients of ``loss`` w.r.t. ``net``'s parameters only, averaged
+        over the ranks, one Adam step."""
         params = list(net.parameters())
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
+        grads = list(torch.autograd.grad(loss, params))
+        if self.group is not None:
+            self.group.average_(grads, "grads")
+        for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)

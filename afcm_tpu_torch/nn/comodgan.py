@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops import modulated_conv2d_resample, setup_filter, upsample2d
 from ..ops.bias_act import activation_funcs, bias_act
 from .layers import CALayer, Conv2dLayer, FullyConnected, dropout, normal_parameter
@@ -87,7 +88,7 @@ def layer_noise(noise_mode: str, shape, noise_const, strength, device,
         return noise_const * strength
     if generator is None:
         raise ValueError("random noise needs a generator (noise_mode 'random')")
-    return torch.randn(shape, generator=generator, device=device) * strength
+    return parallel.randn(shape, generator, device) * strength
 
 
 class SynthesisLayerSG2(nn.Module):

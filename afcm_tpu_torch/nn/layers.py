@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops import bias_act, conv2d_resample, setup_filter
 from ..ops.bias_act import activation_funcs
 
@@ -90,7 +91,12 @@ class Conv2dLayer(nn.Module):
 
 class MinibatchStdLayer(nn.Module):
     """Cross-sample stddev feature channel for the discriminator epilogue
-    (``afcm_tpu/nn/layers.py:102-121``)."""
+    (``afcm_tpu/nn/layers.py:102-121``). Sample n is grouped with n + N/G
+    of the batch; with a ``data_group`` (``parallel.attach``) the batch is
+    the global one: the features are gathered, the statistics taken over
+    the global batch, and this rank's rows kept."""
+
+    data_group: Optional["parallel.DataGroup"] = None
 
     def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
         super().__init__()
@@ -98,6 +104,10 @@ class MinibatchStdLayer(nn.Module):
         self.num_channels = num_channels
 
     def forward(self, x):
+        group = self.data_group
+        local = x
+        if group is not None:
+            x = group.gather(x)
         n, c, h, w = x.shape
         g = min(self.group_size, n) if self.group_size is not None else n
         f = self.num_channels
@@ -106,7 +116,9 @@ class MinibatchStdLayer(nn.Module):
         y = torch.sqrt(torch.square(y).mean(dim=0) + 1e-8)
         y = y.mean(dim=(2, 3, 4)).reshape(-1, f, 1, 1)
         y = y.repeat(g, 1, h, w)
-        return torch.cat([x, y.to(x.dtype)], dim=1)
+        if group is not None:
+            y = group.local(y)
+        return torch.cat([local, y.to(x.dtype)], dim=1)
 
 
 def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator],
@@ -122,7 +134,7 @@ def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator],
     if keep_mask is None:
         if generator is None:
             raise ValueError("train-mode dropout needs a generator or a keep_mask")
-        keep_mask = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
+        keep_mask = parallel.rand(x.shape, generator, x.device) < 1 - rate
     return torch.where(keep_mask, x / (1 - rate), torch.zeros_like(x))
 
 

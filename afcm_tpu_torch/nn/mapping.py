@@ -22,6 +22,10 @@ from .layers import FullyConnected, normalize_2nd_moment
 
 
 class MappingNetwork(nn.Module):
+    """With a ``data_group`` (``parallel.attach``) the ``w_avg`` update
+    takes the mean of the global batch, the same on every rank."""
+
+    data_group = None
 
     def __init__(self, z_dim: int, c_dim: int, w_dim: int,
                  num_ws: Optional[int], num_layers: int = 2,
@@ -61,6 +65,8 @@ class MappingNetwork(nn.Module):
             # in place: the buffer is state, not part of the graph
             with torch.no_grad():
                 mean_w = x.detach().mean(dim=0)
+                if self.data_group is not None:   # the global batch's mean
+                    self.data_group.mean_(mean_w, "w_avg")
                 self.w_avg.copy_(mean_w + (self.w_avg - mean_w) * self.w_avg_beta)
 
         if self.num_ws is not None:

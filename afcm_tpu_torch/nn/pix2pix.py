@@ -89,7 +89,12 @@ class _Norm(nn.Module):
     """batch | instance | none normalization over NCHW feature maps
     (``afcm_tpu/nn/pix2pix.py:45-87``). Batch norm: affine ``scale`` ~
     N(1, init_gain) and ``bias`` 0, running ``mean`` and ``var`` buffers at
-    momentum 0.1, eps 1e-5. Instance norm: no affine, no statistics."""
+    momentum 0.1, eps 1e-5. Instance norm: no affine, no statistics. With a
+    ``data_group`` (``parallel.attach``) the batch norm's train-mode
+    statistics are the global batch's, so the running ones move alike on
+    every rank."""
+
+    data_group = None
 
     def __init__(self, features: int, kind: str = "batch", init_gain: float = 0.02,
                  generator: Optional[torch.Generator] = None):
@@ -115,8 +120,14 @@ class _Norm(nn.Module):
             var = x.var(dim=(2, 3), unbiased=False, keepdim=True)
             return (x - mean) * torch.rsqrt(var + 1e-5)
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = x.var(dim=(0, 2, 3), unbiased=False)
+            group = self.data_group
+            if group is None:
+                mean = x.mean(dim=(0, 2, 3))
+                var = x.var(dim=(0, 2, 3), unbiased=False)
+            else:   # the global batch's, differentiable across the ranks
+                mean = group.sum(x.mean(dim=(0, 2, 3))) / group.world
+                var = group.sum(torch.square(x - mean[None, :, None, None])
+                                .mean(dim=(0, 2, 3))) / group.world
             if update_stats:
                 momentum = 0.1
                 run_mean, run_var = self.graph_stats or (self.mean, self.var)

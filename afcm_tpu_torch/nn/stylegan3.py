@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import design_lowpass_filter, filtered_lrelu, modulated_conv2d
 from ..ops.modulated_conv import conv2d
@@ -302,6 +303,14 @@ class SynthesisNetwork(nn.Module):
     ``compute_dtype`` ("float32" | "bfloat16") is the dtype of the conv
     stack; styles, demodulation and the co-modulation FC stay fp32 and the
     output is fp32, as in the JAX package (``:409-413``).
+
+    ``remat`` recomputes, in the backward, each encoder and synthesis layer
+    whose ``max(in_size, out_size)`` reaches ``remat_min_size`` (0: every
+    layer) instead of keeping its activations (``afcm_tpu/nn/stylegan3.py:
+    454-467``): ``torch.utils.checkpoint`` without reentry, so K1 runs once
+    more per such layer in the backward. No checkpointed layer draws from a
+    generator (the dropout sits in the head), so the recompute repeats the
+    forward exactly.
     """
 
     def __init__(self, w_dim: int, img_resolution: int, img_channels_in: int,
@@ -317,6 +326,7 @@ class SynthesisNetwork(nn.Module):
                  use_radial_filters: bool = False,
                  conv_clamp: Optional[float] = 256,
                  global_w_dim: int = 512 * 2, compute_dtype: str = "float32",
+                 remat: bool = False, remat_min_size: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.w_dim = w_dim
@@ -355,6 +365,15 @@ class SynthesisNetwork(nn.Module):
                                    **common)
             self.add_module(f"L{idx}_{spec.out_size}_{spec.out_channels}", layer)
             self.decoders.append(layer)
+        for layer in self.encoders + self.decoders:
+            layer.remat = remat and max(layer.spec.in_size,
+                                        layer.spec.out_size) >= remat_min_size
+
+    def _layer(self, layer, *args):
+        if layer.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return layer(*args)
 
     def forward(self, ws, img_in, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -370,7 +389,7 @@ class SynthesisNetwork(nn.Module):
         records = dict(layout.encoder_records)
         e_features: Dict[int, torch.Tensor] = {}
         for idx, layer in enumerate(self.encoders):
-            x = layer(x)
+            x = self._layer(layer, x)
             if idx in records:
                 e_features[records[idx]] = x
 
@@ -382,7 +401,7 @@ class SynthesisNetwork(nn.Module):
         for idx, (layer, skip_key) in enumerate(zip(self.decoders,
                                                     layout.decoder_skips)):
             x_skip = e_features[skip_key] if skip_key is not None else None
-            x = layer(ws[:, idx + 1], x, img_global, x_skip)
+            x = self._layer(layer, ws[:, idx + 1], x, img_global, x_skip)
 
         if layout.output_scale != 1:
             x = x * layout.output_scale

@@ -9,7 +9,10 @@ Serves either in process, the default: the EMA generator of
 evaluate CLI's (``evaluate.build_serving_forward``), so the routing and
 precision are those the evaluation was scored at; or from an artifact of
 ``afcm_tpu_torch.infer.export`` (``--artifact``), with no checkpoint read
-(``afcm_tpu/serve.py:41-51``). Subjects stream through the pipelined
+(``afcm_tpu/serve.py:41-51``), over as many devices as it was exported
+over. In process a data axis the config sets (``tpu.mesh_shape [N, 1]``,
+``--num-gpus N``) holds one replica of the generator per device; the
+default serves on one card (``evaluate.serving_mesh``). Subjects stream through the pipelined
 predictor (``tpu.pipeline_depth``); per-subject NIfTI heads are written
 write-behind. It runs on the CUDA device and raises when there is none,
 unless ``--device cpu`` asks for the CPU (an artifact serves only on the
@@ -78,8 +81,13 @@ def main(argv=None):
                                  if device.type == "cuda" else ""))
     try:
         if artifact is not None:
-            from .infer.export import serving_forward
-            forward = serving_forward(artifact, device=device)
+            from .infer.export import load_exported, mesh_devices, serving_forward
+            from .parallel import resolve_mesh
+            # the artifact fixes the data axis it serves over, not the config
+            exported, _ = load_exported(artifact)
+            n = mesh_devices(exported)
+            forward = serving_forward(exported, device=device,
+                                      mesh=resolve_mesh((n, 1), n, device))
             run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
         else:
             forward, run_dir = build_serving_forward(cfg, device)

@@ -16,6 +16,20 @@ raises when there is none, unless ``--device cpu`` asks for the CPU.
 ``tpu.compute_dtype`` sets TF32 for every model: off at the default
 ``float32``, on otherwise, also for pix2pix, whose networks compute in
 float32 whatever it says (as in the JAX package).
+
+Data parallel, as ``afcm_tpu/train.py:111-120`` runs over its mesh's data
+axis: ``--num-gpus N``, ``tpu.mesh_shape [N, 1]``, or the default
+``[0, 1]`` on a machine with several cards starts one process per device
+of the data axis (clamped to a divisor of the batch), NCCL on the cards,
+gloo with ``--device cpu``; under ``torchrun`` the ranks come from
+``RANK``/``WORLD_SIZE``/``LOCAL_RANK``. ``train`` runs one rank of the
+process group it finds, or runs alone when there is none: every rank
+builds the same loader from the same seed and takes its contiguous slice
+``[rank·b, (rank+1)·b)`` of each global batch, so the batches come in
+``afcm_tpu``'s order (each rank loads the whole batch on the host);
+``loaders.batch_size`` and the image count stay global. Rank 0 alone
+writes ``config.yml`` and the checkpoints, shows, prints and validates;
+the other ranks wait at a barrier. Every rank loads a checkpoint to resume.
 """
 
 from __future__ import annotations
@@ -23,14 +37,17 @@ from __future__ import annotations
 import os
 import random
 import sys
+import tempfile
 import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from . import parallel
 from .data import get_train_loaders
-from .evaluate import check_device_knobs, resolve_device, set_matmul_precision
+from .evaluate import (check_device_knobs, refuse_model_axis, resolve_device,
+                       set_matmul_precision)
 from .models import GANModel, build_model
 from .models.schedulers import LRScheduler
 from .utils import checkpoint as ckpt
@@ -77,28 +94,55 @@ def validate(model, val_loader, device,
     return {"psnr": float(np.mean(c_psnr)), "ssim": float(np.mean(c_ssim))}
 
 
+def init_cublas(device) -> None:
+    """Create cuBLAS's handles for ``device`` on this thread and on
+    autograd's worker thread before the first step: ``cublasCreate``
+    allocates outside the caching allocator, and at fp32 (TF32 off) the
+    first step's cuDNN plans reserve nearly the whole card for their
+    workspace, after which the first backward's handle does not fit
+    (``CUBLAS_STATUS_ALLOC_FAILED``)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        x = torch.ones((2, 2), device=device, requires_grad=True)
+        (x @ x).sum().backward()
+
+
 def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
           on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None
           ) -> Dict[str, float]:
-    """Train the model of ``cfg``; returns the last validation scores.
+    """Train the model of ``cfg`` as one rank of the process group this
+    process belongs to, or alone; returns the last validation scores (rank
+    0's; the other ranks return ``{}``).
 
     ``loaders`` replaces ``data.get_train_loaders(cfg)`` (a
     ``{"train", "val"}`` dict, e.g. ``data.demo.phantom_train_loaders``);
     ``on_step(step, metrics)`` is called after every train step, with the
-    step's losses still on the device."""
+    step's losses (the global batch's) still on the device."""
     device = resolve_device(device)
-    check_device_knobs(cfg, training=True)
+    check_device_knobs(cfg)
     set_matmul_precision(cfg.tpu.compute_dtype)
+    group = parallel.DataGroup.current()
+    lead = group is None or group.rank == 0
+    batch_size = cfg.loaders.batch_size
+    local_batch = parallel.local_batch_size(batch_size, group.world if group else 1)
     seed = cfg.manual_seed if cfg.manual_seed is not None else 0
     random.seed(seed)
     np.random.seed(seed)
     if loaders is None:
         loaders = get_train_loaders(cfg, seed=seed)
-    print(f"The number of training images = {len(loaders['train'].dataset)}")
+    print(f"The number of training images = {len(loaders['train'].dataset)}"
+          + (f" (rank {group.rank} of {group.world}, {local_batch} a step)"
+             if group else ""))
 
     model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     model.to(device)
+    init_cublas(device)
+    if group is not None:
+        model.distribute(group)
     rng = torch.Generator(device=device).manual_seed(seed)
+    # display and validation draw from their own stream: rank 0 alone runs
+    # them, and the step's stream must stay the same on every rank
+    vis_rng = torch.Generator(device=device).manual_seed(seed + 1)
 
     run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
     if cfg.continue_train:
@@ -107,11 +151,13 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
             print(f"resuming from {run_dir}/{tag}")
             ckpt.load_state(model, run_dir, tag)
 
-    visualizer = Visualizer(cfg)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.yml"), "w") as f:
-        f.write(cfg.dump())
-    batch_size = cfg.loaders.batch_size
+    visualizer = None
+    if lead:
+        visualizer = Visualizer(cfg)
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.yml"), "w") as f:
+            f.write(cfg.dump())
+    rows = group.rows(local_batch) if group else slice(None)
     total_iters = 0
     opt_steps = 0
     r1_interval = int(cfg.loss.get("r1_interval", 1))
@@ -141,30 +187,33 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
             step_kwargs = {}
             if isinstance(model, GANModel):
                 step_kwargs["with_r1"] = r1_interval <= 1 or opt_steps % r1_interval == 0
-            metrics = model.train_step(to_device(batch, device), float(total_iters),
+            local = {k: v[rows] for k, v in batch.items()}
+            metrics = model.train_step(to_device(local, device), float(total_iters),
                                        generator=rng, **step_kwargs)
             opt_steps += 1
             if on_step is not None:
                 on_step(opt_steps, metrics)
 
-            if total_iters % cfg.trainer.display_freq < batch_size:
+            if lead and total_iters % cfg.trainer.display_freq < batch_size:
                 first = to_device({k: v[:1] for k, v in batch.items()}, device)
-                fake = model.eval_step(first["A"], first["slice_idx"], generator=rng)
+                # the target goes to G as ref_img, as in validate
+                fake = model.eval_step(first["A"], first["slice_idx"], generator=vis_rng,
+                                       ref_img=first["B"])
                 # the center slice of the 4-slice input window (channel 1)
                 a_ch = 1 if batch["A"].shape[1] > 1 else 0
                 visualizer.display_current_results(
                     {"real_A": batch["A"][:1, a_ch:a_ch + 1],
                      "fake_B": fake.cpu().numpy(), "real_B": batch["B"][:1]}, epoch)
 
-            if total_iters % cfg.trainer.print_freq < batch_size:
+            if lead and total_iters % cfg.trainer.print_freq < batch_size:
                 values = {k: float(v) for k, v in metrics.items()}
                 t_comp = (time.time() - iter_start) / batch_size
                 visualizer.print_current_losses(epoch, epoch_iter, values,
                                                 t_comp, t_data)
 
             if total_iters % cfg.trainer.save_latest_freq < batch_size:
-                ckpt.save_state(model, run_dir, "latest")
-                val = validate(model, loaders["val"], device, rng)
+                ckpt.save_state(model, run_dir, "latest", group)
+                val = validate(model, loaders["val"], device, vis_rng) if lead else None
                 if val:
                     last_val = val
                     visualizer.plot_val_results(val)
@@ -173,6 +222,8 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
                     if val["ssim"] > ssim_max:
                         ssim_max = val["ssim"]
                         ckpt.save_state(model, run_dir, "best")
+                if group is not None:
+                    group.barrier()
 
             iter_data_time = time.time()
             if max_iters and total_iters >= max_iters:
@@ -180,16 +231,30 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
                 break
 
         if epoch % cfg.trainer.save_epoch_freq == 0:
-            ckpt.save_state(model, run_dir, "latest")
-            ckpt.save_state(model, run_dir, str(epoch))
-        print(f"End of epoch {epoch} / {n_total_epochs} \t "
-              f"Time Taken: {time.time() - epoch_start:.0f} sec", flush=True)
+            ckpt.save_state(model, run_dir, "latest", group)
+            ckpt.save_state(model, run_dir, str(epoch), group)
+        if lead:
+            print(f"End of epoch {epoch} / {n_total_epochs} \t "
+                  f"Time Taken: {time.time() - epoch_start:.0f} sec", flush=True)
         if stop:
             break
 
-    ckpt.save_state(model, run_dir, "latest")      # G_ema's too but for pix2pix
-    final_val = validate(model, loaders["val"], device, rng) or last_val
+    ckpt.save_state(model, run_dir, "latest", group)   # G_ema's too but for pix2pix
+    final_val = None
+    if lead:
+        final_val = validate(model, loaders["val"], device, vis_rng) or last_val
+    if group is not None:
+        group.barrier()
     return final_val or {}
+
+
+def _train_rank(rank: int, world: int, argv, device_type: str) -> None:
+    """One spawned rank of ``main``: the config from the same argv, the
+    rank's device (``cuda:rank`` or the CPU)."""
+    from .config import default_argument_parser
+    cfg = default_argument_parser(list(argv))
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    train(cfg, device=device)
 
 
 def main(argv=None):
@@ -200,9 +265,29 @@ def main(argv=None):
     device = resolve_device(pop_flag(argv, "--device"))
     cfg = default_argument_parser(argv)
     print(cfg.dump())
+    refuse_model_axis(cfg)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:      # under torchrun
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        parallel.group.init_process_group(backend, "env://", int(os.environ["RANK"]),
+                                          int(os.environ["WORLD_SIZE"]))
+        try:
+            return train(cfg, device=device)
+        finally:
+            torch.distributed.destroy_process_group()
+    mesh = parallel.resolve_mesh(cfg.tpu.mesh_shape, cfg.loaders.batch_size, device)
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                 if device.type == "cuda" else ""))
-    return train(cfg, device=device)
+                                 if device.type == "cuda" else "")
+          + (f"; {mesh.shape['data']} ranks over {backend}" if mesh else ""))
+    if mesh is None:
+        return train(cfg, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.spawn(_train_rank, mesh.shape["data"], (argv, device.type),
+                       backend=backend, init_file=os.path.join(tmp, "store"),
+                       device_type=device.type)
+    return {}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ models/base_model.py:144-160), plus
 ``{tag}_optim.pth`` with both Adam states and the step count, which the
 reference drops and the JAX package keeps, so a resume continues the
 optimization exactly. ``afcm_tpu_torch.evaluate`` loads
-``{tag}_net_G_ema.pth``.
+``{tag}_net_G_ema.pth``. In data-parallel training every rank holds the
+same state: rank 0 writes it while the others wait, and every rank loads
+it to resume.
 """
 
 from __future__ import annotations
@@ -36,14 +38,18 @@ def _nets(model):
             if getattr(model, attr, None) is not None}
 
 
-def save_state(model, checkpoint_dir: str, tag: str) -> None:
-    """Write the networks and the optimizer state of ``model``."""
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    for suffix, net in _nets(model).items():
-        _save(_cpu(net.state_dict()),
-              os.path.join(checkpoint_dir, f"{tag}_net_{suffix}.pth"))
-    _save({"opt_G": model.opt_G.state_dict(), "opt_D": model.opt_D.state_dict(),
-           "step": model.step}, os.path.join(checkpoint_dir, f"{tag}_optim.pth"))
+def save_state(model, checkpoint_dir: str, tag: str, group=None) -> None:
+    """Write the networks and the optimizer state of ``model``; with a
+    ``parallel.DataGroup``, rank 0 writes and every rank waits until it has."""
+    if group is None or group.rank == 0:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        for suffix, net in _nets(model).items():
+            _save(_cpu(net.state_dict()),
+                  os.path.join(checkpoint_dir, f"{tag}_net_{suffix}.pth"))
+        _save({"opt_G": model.opt_G.state_dict(), "opt_D": model.opt_D.state_dict(),
+               "step": model.step}, os.path.join(checkpoint_dir, f"{tag}_optim.pth"))
+    if group is not None:
+        group.barrier()
 
 
 def load_state(model, checkpoint_dir: str, tag: str) -> None:

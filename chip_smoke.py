@@ -140,7 +140,27 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    CPU: the outputs within 1e-3 * max|CPU|, every parameter's gradient per
    net as in 13a; grid_sample (built from gathers) against F.grid_sample within
    1e-5 on an affine warp of a [32, 5, 256^2] discriminator input, both
-   timed, and its backward.
+   timed, and its backward;
+15. data parallelism (afcm_tpu_torch.parallel): (a) the train CLI's loop
+   at bf16 b16 as the one rank of an NCCL process group, its losses step by
+   step against 7c's one-process run from the same seed (bit equality
+   printed; held within 1e-3), 28 K1 and 28 K2 launches per step, ms/step
+   beside 7c's; (b) two gloo ranks sharing the card, one fp32 step (TF32
+   off) of the shipped config on a global batch of 16, against one process
+   on the whole batch: losses within rtol 1e-4, each net's all-reduced
+   gradient within 1e-4 in L2 or 10x the float32 rounding floor measured
+   on the card, the collective census per step and K1/K2 launches per rank
+   printed; (c) the phantom served at fp32 over the mesh [cuda:0, cuda:0]
+   (two replicas, 56 K1 launches per batch) within 1e-4 * max of one
+   device's (bit equality printed), and the artifact exported over that
+   mesh served over it within 1e-4 * max of the in-process mesh volume;
+16. tpu.remat: the train step at bf16 b16 and fp32 b16 with remat off, at
+   remat_min_size 148 and at 0, each dtype in a fresh process: peak
+   memory (falling from off to 148 to 0 at bf16; printed at fp32, where
+   cuDNN's workspace policy makes remat raise it, ROADMAP fault C12),
+   ms/step, K1 launches per step (28 + the rematted layers that launch K1;
+   28 K2), and the first step's gradients within 1e-5 * max of remat off
+   (bit equality printed).
 
 Then prints the total seconds, the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
@@ -155,6 +175,7 @@ import argparse
 import contextlib
 import copy
 import functools
+import gc
 import gzip
 import importlib
 import json
@@ -169,7 +190,7 @@ import numpy as np
 import torch
 
 # Fails outside a checkout of the repository, before anything is printed.
-from afcm_tpu_torch import probes, serve
+from afcm_tpu_torch import parallel, probes, serve
 from afcm_tpu_torch import train as train_cli
 from afcm_tpu_torch.data.demo import phantom_test_loader, phantom_train_loaders
 from afcm_tpu_torch.evaluate import (configure_numerics, load_generator_ema,
@@ -187,6 +208,7 @@ from afcm_tpu_torch.ops.cuda import conv_int8 as k3
 from afcm_tpu_torch.ops.cuda import filtered_lrelu as k1
 from afcm_tpu_torch.ops.cuda import probe_int8 as p8
 from afcm_tpu_torch.ops.cuda import probe_stream as ps
+from afcm_tpu_torch.parallel.check import grad_errors, train_step_check
 from afcm_tpu_torch.probes import (element_windows, fir_roofline, int8_kernel,
                                    int8_matmul, stream_diag)
 from afcm_tpu_torch.utils.profiling import cuda_median_ms, cuda_ms
@@ -591,17 +613,19 @@ def check_generator_backward(device):
         raise AssertionError(f"{worst}: max|diff| / max|plain| {ratios[worst]} > 1e-3")
 
 
-def train_config(out_dir, compute_dtype):
+def train_config(out_dir, compute_dtype, *opts):
     """The shipped CMSR training config (configs/adni/stylegan3/cmsr.yml:
     b16, shared G forward, R1 every step, blur sigma 10 fading over 100
-    kimg) with its periodic display, printing and saving turned off."""
+    kimg) with its periodic display, printing and saving turned off, on the
+    one-device mesh [1, 1], and ``opts`` (KEY VALUE ...) over it."""
     from afcm_tpu_torch.config import default_argument_parser
     never = str(10 ** 9)
     return default_argument_parser([
         "--config-file", TRAIN_CONFIG, "tpu.compute_dtype", compute_dtype,
         "checkpoints_dir", out_dir, "name", f"smoke_{compute_dtype}",
         "trainer.display_freq", never, "trainer.print_freq", never,
-        "trainer.save_latest_freq", never, "trainer.save_epoch_freq", never])
+        "trainer.save_latest_freq", never, "trainer.save_epoch_freq", never,
+        "tpu.mesh_shape", "[1, 1]", *opts])
 
 
 class StepMonitor:
@@ -684,6 +708,8 @@ def train_shipped(device, trace_dir=None):
                              f"{LAYERS_WITH_KERNEL} each")
     if not finite:
         raise AssertionError("non-finite losses in the bf16 train steps")
+    reference = {"metrics": monitor.metrics[:WARM_STEPS + WINDOW_STEPS],
+                 "ms_per_step": float(np.median(ms))}
 
     fp32 = StepMonitor(boundaries=(1, 3))
     k1.launches = k1.bwd_launches = 0
@@ -704,7 +730,7 @@ def train_shipped(device, trace_dir=None):
               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
               launches_per_step=sorted(set(fp32.counts)))
     torch.cuda.empty_cache()
-    return os.path.join(out_dir, cfg.name), launches
+    return os.path.join(out_dir, cfg.name), launches, reference
 
 
 def serve_trained(device, run_dir):
@@ -1890,19 +1916,6 @@ def rel_errors(got, want):
             max(float(want[k].abs().max()), 1e-30) for k in want}
 
 
-def grad_errors(got, want):
-    """||got - want|| / ||want|| over all the gradients of each net: the
-    keys "<net>.grad.<parameter>", grouped by <net>."""
-    sums = {}
-    for k in want:
-        if ".grad." in k:
-            num, den = sums.get(k.split(".grad.")[0], (0.0, 0.0))
-            sums[k.split(".grad.")[0]] = (
-                num + float((got[k].double().cpu() - want[k].double().cpu()).square().sum()),
-                den + float(want[k].double().square().sum()))
-    return {net: (num / max(den, 1e-300)) ** 0.5 for net, (num, den) in sums.items()}
-
-
 def card_against_cpu(name, fn, nets, inputs, device, bound=1e-3, **fields):
     """``fn(nets, inputs)`` -> dict of tensors, run on the card (float32,
     TF32 off) and on the CPU with the same weights and inputs. Each forward
@@ -2190,6 +2203,279 @@ def check_motion(device):
     torch.cuda.empty_cache()
 
 
+# -- phase 15: data parallelism ----------------------------------------------------
+
+DP_WORLD = 2                   # 15b: two gloo ranks sharing the card
+# 16: remat off, at the layers that reach 148^2 (16 of 29, 15 of them with
+# K1) and at every layer
+REMAT_SIZES = (None, 148, 0)
+
+
+def train_process_group(device, reference):
+    """Phase 15a: the train CLI's loop on the shipped config at bf16 b16 as
+    the one rank of an NCCL process group (world size 1): every collective
+    of the data-parallel path runs. Its losses step by step against phase
+    7c's one-process run from the same seed; ms/step beside 7c's."""
+    loaders = phantom_train_loaders(depth=6 * TRAIN_BATCH, size=256,
+                                    batch_size=TRAIN_BATCH, seed=SEED)
+    steps = WARM_STEPS + WINDOW_STEPS
+    monitor = StepMonitor(boundaries=(WARM_STEPS, steps))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    cfg = train_config(out_dir, "bfloat16")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            parallel.group.init_process_group("nccl", "file://" + os.path.join(tmp, "store"),
+                                              0, 1, timeout_s=600)
+            try:
+                k1.launches = k1.bwd_launches = 0     # this path's run starts here
+                train_cli.train(cfg, max_iters=TRAIN_BATCH * steps, loaders=loaders,
+                                device=device, on_step=monitor)
+                launches = {"filtered_lrelu": k1.launches, "filtered_lrelu_bwd": k1.bwd_launches}
+            finally:
+                torch.distributed.destroy_process_group()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    got, want = monitor.metrics, reference["metrics"]
+    bit_equal = all(torch.equal(a[k].cpu(), b[k].cpu()) for a, b in zip(got, want) for k in b)
+    rel = max(abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-12)
+              for a, b in zip(got, want) for k in b)
+    ms = 1e3 * (monitor.times[steps] - monitor.times[WARM_STEPS]) / WINDOW_STEPS
+    per_step = sorted(set(monitor.counts))
+    phase("15a train over NCCL, world 1", backend="nccl", world=1, batch=TRAIN_BATCH,
+          compute_dtype="bfloat16", steps=len(got), losses_bit_equal_to_7c=bit_equal,
+          max_rel_loss_diff_vs_7c=rel, ms_per_step=ms, ms_per_step_7c=reference["ms_per_step"],
+          launches_per_step=per_step, launches=launches, losses_finite=monitor.losses_finite())
+    if per_step != [(LAYERS_WITH_KERNEL, LAYERS_WITH_KERNEL)] or not monitor.losses_finite():
+        raise AssertionError(f"15a: K1/K2 launches per step {per_step}, finite "
+                             f"{monitor.losses_finite()}")
+    if len(got) != steps or rel > 1e-3:
+        raise AssertionError(f"15a: {len(got)} steps, losses {rel} from 7c's (> 1e-3)")
+    return launches
+
+
+def shipped_train_step(device, group=None, nudge_seed=None):
+    """One train step of the shipped config at fp32 (TF32 off) on the
+    phantom's first global batch of 16 (``parallel.check.train_step_check``:
+    this rank's slice with a ``group``; every weight and input nudged by the
+    rounding floor with ``nudge_seed``)."""
+    batch = next(iter(phantom_train_loaders(depth=6 * TRAIN_BATCH, size=256,
+                                            batch_size=TRAIN_BATCH, seed=SEED)["train"]))
+    return train_step_check(train_config(tempfile.gettempdir(), "float32"), batch, device,
+                            seed=SEED, draw_seed=SEED + 15, group=group,
+                            nudge_seed=nudge_seed)
+
+
+def data_parallel_rank(rank, world, out_dir, device):
+    """A rank of phase 15b (started by ``parallel.spawn``)."""
+    torch.save(shipped_train_step(device, parallel.DataGroup.current()),
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def check_data_parallel(device):
+    """Phase 15b: two gloo ranks sharing the card take one fp32 step of the
+    shipped config, each on its half of the global batch of 16, against one
+    process on the whole batch from the same seed and weights: the losses
+    within rtol 1e-4, each net's all-reduced gradient within 1e-4 in
+    ||ranks - one|| / ||one||, or within 10x the float32 rounding floor where
+    that is larger (two more one-process steps with every weight and input
+    nudged by a relative 2^-24, as card_against_cpu measures it); the
+    collective census per step and K1/K2 launches per rank printed."""
+    want = shipped_train_step(device)
+    floors = [grad_errors(shipped_train_step(device, nudge_seed=SEED + 16 + i)["grads"],
+                          want["grads"]) for i in range(2)]
+    floor = {net: max(f[net] for f in floors) for net in floors[0]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.spawn(data_parallel_rank, DP_WORLD, (tmp, device), backend="gloo",
+                       init_file=os.path.join(tmp, "store"), device_type=device.type,
+                       timeout_s=900)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    got = ranks[0]
+    loss_rel = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+                for k, v in want["metrics"].items()}
+    err = grad_errors(got["grads"], want["grads"])
+    allowed = {net: max(1e-4, 10 * floor[net]) for net in err}
+    ranks_agree = all(torch.equal(ranks[1]["grads"][k], g) for k, g in got["grads"].items())
+    phase("15b two gloo ranks on one card", backend="gloo", world=DP_WORLD,
+          global_batch=TRAIN_BATCH, compute_dtype="float32", tf32=False,
+          loss_rel_err=loss_rel, grad_rel_l2_err=err, grad_rel_l2_floor=floor,
+          grad_allowed=allowed, ranks_hold_equal_gradients=ranks_agree,
+          census_per_step=got["census"],
+          launches_per_rank=[list(r["launches"]) for r in ranks],
+          one_process_launches=list(want["launches"]), one_process_step_ms=want["ms"],
+          rank_step_ms=[r["ms"] for r in ranks], spawn_s=spawn_s)
+    if max(loss_rel.values()) > 1e-4 or any(err[n] > allowed[n] for n in err):
+        raise AssertionError(f"15b: losses {loss_rel}, gradients {err} (allowed {allowed})")
+    if not ranks_agree or any(tuple(r["launches"]) != (LAYERS_WITH_KERNEL,) * 2
+                              for r in ranks):
+        raise AssertionError(f"15b: ranks agree {ranks_agree}, launches "
+                             f"{[r['launches'] for r in ranks]}")
+    return [list(r["launches"]) for r in ranks]
+
+
+def serve_over_mesh(device):
+    """Phase 15c: the phantom served at fp32 (TF32 off) over the mesh
+    [cuda:0, cuda:0] (two replicas, each batch split in two) against one
+    device; the artifact exported over that mesh served over it within
+    1e-4 * max of the in-process mesh volume."""
+    set_matmul_precision("float32")
+    model = shipped_model("float32")
+    mesh = parallel.make_mesh((2, 1), [device, device])
+    one, batches = served_volume(make_forward_fn(model, device, seed=SEED,
+                                                 norm_range=PHANTOM_RANGE))
+    k1.launches = 0                           # this path's run starts here
+    two, _ = served_volume(make_forward_fn(model, device, seed=SEED,
+                                           norm_range=PHANTOM_RANGE, mesh=mesh))
+    launches = k1.launches
+    exported = export.export_eval(model, SERVE_BATCH, COND_SHAPE, norm_range=PHANTOM_RANGE,
+                                  mesh=mesh)
+    served, _ = served_volume(export.serving_forward(exported, seed=SEED, mesh=mesh))
+    diff = float(np.abs(two - one).max())
+    art_diff = float(np.abs(served - two).max())
+    bound = 1e-4 * float(np.abs(two).max())
+    phase("15c serve over a mesh of two replicas", mesh=[str(d) for d in mesh.data_devices],
+          compute_dtype="float32", batches=batches, volume=list(two.shape),
+          bit_equal_to_one_device=bool(np.array_equal(two, one)),
+          max_abs_diff_vs_one_device=diff, artifact_devices=export.mesh_devices(exported),
+          artifact_max_abs_diff=art_diff, bound=bound, k1_launches=launches)
+    if not (np.isfinite(two).all() and two.shape == PHANTOM_SHAPE and diff <= bound
+            and art_diff <= bound):
+        raise AssertionError(f"15c: mesh volume {diff} from one device's, the artifact's "
+                             f"{art_diff} from the mesh's (bound {bound})")
+    if launches != LAYERS_WITH_KERNEL * 2 * batches:
+        raise AssertionError(f"15c: {launches} K1 launches for {batches} batches over "
+                             "two replicas")
+    return launches
+
+
+# Phase 16 runs each dtype in a fresh process: what an earlier phase left
+# allocated, and the cuDNN plans it cached, would move the peak. In
+# PyTorch's cuDNN v8 path a conv's plan is chosen at its first use with a
+# workspace of up to the device's free memory (at fp32 with TF32 off, an
+# FFT plan of tens of GiB), so the peak depends on the process's history.
+REMAT_SETTINGS = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print(json.dumps(chip_smoke.remat_settings(sys.argv[2])))
+"""
+
+
+def remat_settings(dtype):
+    """Phase 16 at ``dtype`` in this (fresh) process: remat off, at 148 and
+    at 0 in turn, each three train steps of the shipped config at b16 from
+    SEED, collected and the allocator emptied before the next; each
+    setting's first step's gradients against remat off's. Returns the
+    phase's rows."""
+    device = torch.device("cuda")
+    train_cli.init_cublas(device)
+    set_matmul_precision(dtype)
+    loaders = phantom_train_loaders(depth=6 * TRAIN_BATCH, size=256,
+                                    batch_size=TRAIN_BATCH, seed=SEED)
+    batches = [b for _, b in zip(range(3), loaders["train"])]
+    rows, base = [], None
+    for size in REMAT_SIZES:
+        opts = [] if size is None else ["tpu.remat", "True", "tpu.remat_min_size", str(size)]
+        model = build_model(train_config(tempfile.gettempdir(), dtype, *opts),
+                            generator=torch.Generator().manual_seed(SEED))
+        synthesis = model.generator.synthesis
+        rematted = sum(layer.remat and not layer.spec.is_torgb
+                       for layer in synthesis.encoders + synthesis.decoders)
+        model.to(device)
+        grads = {}
+        for net, opt in (("G", model.opt_G), ("D", model.opt_D)):
+            opt.register_step_pre_hook(lambda o, a, kw, net=net: None if net in grads else
+                                       grads.update({net: [p.grad.detach().cpu() for g in
+                                                           o.param_groups
+                                                           for p in g["params"]]}))
+        draws = torch.Generator(device=device).manual_seed(SEED + 16)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        row = dict(compute_dtype=dtype, batch=TRAIN_BATCH, remat=size is not None,
+                   remat_min_size=size, rematted_k1_layers=rematted,
+                   start_mem_gib=torch.cuda.memory_allocated() / 2 ** 30)
+        counts, times = [], []
+        k1.launches = k1.bwd_launches = 0
+        try:
+            for i, batch in enumerate(batches):
+                before = (k1.launches, k1.bwd_launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.train_step(train_cli.to_device(batch, device),
+                                 float(TRAIN_BATCH * (i + 1)), generator=draws)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                counts.append((k1.launches - before[0], k1.bwd_launches - before[1]))
+            row.update(fits=True, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       ms_per_step=float(np.median(times[1:])), step_ms=times,
+                       launches_per_step=sorted(set(counts)),
+                       launches=[k1.launches, k1.bwd_launches],
+                       want_k1_per_step=LAYERS_WITH_KERNEL + rematted)
+        except torch.cuda.OutOfMemoryError as exc:
+            row.update(fits=False, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       error=str(exc).splitlines()[0])
+        if row["fits"] and base is None:
+            base = grads
+        elif row["fits"]:
+            row["grad_max_rel_err_vs_off"] = {
+                net: max(float((a - b).abs().max()) for a, b in zip(grads[net], base[net]))
+                / max(float(b.abs().max()) for b in base[net]) for net in base}
+            row["grads_bit_equal_to_off"] = all(
+                torch.equal(a, b) for net in base for a, b in zip(grads[net], base[net]))
+        rows.append(row)
+        del model, grads
+    return rows
+
+
+def check_remat(device):
+    """Phase 16: the shipped config's train step at bf16 b16 and fp32 b16
+    with tpu.remat off, at remat_min_size 148 and at 0, each dtype in a
+    fresh process (``remat_settings``): one step's gradients against remat
+    off (within 1e-5 * max per net; bit equality printed), the peak memory
+    of three steps, which must fall from off to 148 to 0 at bf16, ms/step
+    (two steps after the first) and K1 launches per step against 28 + the
+    rematted layers that launch K1. At fp32 (TF32 off) the peak is printed,
+    not held: there cuDNN's plans take a workspace sized by the free memory
+    at their first use, the peak measures that choice more than the
+    activations, and remat has read above remat off (ROADMAP fault C12)."""
+    launches = [0, 0]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        proc = subprocess.run([sys.executable, "-c", REMAT_SETTINGS, REPO, dtype], cwd=REPO,
+                              capture_output=True, text=True, timeout=600, check=False)
+        if proc.returncode != 0:
+            raise AssertionError(f"16: the {dtype} process failed:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        peaks = {}
+        for row in json.loads(proc.stdout.strip().splitlines()[-1]):
+            phase("16 remat", **row)
+            size = row["remat_min_size"]
+            if not row["fits"]:
+                continue
+            peaks[size] = row["peak_mem_gib"]
+            launches[0] += row["launches"][0]
+            launches[1] += row["launches"][1]
+            err = row.get("grad_max_rel_err_vs_off", {})
+            if err and max(err.values()) > 1e-5:
+                raise AssertionError(f"16: remat {size} at {dtype}: gradients {err} "
+                                     "from remat off (> 1e-5 * max)")
+            want = [[LAYERS_WITH_KERNEL + row["rematted_k1_layers"], LAYERS_WITH_KERNEL]]
+            if row["launches_per_step"] != want:
+                raise AssertionError(f"16: K1/K2 launches per step "
+                                     f"{row['launches_per_step']}, want {want}")
+        if dtype == "bfloat16" and not (peaks.get(0, float("inf")) < peaks.get(148, 0.0)
+                                        < peaks.get(None, 0.0)):
+            raise AssertionError(f"16: at {dtype} the peak does not fall with remat "
+                                 f"(GiB, off / 148 / 0): {peaks}")
+    return {"filtered_lrelu": launches[0], "filtered_lrelu_bwd": launches[1]}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", metavar="DIR",
@@ -2230,7 +2516,7 @@ def main(argv=None):
 
     bwd_worst, bwd_ms, bwd_plain_ms, bwd_bound = check_backward_variants(device)
     check_generator_backward(device)
-    run_dir, train_launches = train_shipped(device, args.trace)
+    run_dir, train_launches, train_reference = train_shipped(device, args.trace)
     serve_trained(device, run_dir)
     shutil.rmtree(os.path.dirname(run_dir), ignore_errors=True)
 
@@ -2251,6 +2537,10 @@ def main(argv=None):
     check_pix2pix(device)
     train_pix2pix(device)
     check_motion(device)
+    pg_launches = train_process_group(device, train_reference)
+    dp_launches = check_data_parallel(device)
+    mesh_launches = serve_over_mesh(device)
+    remat_launches = check_remat(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},
@@ -2264,7 +2554,11 @@ def main(argv=None):
           export_artifact={"filtered_lrelu": export_launches},
           comodgan_int8={"filtered_lrelu": comodgan_int8[0], "conv_int8": comodgan_int8[1],
                          "quantize_int8": comodgan_int8[2],
-                         "quantize_weights_int8": comodgan_int8[3]})
+                         "quantize_weights_int8": comodgan_int8[3]},
+          train_process_group=pg_launches,
+          train_two_ranks={f"rank{r}": {"filtered_lrelu": k, "filtered_lrelu_bwd": b}
+                           for r, (k, b) in enumerate(dp_launches)},
+          serve_mesh={"filtered_lrelu": mesh_launches}, train_remat=remat_launches)
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
     if not all(int8_launches[1:]):
@@ -2285,7 +2579,8 @@ def main(argv=None):
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:273",
          "binding": "torch.library operator afcm_tpu_torch::filtered_lrelu",
          "launches": serve_launches[0] + train_launches["filtered_lrelu"]
-         + int8_launches[0] + cli_serve_launches + export_launches,
+         + int8_launches[0] + cli_serve_launches + export_launches
+         + pg_launches["filtered_lrelu"] + mesh_launches + remat_launches["filtered_lrelu"],
          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
@@ -2293,7 +2588,8 @@ def main(argv=None):
          "source": "afcm_tpu_torch/csrc/filtered_lrelu_bwd.cu",
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:292",
          "binding": "torch.library operator afcm_tpu_torch::filtered_lrelu_bwd",
-         "launches": train_launches["filtered_lrelu_bwd"],
+         "launches": train_launches["filtered_lrelu_bwd"] + pg_launches["filtered_lrelu_bwd"]
+         + remat_launches["filtered_lrelu_bwd"],
          "max_abs_err": bwd_worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},

@@ -1,0 +1,151 @@
+"""Rank functions for tests/test_torch_parallel.py's gloo process groups.
+
+Each runs in a fresh process that ``afcm_tpu_torch.parallel.spawn`` starts
+and imports only torch, numpy and the port, so that a rank starts fast; the
+test process holds the JAX side and compares. A rank writes what it
+computed under ``out_dir`` as ``r{rank}_...pt``.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from afcm_tpu_torch import parallel
+from afcm_tpu_torch.utils import checkpoint as ckpt
+
+
+def noise(shape):
+    """The noise the CoModGAN steps add where a synthesis layer draws it: a
+    numpy function of the shape (tests/test_torch_comodgan.py:_noise)."""
+    shape = tuple(int(d) for d in shape)
+    return np.random.RandomState(sum(shape) * 7 + shape[-1]).randn(*shape).astype(np.float32)
+
+
+def _local(group, batch):
+    return {k: torch.from_numpy(v[group.rows(len(v) // group.world)])
+            for k, v in batch.items()}
+
+
+def gan_steps(rank, world, model_path, steps, out_dir, replace_noise=False):
+    """``GANModel.train_step`` on this rank's slice of each global batch;
+    ``steps`` holds (batch, global z, cur_nimg, with_r1) per step. Writes
+    (metrics, model, census) after each step."""
+    model = torch.load(model_path, weights_only=False)
+    group = parallel.DataGroup.current()
+    model.distribute(group)
+    if replace_noise:
+        torch.randn = lambda shape, **kw: torch.from_numpy(noise(shape))
+    for step, (batch, z, nimg, with_r1) in enumerate(steps, start=1):
+        metrics = model.train_step(_local(group, batch), nimg, with_r1=with_r1,
+                                   z=torch.from_numpy(z),
+                                   generator=torch.Generator().manual_seed(step))
+        torch.save((metrics, model, group.take_census()),
+                   os.path.join(out_dir, f"r{rank}_s{step}.pt"))
+
+
+def pix2pix_step(rank, world, model_path, batch, masks, alpha, out_dir):
+    """``Pix2PixModel.train_step`` on this rank's slice, with the global
+    batch's dropout masks and penalty weights."""
+    model = torch.load(model_path, weights_only=False)
+    group = parallel.DataGroup.current()
+    model.distribute(group)
+    metrics = model.train_step(_local(group, batch), dropout_masks=masks, gp_alpha=alpha)
+    torch.save((metrics, model), os.path.join(out_dir, f"r{rank}_s1.pt"))
+
+
+def resume(rank, world, argv, out_dir):
+    """The save -> load -> resume round trip. (1) Rank 0 saves a model after
+    one step, every rank loads it into a model built from other weights,
+    and both models take the same next step; (2) the train loop resumes a
+    run from its latest checkpoint, recording each step's ``cur_nimg`` and
+    the step count it starts from."""
+    from afcm_tpu_torch import train as train_cli
+    from afcm_tpu_torch.config import default_argument_parser
+    from afcm_tpu_torch.data.demo import phantom_train_loaders
+    from afcm_tpu_torch.models import GANModel, build_model
+
+    group = parallel.DataGroup.current()
+    cfg = default_argument_parser(list(argv))
+    rng = np.random.RandomState(5)
+    batches = [{"A": rng.randn(2, 4, 64, 64).clip(-1, 1).astype(np.float32),
+                "B": rng.randn(2, 1, 64, 64).clip(-1, 1).astype(np.float32),
+                "slice_idx": rng.rand(2, 1).astype(np.float32)} for _ in range(2)]
+
+    def step(model, i):
+        return model.train_step(_local(group, batches[i]), 2.0 * (i + 1),
+                                generator=torch.Generator().manual_seed(10 + i))
+
+    run_dir = os.path.join(cfg.checkpoints_dir, "round_trip")
+    first = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    first.distribute(group)
+    step(first, 0)
+    ckpt.save_state(first, run_dir, "mid", group)
+    loaded = build_model(cfg, generator=torch.Generator().manual_seed(1))
+    loaded.distribute(group)
+    ckpt.load_state(loaded, run_dir, "mid")
+    metrics = [step(model, 1) for model in (first, loaded)]
+
+    loaders = phantom_train_loaders(depth=8, size=64, batch_size=2)
+    train_cli.train(cfg, max_iters=4, loaders=loaders, device="cpu")
+    seen = []
+    real_step = GANModel.train_step
+
+    def recording_step(self, batch, cur_nimg, **kwargs):
+        seen.append((cur_nimg, self.step))
+        return real_step(self, batch, cur_nimg, **kwargs)
+
+    GANModel.train_step = recording_step
+    resumed = default_argument_parser(list(argv) + ["continue_train", "True"])
+    train_cli.train(resumed, max_iters=4, loaders=loaders, device="cpu")
+    torch.save({"metrics": metrics, "models": (first, loaded), "resumed_steps": seen},
+               os.path.join(out_dir, f"r{rank}_resume.pt"))
+
+
+def statistics_and_penalty(x, w, group=None):
+    """The minibatch std and a train-mode batch norm over the batch (the
+    global one with a ``group``), a nonlinear head, and an R1-like penalty
+    on its input gradient: the output, the gradient and the penalty's
+    gradient, in float64."""
+    from afcm_tpu_torch.nn.layers import MinibatchStdLayer
+    from afcm_tpu_torch.nn.pix2pix import _Norm
+    mbstd = MinibatchStdLayer(group_size=2)
+    norm = _Norm(x.shape[1] + 1, "batch", generator=torch.Generator().manual_seed(0)).double()
+    parallel.attach(mbstd, group)
+    parallel.attach(norm, group)
+    x = x.clone().requires_grad_(True)
+    y = norm(mbstd(x))
+    (g,) = torch.autograd.grad((torch.tanh(y) * w).sum(), x, create_graph=True)
+    (gg,) = torch.autograd.grad(g.square().sum(), x)
+    return y.detach(), g.detach(), gg
+
+
+def collectives(rank, world, x, w, out_dir):
+    """``statistics_and_penalty`` on this rank's rows of the global batch."""
+    group = parallel.DataGroup.current()
+    rows = group.rows(len(x) // world)
+    torch.save(statistics_and_penalty(torch.from_numpy(x[rows]), torch.from_numpy(w[rows]),
+                                      group), os.path.join(out_dir, f"r{rank}_stats.pt"))
+
+
+def fails_or_waits(rank, world, failing_rank):
+    """``failing_rank`` raises; every other rank waits for it at a barrier
+    it never reaches (as a rank whose peer died would)."""
+    if rank == failing_rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    parallel.DataGroup.current().barrier()
+
+
+def sleeps(rank, world, seconds):
+    """Outlasts the timeout it is started with."""
+    import time
+    time.sleep(seconds)
+
+
+def step_check(rank, world, argv, batch, out_dir):
+    """``parallel.check.train_step_check`` as this rank of the group."""
+    from afcm_tpu_torch.config import default_argument_parser
+    from afcm_tpu_torch.parallel.check import train_step_check
+    result = train_step_check(default_argument_parser(list(argv)), batch, "cpu", seed=3,
+                              draw_seed=4, group=parallel.DataGroup.current())
+    torch.save(result, os.path.join(out_dir, f"r{rank}_check.pt"))

@@ -174,9 +174,20 @@ def test_export_pins_conv_impl(tiny, rng, impl):
 
 
 def test_export_mesh_raises(tiny):
+    """Exporting over a mesh with a model axis raises naming ROADMAP item
+    A12c; an artifact exported over a two-device data axis records that
+    count and refuses to serve over another (``afcm_tpu/serve.py:43-51``)."""
+    from afcm_tpu_torch.parallel import make_mesh
     _, model = tiny
-    with pytest.raises(NotImplementedError, match="A12b"):
-        ex.export_eval(model, 2, SHAPE, mesh=object())
+    cpus = ["cpu"] * 4
+    with pytest.raises(NotImplementedError, match="A12c"):
+        ex.export_eval(model, 2, SHAPE, mesh=make_mesh((2, 2), cpus))
+    exported = ex.export_eval(model, 2, SHAPE, mesh=make_mesh((2, 1), cpus))
+    assert ex.mesh_devices(exported) == 2
+    for mesh in (None, make_mesh((4, 1), cpus)):
+        with pytest.raises(ValueError, match="exported over 2 device"):
+            ex.serving_forward(exported, mesh=mesh)
+    assert ex.mesh_devices(ex.export_eval(model, 2, SHAPE)) == 1
 
 
 def _tiny_run(tmp_path):

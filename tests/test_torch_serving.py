@@ -220,20 +220,48 @@ def _tiny_cfg(*opts):
 
 @pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["tpu.mesh_shape", "[2, 2]"]])
 def test_serving_refuses_a_mesh_of_more_than_one_device_naming_a12b(argv):
-    """Both serving CLIs reach ``configure_numerics`` before they load a
-    checkpoint or read data; a mesh of more than one device is refused there
-    (ROADMAP item A12b) instead of serving on one card. The default mesh
-    ``[0, 1]`` (all devices on data: the one card) is accepted."""
+    """Since data-parallel serving was ported (ROADMAP item A12b) a mesh of
+    several devices on its data axis is taken: ``--num-gpus 2`` serves from
+    two replicas (two CPU devices with ``--device cpu``). What both serving
+    CLIs still refuse, in ``configure_numerics`` before they load a
+    checkpoint or read data, is a model axis (tensor parallelism, item
+    A12c). The default mesh ``[0, 1]`` is accepted."""
     from afcm_tpu_torch import serve
-    from afcm_tpu_torch.evaluate import configure_numerics
+    from afcm_tpu_torch.evaluate import configure_numerics, prepare_mesh_state
     from afcm_tpu_torch.evaluate import main as evaluate_main
-    with pytest.raises(NotImplementedError, match="A12b"):
-        configure_numerics(_tiny_cfg(*argv))
-    for cli in (evaluate_main, serve.main):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            cli(["--config-file", os.path.join(REPO, "configs/demo/cmsr_tiny.yml"),
-                 "--device", "cpu", *argv])
+    cfg = _tiny_cfg(*argv)
+    if cfg.tpu.mesh_shape[1] > 1:
+        with pytest.raises(NotImplementedError, match="A12c"):
+            configure_numerics(cfg)
+        for cli in (evaluate_main, serve.main):
+            with pytest.raises(NotImplementedError, match="A12c"):
+                cli(["--config-file", os.path.join(REPO, "configs/demo/cmsr_tiny.yml"),
+                     "--device", "cpu", *argv])
+    else:
+        assert configure_numerics(cfg) == "float32"
+        model = build_eval_model(dict(cfg.model.G))
+        mesh = prepare_mesh_state(cfg, model, torch.device("cpu"))
+        assert mesh.shape == {"data": 2, "model": 1}
     assert configure_numerics(_tiny_cfg()) == "float32"
+    assert prepare_mesh_state(_tiny_cfg(), build_eval_model(dict(cfg.model.G)),
+                              torch.device("cpu")) is None
+
+
+def test_serving_default_mesh_is_one_card_while_training_takes_every_card(monkeypatch):
+    """On a node of four cards the default mesh ``[0, 1]`` trains over all
+    four (``parallel.resolve_mesh``) but serves on one
+    (``evaluate.serving_mesh``); a data axis the config sets serves over
+    that many cards, clamped to a divisor of the batch."""
+    from afcm_tpu_torch import parallel
+    from afcm_tpu_torch.evaluate import serving_mesh
+    cards = [torch.device("cuda", i) for i in range(4)]
+    monkeypatch.setattr(parallel.mesh, "visible_devices", lambda: cards)
+    cuda = torch.device("cuda")
+    assert parallel.resolve_mesh((0, 1), 16, cuda).data_devices == cards
+    assert serving_mesh((0, 1), 16, cuda) is None
+    assert serving_mesh((4, 1), 16, cuda).data_devices == cards
+    assert serving_mesh((3, 1), 16, cuda).data_devices == cards[:2]
+    assert serving_mesh((1, 1), 16, cuda) is None
 
 
 def test_serving_ignores_remat_and_says_matmul_precision_has_no_effect(capsys):

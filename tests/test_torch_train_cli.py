@@ -93,29 +93,77 @@ def _no_loaders(*args, **kwargs):
 
 
 def test_train_refuses_remat_naming_a8(monkeypatch):
-    """``tpu.remat True`` is refused before any data is read: the port's
-    step keeps every activation (ROADMAP item A8), and a run that asked for
-    rematerialization must not silently train without it."""
+    """Since rematerialization was ported (ROADMAP item A8) ``tpu.remat True``
+    is no longer refused: the run reaches its data loading as the default
+    does. What the train CLI still refuses before any data is read is a
+    model axis (tensor parallelism, item A12c)."""
     monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
-    with pytest.raises(NotImplementedError, match="A8"):
+    for extra in (["tpu.remat", "True", "tpu.remat_min_size", "32"], []):
+        with pytest.raises(_Stop):
+            train_cli.main(["--config-file", CONFIG, "--device", "cpu", *extra])
+    with pytest.raises(NotImplementedError, match="A12c"):
         train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True",
-                        "tpu.remat_min_size", "32"])
-    with pytest.raises(_Stop):          # the default trains
-        train_cli.main(["--config-file", CONFIG, "--device", "cpu"])
+                        "tpu.mesh_shape", "[1, 2]"])
 
 
 @pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["tpu.mesh_shape", "[1, 2]"],
                                   ["tpu.mesh_shape", "[4, 1]"]])
 def test_train_refuses_a_mesh_of_more_than_one_device_naming_a12b(monkeypatch, argv):
-    """``--num-gpus 2`` (the mesh [2, 1]) or any mesh of more than one
-    device is refused: data-parallel training is ROADMAP item A12b, and one
-    card must not train in its place without a word. ``[1, 1]`` runs."""
+    """Since data-parallel training was ported (ROADMAP item A12b) a data
+    axis of several devices starts one rank per device: ``--num-gpus 2``
+    two, ``[4, 1]`` the largest divisor of the tiny config's batch of 2,
+    with a warning (gloo ranks on the CPU; the launch is recorded here, not
+    run). A model axis is refused naming item A12c. ``[1, 1]`` trains in
+    this process."""
     monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        train_cli.main(["--config-file", CONFIG, "--device", "cpu", *argv])
+    launched = []
+    monkeypatch.setattr(train_cli.parallel, "spawn",
+                        lambda fn, world, args, **kw: launched.append((world, kw)))
+    if "[1, 2]" in argv:
+        with pytest.raises(NotImplementedError, match="A12c"):
+            train_cli.main(["--config-file", CONFIG, "--device", "cpu", *argv])
+    else:
+        assert train_cli.main(["--config-file", CONFIG, "--device", "cpu", *argv]) == {}
+        ((world, kw),) = launched
+        assert world == 2 and kw["backend"] == "gloo" and kw["device_type"] == "cpu"
     with pytest.raises(_Stop):
         train_cli.main(["--config-file", CONFIG, "--device", "cpu",
                         "tpu.mesh_shape", "[1, 1]"])
+
+
+def test_display_step_passes_the_target_to_ref_mapping_network(tmp_path):
+    """Fault C10: the train loop's display step called ``eval_step`` without
+    ``ref_img``, so a CoModGAN generator whose mapper is the
+    RefMappingNetwork (it maps the target image) raised at the first display
+    step. It passes the batch's first target now, as ``afcm_tpu/train.py:
+    178-181`` does: the tiny CoModGAN with that mapper trains with the
+    display at every step."""
+    from afcm_tpu_torch.config import default_argument_parser
+    from afcm_tpu_torch.config.config import CfgNode
+    cfg = default_argument_parser(["--config-file", CONFIG, "checkpoints_dir", str(tmp_path),
+                                   "model.name", "comodgan", "model.G.netG", "comodgan",
+                                   "trainer.display_freq", "2"])
+    cfg.defrost()       # no shipped config selects this mapper (as C9's)
+    cfg.model.G.mapping_kwargs = CfgNode(dict(
+        name="RefMappingNetwork", img_resolution=64, img_channels=1,
+        channel_base=1024, channel_max=32))
+    cfg.freeze()
+    assert cfg.model.G.mapping_kwargs["name"] == "RefMappingNetwork"
+    loaders = phantom_train_loaders(depth=4, size=64, batch_size=2)
+    shown = []
+    real_display = train_cli.Visualizer.display_current_results
+
+    def display(self, visuals, epoch):
+        shown.append(visuals["fake_B"].shape)
+        return real_display(self, visuals, epoch)
+
+    train_cli.Visualizer.display_current_results = display
+    try:
+        val = train_cli.train(cfg, max_iters=4, loaders=loaders, device="cpu")
+    finally:
+        train_cli.Visualizer.display_current_results = real_display
+    assert shown == [(1, 1, 64, 64)] * 2
+    assert np.isfinite(val["psnr"])
 
 
 def test_train_says_matmul_precision_has_no_effect(monkeypatch, capsys):
