@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..nn import CoModDiscriminator, CoModGenerator, Stylegan3Generator
-from .gan_model import GANConfig, GANModel
+from .gan_model import GANConfig, GANModel, StyleMix
 
 # The generator of configs/adni/stylegan3/cmsr.yml as afcm_tpu.config
 # resolves it (the shipped CMSR model; bench.py:_make_gen builds the same
@@ -186,4 +186,4 @@ def build_eval_model(g_cfg: Dict[str, Any], compute_dtype: str = "float32",
 
 __all__ = ["CMSR_ADNI_G", "GANConfig", "GANModel", "build_discriminator",
            "build_eval_model", "build_gan_model", "build_generator",
-           "build_model", "check_model_name"]
+           "build_model", "check_model_name", "StyleMix"]

@@ -27,13 +27,21 @@ global batch's statistics, each net's gradient is averaged over the ranks
 in one flat all-reduce before it is scrubbed, and the losses returned are
 the global batch's.
 
-Not ported: style mixing (``:162-192``; default off, ROADMAP A8).
+Style mixing (``style_mixing_prob > 0``, ``:162-192``): each train-mode G
+forward maps ``z`` (updating the mapper's ``w_avg``, as the JAX step does
+for both generator families) and a second latent ``z2`` (not updating it),
+and with probability p takes the styles from one ``cutoff`` in
+``[1, num_ws)`` on from ``z2``; ``cutoff`` and the coin are one draw for
+the whole batch, the same on every rank, and ``z2`` is drawn for the global
+batch. A ``StyleMix`` passes the three in, as ``z`` is passed in. The
+``RefMappingNetwork`` mapper maps no latent and raises here, as the JAX
+step does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -69,6 +77,15 @@ class GANConfig:
     blur_fade_kimg: float = 0.0
     style_mixing_prob: float = 0.0
     shared_g_fwd: bool = False
+
+
+class StyleMix(NamedTuple):
+    """The draws of one style-mixing G forward: ``z2`` [N, z_dim] (of the
+    global batch), ``cutoff`` in [1, num_ws) and ``coin`` (mix or not)."""
+
+    z2: torch.Tensor
+    cutoff: Union[int, torch.Tensor]
+    coin: Union[bool, torch.Tensor]
 
 
 def global_metrics(metrics: Dict[str, torch.Tensor],
@@ -152,23 +169,55 @@ class GANModel:
     def _run_d(self, img, c, sigma):
         return self.discriminator(self._blur(img, sigma), c)
 
+    def _run_g(self, z, c, cond_img, ref_img, generator, mix: Optional[StyleMix]):
+        """A train-mode G forward (``afcm_tpu/models/gan_model.py:149-160``),
+        with style mixing when the config asks for it."""
+        gen = self.generator
+        if self.config.style_mixing_prob <= 0:
+            return gen(z, c, cond_img, ref_img=ref_img, train=True, generator=generator)
+        # afcm_tpu/models/gan_model.py:162-192: the mapping of z updates
+        # w_avg, the mapping of z2 does not
+        ws = gen.mapping(z, c, update_w_avg=True)
+        num_ws = ws.shape[1]
+        if mix is None:
+            mix = self._draw_mix(z, num_ws, generator)
+        elif self.group is not None:
+            mix = mix._replace(z2=self.group.local(mix.z2))
+        ws2 = gen.mapping(mix.z2, c, update_w_avg=False)
+        cutoff = torch.as_tensor(mix.cutoff, device=ws.device)
+        coin = torch.as_tensor(mix.coin, device=ws.device)
+        mask = (torch.arange(num_ws, device=ws.device) >= cutoff) & coin
+        ws = torch.where(mask[None, :, None], ws2, ws)
+        return gen.synthesis(ws, cond_img, train=True, generator=generator)
+
+    def _draw_mix(self, z, num_ws: int, generator) -> StyleMix:
+        """The style-mixing draws from the step's generator: ``z2`` for the
+        global batch (this rank's rows), then one cutoff and one coin,
+        which every rank draws alike from its copy of the stream."""
+        z2 = parallel.randn(tuple(z.shape), generator, z.device)
+        scalar = generator.generator if isinstance(generator, parallel.GlobalDraws) \
+            else generator
+        cutoff = torch.randint(1, num_ws, (), generator=scalar, device=z.device)
+        coin = torch.rand((), generator=scalar, device=z.device) < self.config.style_mixing_prob
+        return StyleMix(z2, cutoff, coin)
+
     # -- the train step --------------------------------------------------------
 
     def train_step(self, batch: Dict[str, torch.Tensor], cur_nimg: float,
                    with_r1: bool = True, z: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   mix: Union[StyleMix, Sequence[StyleMix], None] = None
                    ) -> Dict[str, torch.Tensor]:
         """One D + G + EMA step on ``batch`` ({"A", "B", "slice_idx"} on the
         model's device, this rank's slice); ``cur_nimg`` is the image count
         after this batch. ``z`` [N, z_dim] (of the global batch) and the
         co-modulation dropout masks are drawn from ``generator`` (a
         ``torch.Generator`` on the device, seeded alike on every rank)
-        unless ``z`` is given. Returns the losses as 0-d tensors, left on
-        the device."""
+        unless ``z`` is given; so are the style-mixing draws unless ``mix``
+        gives them: one ``StyleMix`` for every G forward of the step, or
+        one per forward (the D phase's, then the G phase's). Returns the
+        losses as 0-d tensors, left on the device."""
         cfg = self.config
-        if cfg.style_mixing_prob > 0:
-            raise NotImplementedError("style mixing (style_mixing_prob > 0) is "
-                                      "not ported yet (ROADMAP item A8)")
         gen, disc = self.generator, self.discriminator
         real_a, real_b = batch["A"], batch["B"]
         c = self._cond(batch)
@@ -182,18 +231,20 @@ class GANModel:
                                            cfg.blur_fade_kimg)
         params_g = list(gen.parameters())
         params_d = list(disc.parameters())
+        mixes = [mix, mix] if mix is None or isinstance(mix, StyleMix) else list(mix)
+
+        def run_g(mix):
+            return self._run_g(z, c, real_a, real_b, generator, mix)
 
         # ---- D phase (G frozen; reference stylegan3_model.py:117-125) ----
         if cfg.shared_g_fwd:
             # One forward serves both phases: its graph is kept and the G
             # head's gradient flows back through it after the D update.
-            fake_shared = gen(z, c, real_a, ref_img=real_b, train=True,
-                              generator=generator)
+            fake_shared = run_g(mixes[0])
             fake_d = fake_shared.detach()
         else:
             with torch.no_grad():
-                fake_d = gen(z, c, real_a, ref_img=real_b, train=True,
-                             generator=generator)
+                fake_d = run_g(mixes[0])
 
         real_ab = self._d_input(real_a, real_b)
         r1_on = cfg.lambda_r1 > 0 and with_r1
@@ -212,8 +263,7 @@ class GANModel:
         self._step(self.opt_D, params_d, loss_d)
 
         # ---- G phase, through the updated D (stylegan3_model.py:126-135) ----
-        fake_b = fake_shared if cfg.shared_g_fwd else \
-            gen(z, c, real_a, ref_img=real_b, train=True, generator=generator)
+        fake_b = fake_shared if cfg.shared_g_fwd else run_g(mixes[-1])
         gen_logits = self._run_d(self._d_input(real_a, fake_b), c, sigma)
         loss_g_gan = losses.softplus_g_loss(gen_logits)
         loss_g_l1 = losses.l1_loss(self._blur(fake_b, sigma),

@@ -1,14 +1,17 @@
 """StyleGAN2 discriminator (``afcm_tpu/nn/discriminator.py``).
 
-The resnet block pyramid (``b256`` ... ``b8``: ``fromrgb`` on the first
-block, ``skip`` at gain √0.5, ``conv0``, ``conv1`` at stride 2), the
-minibatch-stddev epilogue ``b4`` (``mbstd``, ``conv``, ``fc``, ``out``) and
-the projection conditioning through a label-only ``mapping`` network when
-``c_dim > 0``. Module names are the JAX package's, so
-``afcm_tpu.utils.port.variables_to_state_dict`` loads its weights strictly.
-Only the ``resnet`` architecture is ported: ``build_discriminator`` in both
-packages never selects another. The blocks run in ``compute_dtype``; the
-epilogue runs in float32 (``:85``).
+The block pyramid (``b256`` ... ``b8``), the minibatch-stddev epilogue
+``b4`` (``mbstd``, ``conv``, ``fc``, ``out``) and the projection
+conditioning through a label-only ``mapping`` network when ``c_dim > 0``.
+``architecture`` is that of StyleGAN2: ``resnet`` (``fromrgb`` on the first
+block, ``skip`` at gain √0.5, ``conv0``, ``conv1`` at stride 2), ``skip``
+(a ``fromrgb`` on every block and in the epilogue, the image carried down
+by ``downsample2d``) or ``orig`` (``fromrgb`` on the first block, no
+residual). ``build_discriminator`` in both packages selects ``resnet``
+alone; the others are reached by constructing the network. Module names are
+the JAX package's, so ``afcm_tpu.utils.port.variables_to_state_dict`` loads
+its weights strictly. The blocks run in ``compute_dtype``; the epilogue
+runs in float32 (``:85``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import downsample2d, setup_filter
 from .layers import Conv2dLayer, FullyConnected, MinibatchStdLayer
 from .mapping import MappingNetwork
 
@@ -26,22 +30,30 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class DiscriminatorBlock(nn.Module):
-    """Resnet block (``afcm_tpu/nn/discriminator.py:21-68``)."""
+    """``afcm_tpu/nn/discriminator.py:21-68``: ``forward(x, img)`` returns
+    the features at half the resolution and the image the next block reads
+    (the ``skip`` architecture's, downsampled; None otherwise)."""
 
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
-                 resolution: int, img_channels: int,
+                 resolution: int, img_channels: int, architecture: str = "resnet",
                  conv_clamp: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if architecture not in ("orig", "skip", "resnet"):
+            raise ValueError(f"discriminator architecture {architecture!r}")
         self.in_channels = in_channels
         self.resolution = resolution
+        self.architecture = architecture
+        # the resample filter of Conv2dLayer's down=2 convs, for the image too
+        self.resample_filter = setup_filter([1, 3, 3, 1])
         common = dict(generator=generator)
-        if in_channels == 0:
+        if in_channels == 0 or architecture == "skip":
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
                                        activation="lrelu", conv_clamp=conv_clamp,
                                        **common)
-        self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1,
-                                use_bias=False, down=2, **common)
+        if architecture == "resnet":
+            self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1,
+                                    use_bias=False, down=2, **common)
         self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, kernel_size=3,
                                  activation="lrelu", conv_clamp=conv_clamp,
                                  **common)
@@ -53,18 +65,22 @@ class DiscriminatorBlock(nn.Module):
         if x is not None:
             assert x.shape[1:] == (self.in_channels, self.resolution,
                                    self.resolution)
-        if self.in_channels == 0:
+        if self.in_channels == 0 or self.architecture == "skip":
             y = self.fromrgb(img)
             x = x + y if x is not None else y
-        y = self.skip(x, gain=np.sqrt(0.5))
-        x = self.conv1(self.conv0(x), gain=np.sqrt(0.5))
-        return y + x
+            img = downsample2d(img, self.resample_filter) \
+                if self.architecture == "skip" else None
+        if self.architecture == "resnet":
+            y = self.skip(x, gain=np.sqrt(0.5))
+            return y + self.conv1(self.conv0(x), gain=np.sqrt(0.5)), img
+        return self.conv1(self.conv0(x)), img
 
 
 class DiscriminatorEpilogue(nn.Module):
     """4x4 head (``afcm_tpu/nn/discriminator.py:71-106``), in float32."""
 
     def __init__(self, in_channels: int, cmap_dim: int, resolution: int,
+                 img_channels: int, architecture: str = "resnet",
                  mbstd_group_size: Optional[int] = 4,
                  mbstd_num_channels: int = 1,
                  conv_clamp: Optional[float] = None,
@@ -73,7 +89,11 @@ class DiscriminatorEpilogue(nn.Module):
         self.in_channels = in_channels
         self.cmap_dim = cmap_dim
         self.resolution = resolution
+        self.architecture = architecture
         self.mbstd_num_channels = mbstd_num_channels
+        if architecture == "skip":
+            self.fromrgb = Conv2dLayer(img_channels, in_channels, kernel_size=1,
+                                       activation="lrelu", generator=generator)
         if mbstd_num_channels > 0:
             self.mbstd = MinibatchStdLayer(group_size=mbstd_group_size,
                                            num_channels=mbstd_num_channels)
@@ -85,9 +105,11 @@ class DiscriminatorEpilogue(nn.Module):
         self.out = FullyConnected(in_channels, 1 if cmap_dim == 0 else cmap_dim,
                                   generator=generator)
 
-    def forward(self, x, cmap):
+    def forward(self, x, img, cmap):
         assert x.shape[1:] == (self.in_channels, self.resolution, self.resolution)
         x = x.float()
+        if self.architecture == "skip":
+            x = x + self.fromrgb(img.float())
         if self.mbstd_num_channels > 0:
             x = self.mbstd(x)
         x = self.conv(x)
@@ -103,6 +125,7 @@ class CoModDiscriminator(nn.Module):
     and label c [N, c_dim] -> logits [N, 1]."""
 
     def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
+                 architecture: str = "resnet",
                  channel_base: int = 32768, channel_max: int = 512,
                  conv_clamp: Optional[float] = None,
                  cmap_dim: Optional[int] = None,
@@ -122,7 +145,7 @@ class CoModDiscriminator(nn.Module):
             in_channels = self.channels(res) if res < img_resolution else 0
             self.add_module(f"b{res}", DiscriminatorBlock(
                 in_channels, self.channels(res), self.channels(res // 2),
-                resolution=res, img_channels=img_channels,
+                resolution=res, img_channels=img_channels, architecture=architecture,
                 conv_clamp=conv_clamp, generator=generator))
         if c_dim > 0:
             mapping_kwargs = {k: v for k, v in dict(mapping_kwargs or {}).items()
@@ -134,7 +157,9 @@ class CoModDiscriminator(nn.Module):
         epilogue_kwargs = {k: v for k, v in dict(epilogue_kwargs or {}).items()
                            if k in ("mbstd_group_size", "mbstd_num_channels")}
         self.b4 = DiscriminatorEpilogue(self.channels(4), cmap_dim=cmap_dim,
-                                        resolution=4, conv_clamp=conv_clamp,
+                                        resolution=4, img_channels=img_channels,
+                                        architecture=architecture,
+                                        conv_clamp=conv_clamp,
                                         generator=generator, **epilogue_kwargs)
 
     @property
@@ -149,6 +174,6 @@ class CoModDiscriminator(nn.Module):
         x = None
         img = img.to(self.compute_dtype)
         for res in self.block_resolutions:
-            x = getattr(self, f"b{res}")(x, img)
+            x, img = getattr(self, f"b{res}")(x, img)
         cmap = self.mapping(None, c) if self.c_dim > 0 else None
-        return self.b4(x, cmap)
+        return self.b4(x, img, cmap)

@@ -477,8 +477,8 @@ class StyleGANVDiscriminator(nn.Module):
         epilogue_kwargs = {k: v for k, v in dict(epilogue_kwargs or {}).items()
                            if k in ("mbstd_group_size", "mbstd_num_channels")}
         self.b4 = DiscriminatorEpilogue(self.channels(4), cmap_dim=cmap_dim, resolution=4,
-                                        conv_clamp=conv_clamp, generator=generator,
-                                        **epilogue_kwargs)
+                                        img_channels=img_channels, conv_clamp=conv_clamp,
+                                        generator=generator, **epilogue_kwargs)
 
     def channels(self, res: int) -> int:
         return min(self.channel_base // res, self.channel_max)
@@ -494,5 +494,5 @@ class StyleGANVDiscriminator(nn.Module):
             if res == self.concat_res:
                 x = x.reshape(-1, self.num_frames, *x.shape[1:])
                 x = x.reshape(x.shape[0], -1, *x.shape[3:])
-            x = getattr(self, f"b{res}")(x, img)
-        return self.b4(x, self.mapping(None, c))
+            x, img = getattr(self, f"b{res}")(x, img)
+        return self.b4(x, img, self.mapping(None, c))

@@ -14,11 +14,12 @@ from .filtered_lrelu import filtered_lrelu
 from .grid_sample import grid_sample
 from .modulated_conv import (conv2d, get_conv_impl, modulated_conv2d,
                              modulated_conv2d_resample, set_conv_impl)
-from .upfirdn2d import gaussian_blur2d, upfirdn2d, upsample2d
+from .upfirdn2d import downsample2d, filter2d, gaussian_blur2d, upfirdn2d, upsample2d
 
 __all__ = [
     "activation_funcs", "bias_act", "conv2d", "conv2d_resample",
-    "design_lowpass_filter", "filter_size", "filtered_lrelu", "gaussian_blur2d",
+    "design_lowpass_filter", "downsample2d", "filter2d", "filter_size",
+    "filtered_lrelu", "gaussian_blur2d",
     "grid_sample",
     "get_conv_impl", "modulated_conv2d", "modulated_conv2d_resample",
     "set_conv_impl", "setup_filter", "upfirdn2d", "upsample2d",

@@ -32,7 +32,6 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from .. import conv2d_gradfix
 
@@ -363,8 +362,10 @@ def conv3x3_int8(x, w, padding: int = 1, extra_scale=None):
 
 
 class _Conv3x3Int8STE(torch.autograd.Function):
-    """K4: int8 forward, straight-through fp32 conv backward. First order
-    only."""
+    """K4: int8 forward, straight-through fp32 conv backward. The backward
+    is made of ``conv2d_gradfix``'s differentiable adjoints, so a second
+    derivative (R1 through a routed discriminator conv) is that of the fp32
+    conv, as JAX differentiates the ``custom_vjp``'s backward rule."""
 
     @staticmethod
     def forward(ctx, x, w, padding):
@@ -373,7 +374,6 @@ class _Conv3x3Int8STE(torch.autograd.Function):
         return conv3x3_int8(x, w, padding)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         conf = ((1, 1), (ctx.padding, ctx.padding), 1)

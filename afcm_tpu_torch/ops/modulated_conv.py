@@ -29,8 +29,11 @@ from .cuda.conv_int8 import conv3x3_int8_ste, int8_routable
 # Quantized inference path: 'int8' routes the 3x3 convs of the gate below to
 # the int8 conv kernel; 'int8_all' routes every eligible conv (experiments);
 # 'xla' is the float conv (the name the shared configs and docs use for it).
-# Training is safe under int8 (straight-through fp32 backward), but the knob
-# is meant for inference and only the evaluate CLI sets it.
+# The train step runs under int8 too: K4's straight-through backward is the
+# fp32 conv adjoint, itself differentiable, so R1's double backward crosses
+# the discriminator's routed convs as JAX's does (tests/test_torch_int8_train.py,
+# chip_smoke.py phase 18). Only the serving CLIs read tpu.conv_int8, as in
+# afcm_tpu; a train step runs under it where set_conv_impl is called.
 _CONV_IMPL = "xla"
 _CONV_INT8_MIN_CH = 64
 

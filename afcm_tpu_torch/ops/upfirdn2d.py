@@ -7,7 +7,9 @@ separable pass is one depthwise conv (``depthwise_conv2d``).
 
 ``gaussian_blur2d`` (``:306-333``) is the training blur fade on the
 discriminator's inputs and the L1 targets; ``upsample2d`` (``:283-292``)
-carries the CoModGAN skip image up a resolution.
+carries the CoModGAN skip image up a resolution, ``downsample2d``
+(``:295-303``) the ``skip`` discriminator's image down one; ``filter2d``
+(``:273-280``) filters at the input's size.
 
 Not ported: the banded-matmul route (``:110-145``, ``:176-181``), which is
 TPU routing, and the custom VJP (``:217-270``). That VJP exists to keep the
@@ -143,6 +145,27 @@ def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
          pady0 + (fh + upy - 1) // 2, pady1 + (fh - upy) // 2]
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
                      gain=gain * upx * upy)
+
+
+def filter2d(x, f, padding=0, flip_filter=False, gain=1):
+    """Filter NCHW images with the FIR filter f, the output padded to the
+    input's size (``afcm_tpu/ops/upfirdn2d.py:273-280``)."""
+    padx0, padx1, pady0, pady1 = parse_padding(padding)
+    fw, fh = filter_size(_as_np_filter(f))
+    p = [padx0 + fw // 2, padx1 + (fw - 1) // 2,
+         pady0 + fh // 2, pady1 + (fh - 1) // 2]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
+
+
+def downsample2d(x, f, down=2, padding=0, flip_filter=False, gain=1):
+    """Downsample NCHW images by an integer factor with the FIR filter f
+    (``afcm_tpu/ops/upfirdn2d.py:295-303``)."""
+    downx, downy = parse_scaling(down)
+    padx0, padx1, pady0, pady1 = parse_padding(padding)
+    fw, fh = filter_size(_as_np_filter(f))
+    p = [padx0 + (fw - downx + 1) // 2, padx1 + (fw - downx) // 2,
+         pady0 + (fh - downy + 1) // 2, pady1 + (fh - downy) // 2]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)
 
 
 def gaussian_blur2d(x, sigma, max_radius: int):

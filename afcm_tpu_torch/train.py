@@ -107,6 +107,33 @@ def init_cublas(device) -> None:
         (x @ x).sum().backward()
 
 
+# cuDNN's workspace cap for the train path's float32 convolutions, in MiB
+CONV_WORKSPACE_MIB = 4096
+
+
+def bound_conv_workspace(device, compute_dtype: str) -> bool:
+    """At float32 (TF32 off) on a card, cap the workspace of every cuDNN
+    convolution this process plans at ``CONV_WORKSPACE_MIB``: PyTorch's
+    legacy cuDNN interface, whose algorithm queries cuDNN bounds by
+    ``CUDNN_CONV_WSCAP_DBG``. Its default interface plans each conv at first
+    use with a workspace of up to the free memory: an FFT plan of the
+    shipped config's 362-channel 148^2 conv took 48 GiB, so the float32
+    step's peak measured that plan more than the activations, and remat,
+    which runs the forward convs again inside the backward on top of the
+    live activations, raised it (ROADMAP C12). At bfloat16 the default
+    planning stays: its workspaces are small, and the legacy interface's
+    algorithms took the bf16 step 2.3x longer. The interface is chosen when
+    the process plans its first convolution, so this acts only before it,
+    and the variables pass to the processes this one starts: the train
+    CLI's entry (``main``) sets them, not ``train``, which may run in a
+    process that serves too. Returns whether the cap was set."""
+    if torch.device(device).type != "cuda" or compute_dtype != "float32":
+        return False
+    os.environ["TORCH_CUDNN_V8_API_DISABLED"] = "1"
+    os.environ["CUDNN_CONV_WSCAP_DBG"] = str(CONV_WORKSPACE_MIB)
+    return True
+
+
 def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
           on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None
           ) -> Dict[str, float]:
@@ -266,6 +293,8 @@ def main(argv=None):
     cfg = default_argument_parser(argv)
     print(cfg.dump())
     refuse_model_axis(cfg)
+    # before this process's first conv; the ranks it starts inherit it
+    bound_conv_workspace(device, cfg.tpu.compute_dtype)
     backend = "nccl" if device.type == "cuda" else "gloo"
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:      # under torchrun
         if device.type == "cuda":

@@ -8,7 +8,8 @@ generator, the CMSR training step of that generator and its discriminator,
 the int8 serving path (tpu.conv_int8 True), all at full width and depth
 (random weights from a seed), the five measurement probes, the serve entry
 point's loop, the serving export, the CoModGAN baseline's serving,
-int8 and training paths, and the pix2pix baseline's training, with the
+int8 and training paths, the pix2pix baseline's training, and the CMSR
+train step under remat, with style mixing and under the int8 conv, with the
 StyleGAN-V family and grid_sample held against the CPU — and checks the
 hand-written kernels on them: K1
 and K2 (the fused filtered leaky ReLU forward and backward, bound as the
@@ -154,13 +155,32 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    (two replicas, 56 K1 launches per batch) within 1e-4 * max of one
    device's (bit equality printed), and the artifact exported over that
    mesh served over it within 1e-4 * max of the in-process mesh volume;
-16. tpu.remat: the train step at bf16 b16 and fp32 b16 with remat off, at
-   remat_min_size 148 and at 0, each dtype in a fresh process: peak
-   memory (falling from off to 148 to 0 at bf16; printed at fp32, where
-   cuDNN's workspace policy makes remat raise it, ROADMAP fault C12),
-   ms/step, K1 launches per step (28 + the rematted layers that launch K1;
-   28 K2), and the first step's gradients within 1e-5 * max of remat off
-   (bit equality printed).
+16. tpu.remat and the train path's conv workspace (ROADMAP C12): the train
+   step at bf16 b16 and fp32 b16, each (dtype, workspace policy, remat
+   setting) in a fresh process: at fp32 PyTorch's default cuDNN planning
+   ("plain") at remat off and 0, then the train path's policy
+   (train.bound_conv_workspace, "train": a 4 GiB cap at fp32, the default
+   at bf16) at off, 148 and 0; the peak over a step after a warm one and
+   ms/step printed per setting; under the train path's policy, at both
+   dtypes, the peak falls from off to 148 to 0, K1 launches per step are 28
+   + the rematted layers that launch K1 (28 K2), and the first step's
+   gradients are within 1e-5 * max of remat off (bit equality printed); at
+   fp32 its remat-off gradients within 1e-3 * max of the plain ones, and
+   the plain policy's remat-0 gradients within 1e-3 * max of its remat-off
+   ones (each fresh process plans its own algorithms there);
+17. style mixing (style_mixing_prob 0.9) in the shipped config's train
+   step at bf16 b16: with the coin false and the draws given, the step
+   equals the unmixed one (losses and gradients within 1e-5 * max); with
+   it true the styles from the cutoff on are the second latent's mapping;
+   the mixed step drawing its own draws: 28 K1 and 28 K2 per step, ms/step
+   and peak beside the unmixed step's;
+18. the shipped config's train step at bf16 b16 under conv impl 'int8'
+   (K4 in training: K3 and its quantizers forward, the fp32 conv adjoint
+   backward, also in R1's double backward through D's routed convs): K3
+   and each quantizer launched once per routed conv of each step, every
+   routed conv's backward (dx, dw) in the step within 1e-4 in relative L2
+   of the fp32 conv adjoint at its own inputs, G's gradients >= 30 dB from
+   the float step's, ms/step and peak beside it.
 
 Then prints the total seconds, the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
@@ -174,6 +194,7 @@ anything loaded jax, flax, optax or the JAX package afcm_tpu.
 import argparse
 import contextlib
 import copy
+import dataclasses
 import functools
 import gc
 import gzip
@@ -197,8 +218,8 @@ from afcm_tpu_torch.evaluate import (configure_numerics, load_generator_ema,
                                      make_forward_fn, normalize_uint8, serve_and_score,
                                      set_matmul_precision)
 from afcm_tpu_torch.infer import export
-from afcm_tpu_torch.models import (CMSR_ADNI_G, build_eval_model, build_generator,
-                                   build_model)
+from afcm_tpu_torch.models import (CMSR_ADNI_G, StyleMix, build_eval_model,
+                                   build_generator, build_model)
 from afcm_tpu_torch.models.losses import gan_loss, l1_loss
 from afcm_tpu_torch.nn import motion
 from afcm_tpu_torch.ops import (conv2d_gradfix, get_conv_impl, grid_sample, modulated_conv,
@@ -2279,11 +2300,16 @@ def check_data_parallel(device):
     ||ranks - one|| / ||one||, or within 10x the float32 rounding floor where
     that is larger (two more one-process steps with every weight and input
     nudged by a relative 2^-24, as card_against_cpu measures it); the
-    collective census per step and K1/K2 launches per rank printed."""
+    collective census per step and K1/K2 launches per rank printed. This
+    process gives its cached memory back before the ranks start: its fp32
+    steps leave tens of GiB in the allocator's cache, and a rank that plans
+    its convs beside them runs out of memory."""
     want = shipped_train_step(device)
     floors = [grad_errors(shipped_train_step(device, nudge_seed=SEED + 16 + i)["grads"],
                           want["grads"]) for i in range(2)]
     floor = {net: max(f[net] for f in floors) for net in floors[0]}
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         parallel.spawn(data_parallel_rank, DP_WORLD, (tmp, device), backend="gloo",
@@ -2350,130 +2376,421 @@ def serve_over_mesh(device):
     return launches
 
 
-# Phase 16 runs each dtype in a fresh process: what an earlier phase left
-# allocated, and the cuDNN plans it cached, would move the peak. In
-# PyTorch's cuDNN v8 path a conv's plan is chosen at its first use with a
-# workspace of up to the device's free memory (at fp32 with TF32 off, an
-# FFT plan of tens of GiB), so the peak depends on the process's history.
-REMAT_SETTINGS = """
+# Phase 16 runs each (dtype, workspace policy, remat) in a fresh process:
+# what an earlier setting left allocated, and the cuDNN plans it cached,
+# would move the peak. Under PyTorch's default cuDNN planning ("plain") a
+# conv's plan is chosen at its first use with a workspace of up to the free
+# memory (at fp32 with TF32 off an FFT plan of 48 GiB for the 362-channel
+# 148^2 conv), so the fp32 peak measured the plans more than the
+# activations and remat raised it (ROADMAP C12). "train" is the train
+# path's policy (train.bound_conv_workspace, set before the process's first
+# conv): a 4 GiB cap at fp32, the default planning at bf16. The plain runs
+# at fp32 are the repair's "before", at remat off and 0.
+WORKSPACE_POLICIES = {"bfloat16": (("train", REMAT_SIZES),),
+                      "float32": (("plain", (None, 0)), ("train", REMAT_SIZES))}
+# remat's first-step gradients from remat off, per policy (times max): the
+# train policy's planning is fixed, so remat changes no algorithm; under
+# the plain one each fresh process plans by its own free memory, and two
+# algorithms are held as phase 7b holds two implementations of the step
+REMAT_GRAD_BOUND = {"train": 1e-5, "plain": 1e-3}
+REMAT_SETTING = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-print(json.dumps(chip_smoke.remat_settings(sys.argv[2])))
+size = None if sys.argv[4] == "off" else int(sys.argv[4])
+print(json.dumps(chip_smoke.remat_setting(sys.argv[2], sys.argv[3], size, sys.argv[5])))
 """
 
 
-def remat_settings(dtype):
-    """Phase 16 at ``dtype`` in this (fresh) process: remat off, at 148 and
-    at 0 in turn, each three train steps of the shipped config at b16 from
-    SEED, collected and the allocator emptied before the next; each
-    setting's first step's gradients against remat off's. Returns the
-    phase's rows."""
+def first_step_grads(model):
+    """The gradients each net's optimizer steps on first, kept on the host
+    (a pre-hook on both optimizers; the step's scrubbed, averaged gradient)."""
+    grads = {}
+    for net, opt in (("G", model.opt_G), ("D", model.opt_D)):
+        opt.register_step_pre_hook(lambda o, a, kw, net=net: None if net in grads else
+                                   grads.update({net: [p.grad.detach().cpu() for g in
+                                                       o.param_groups
+                                                       for p in g["params"]]}))
+    return grads
+
+
+def grad_max_rel_err(got, want):
+    """Per net, max |got - want| over max |want|."""
+    return {net: max(float((a - b).abs().max()) for a, b in zip(got[net], want[net]))
+            / max(float(b.abs().max()) for b in want[net]) for net in want}
+
+
+def remat_setting(dtype, policy, size, grads_dir):
+    """Phase 16, one setting in this (fresh) process: the workspace policy,
+    then three train steps of the shipped config at b16 from SEED with
+    remat off (``size`` None) or at ``remat_min_size`` ``size``; the peak is
+    read over the second step (reset after the first), ms/step is the
+    median of the second and third. The first step's gradients go to
+    ``grads_dir`` at remat off and are held against them otherwise, and the
+    train policy's remat-off gradients against the plain policy's where it
+    ran."""
     device = torch.device("cuda")
+    capped = policy == "train" and train_cli.bound_conv_workspace(device, dtype)
     train_cli.init_cublas(device)
     set_matmul_precision(dtype)
     loaders = phantom_train_loaders(depth=6 * TRAIN_BATCH, size=256,
                                     batch_size=TRAIN_BATCH, seed=SEED)
     batches = [b for _, b in zip(range(3), loaders["train"])]
-    rows, base = [], None
-    for size in REMAT_SIZES:
-        opts = [] if size is None else ["tpu.remat", "True", "tpu.remat_min_size", str(size)]
-        model = build_model(train_config(tempfile.gettempdir(), dtype, *opts),
-                            generator=torch.Generator().manual_seed(SEED))
-        synthesis = model.generator.synthesis
-        rematted = sum(layer.remat and not layer.spec.is_torgb
-                       for layer in synthesis.encoders + synthesis.decoders)
-        model.to(device)
-        grads = {}
-        for net, opt in (("G", model.opt_G), ("D", model.opt_D)):
-            opt.register_step_pre_hook(lambda o, a, kw, net=net: None if net in grads else
-                                       grads.update({net: [p.grad.detach().cpu() for g in
-                                                           o.param_groups
-                                                           for p in g["params"]]}))
-        draws = torch.Generator(device=device).manual_seed(SEED + 16)
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        row = dict(compute_dtype=dtype, batch=TRAIN_BATCH, remat=size is not None,
-                   remat_min_size=size, rematted_k1_layers=rematted,
-                   start_mem_gib=torch.cuda.memory_allocated() / 2 ** 30)
-        counts, times = [], []
-        k1.launches = k1.bwd_launches = 0
-        try:
-            for i, batch in enumerate(batches):
-                before = (k1.launches, k1.bwd_launches)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                model.train_step(train_cli.to_device(batch, device),
-                                 float(TRAIN_BATCH * (i + 1)), generator=draws)
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-                counts.append((k1.launches - before[0], k1.bwd_launches - before[1]))
-            row.update(fits=True, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                       ms_per_step=float(np.median(times[1:])), step_ms=times,
-                       launches_per_step=sorted(set(counts)),
-                       launches=[k1.launches, k1.bwd_launches],
-                       want_k1_per_step=LAYERS_WITH_KERNEL + rematted)
-        except torch.cuda.OutOfMemoryError as exc:
-            row.update(fits=False, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                       error=str(exc).splitlines()[0])
-        if row["fits"] and base is None:
-            base = grads
-        elif row["fits"]:
-            row["grad_max_rel_err_vs_off"] = {
-                net: max(float((a - b).abs().max()) for a, b in zip(grads[net], base[net]))
-                / max(float(b.abs().max()) for b in base[net]) for net in base}
-            row["grads_bit_equal_to_off"] = all(
-                torch.equal(a, b) for net in base for a, b in zip(grads[net], base[net]))
-        rows.append(row)
-        del model, grads
-    return rows
+    opts = [] if size is None else ["tpu.remat", "True", "tpu.remat_min_size", str(size)]
+    model = build_model(train_config(tempfile.gettempdir(), dtype, *opts),
+                        generator=torch.Generator().manual_seed(SEED))
+    synthesis = model.generator.synthesis
+    rematted = sum(layer.remat and not layer.spec.is_torgb
+                   for layer in synthesis.encoders + synthesis.decoders)
+    model.to(device)
+    grads = first_step_grads(model)
+    draws = torch.Generator(device=device).manual_seed(SEED + 16)
+    row = dict(compute_dtype=dtype, batch=TRAIN_BATCH, workspace_policy=policy,
+               workspace_cap_mib=train_cli.CONV_WORKSPACE_MIB if capped else None,
+               remat=size is not None, remat_min_size=size, rematted_k1_layers=rematted)
+    counts, times = [], []
+    k1.launches = k1.bwd_launches = 0
+    try:
+        for i, batch in enumerate(batches):
+            before = (k1.launches, k1.bwd_launches)
+            torch.cuda.synchronize()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model.train_step(train_cli.to_device(batch, device),
+                             float(TRAIN_BATCH * (i + 1)), generator=draws)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if i == 1:
+                row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts.append((k1.launches - before[0], k1.bwd_launches - before[1]))
+        row.update(fits=True, ms_per_step=float(np.median(times[1:])), step_ms=times,
+                   launches_per_step=sorted(set(counts)),
+                   launches=[k1.launches, k1.bwd_launches],
+                   want_k1_per_step=LAYERS_WITH_KERNEL + rematted)
+    except torch.cuda.OutOfMemoryError as exc:
+        row.update(fits=False, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   error=str(exc).splitlines()[0])
+        return row
+    off = os.path.join(grads_dir, f"{dtype}_{policy}_off.pt")
+    if size is None:
+        torch.save(grads, off)
+        plain = os.path.join(grads_dir, f"{dtype}_plain_off.pt")
+        if policy == "train" and os.path.exists(plain):
+            row["grad_max_rel_err_vs_plain"] = grad_max_rel_err(grads, torch.load(plain))
+    else:
+        base = torch.load(off)
+        row["grad_max_rel_err_vs_off"] = grad_max_rel_err(grads, base)
+        row["grads_bit_equal_to_off"] = all(
+            torch.equal(a, b) for net in base for a, b in zip(grads[net], base[net]))
+    return row
 
 
 def check_remat(device):
-    """Phase 16: the shipped config's train step at bf16 b16 and fp32 b16
-    with tpu.remat off, at remat_min_size 148 and at 0, each dtype in a
-    fresh process (``remat_settings``): one step's gradients against remat
-    off (within 1e-5 * max per net; bit equality printed), the peak memory
-    of three steps, which must fall from off to 148 to 0 at bf16, ms/step
-    (two steps after the first) and K1 launches per step against 28 + the
-    rematted layers that launch K1. At fp32 (TF32 off) the peak is printed,
-    not held: there cuDNN's plans take a workspace sized by the free memory
-    at their first use, the peak measures that choice more than the
-    activations, and remat has read above remat off (ROADMAP fault C12)."""
+    """Phase 16: the shipped config's train step at bf16 b16 and fp32 b16,
+    each (dtype, workspace policy, remat setting) in a fresh process
+    (``remat_setting``): at fp32 the plain policy at remat off and 0, then
+    the train path's at off, 148 and 0; at bf16 the train path's, which is
+    the default planning there. Holds, under the train path's policy at
+    both dtypes: one step's gradients within 1e-5 * max of remat off (bit
+    equality printed), a peak that falls from remat off to 148 to 0, K1
+    launches per step 28 + the rematted layers that launch K1 (28 K2); and
+    at fp32 its remat-off gradients within 1e-3 * max per net of the plain
+    policy's (other cuDNN algorithms; phase 7b's bound for two
+    implementations of the same step), as the plain policy's remat-0
+    gradients of its remat-off ones (REMAT_GRAD_BOUND). Prints per setting
+    the peak, the ms/step and the policy in force."""
     launches = [0, 0]
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    for dtype in ("bfloat16", "float32"):
-        proc = subprocess.run([sys.executable, "-c", REMAT_SETTINGS, REPO, dtype], cwd=REPO,
-                              capture_output=True, text=True, timeout=600, check=False)
-        if proc.returncode != 0:
-            raise AssertionError(f"16: the {dtype} process failed:\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
-        peaks = {}
-        for row in json.loads(proc.stdout.strip().splitlines()[-1]):
-            phase("16 remat", **row)
-            size = row["remat_min_size"]
-            if not row["fits"]:
-                continue
-            peaks[size] = row["peak_mem_gib"]
-            launches[0] += row["launches"][0]
-            launches[1] += row["launches"][1]
-            err = row.get("grad_max_rel_err_vs_off", {})
-            if err and max(err.values()) > 1e-5:
-                raise AssertionError(f"16: remat {size} at {dtype}: gradients {err} "
-                                     "from remat off (> 1e-5 * max)")
-            want = [[LAYERS_WITH_KERNEL + row["rematted_k1_layers"], LAYERS_WITH_KERNEL]]
-            if row["launches_per_step"] != want:
-                raise AssertionError(f"16: K1/K2 launches per step "
-                                     f"{row['launches_per_step']}, want {want}")
-        if dtype == "bfloat16" and not (peaks.get(0, float("inf")) < peaks.get(148, 0.0)
-                                        < peaks.get(None, 0.0)):
-            raise AssertionError(f"16: at {dtype} the peak does not fall with remat "
-                                 f"(GiB, off / 148 / 0): {peaks}")
+    grads_dir = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    try:
+        for dtype, policies in WORKSPACE_POLICIES.items():
+            peaks = {}
+            for policy, sizes in policies:
+                for size in sizes:
+                    proc = subprocess.run(
+                        [sys.executable, "-c", REMAT_SETTING, REPO, dtype, policy,
+                         "off" if size is None else str(size), grads_dir],
+                        cwd=REPO, capture_output=True, text=True, timeout=600, check=False)
+                    if proc.returncode != 0:
+                        raise AssertionError(f"16: the {dtype} {policy} remat {size} process "
+                                             f"failed:\n{proc.stdout[-2000:]}\n"
+                                             f"{proc.stderr[-4000:]}")
+                    row = json.loads(proc.stdout.strip().splitlines()[-1])
+                    phase("16 remat", **row)
+                    if not row["fits"]:
+                        continue
+                    peaks[policy, size] = row["peak_mem_gib"]
+                    launches[0] += row["launches"][0]
+                    launches[1] += row["launches"][1]
+                    want = [[LAYERS_WITH_KERNEL + row["rematted_k1_layers"], LAYERS_WITH_KERNEL]]
+                    if row["launches_per_step"] != want:
+                        raise AssertionError(f"16: K1/K2 launches per step "
+                                             f"{row['launches_per_step']}, want {want}")
+                    err, bound = row.get("grad_max_rel_err_vs_off", {}), REMAT_GRAD_BOUND[policy]
+                    if err and max(err.values()) > bound:
+                        raise AssertionError(f"16: remat {size} at {dtype} under the {policy} "
+                                             f"policy: gradients {err} from remat off "
+                                             f"(> {bound} * max)")
+                    err = row.get("grad_max_rel_err_vs_plain", {})
+                    if err and max(err.values()) > 1e-3:
+                        raise AssertionError(f"16: the train path's workspace policy's "
+                                             f"gradients at {dtype} {err} from the plain "
+                                             "one's (> 1e-3 * max)")
+            train = [peaks.get(("train", size), float("nan")) for size in REMAT_SIZES]
+            if not train[2] < train[1] < train[0]:
+                raise AssertionError(f"16: at {dtype} under the train path's workspace policy "
+                                     f"the peak does not fall with remat (GiB, off / 148 / "
+                                     f"0): {train}")
+    finally:
+        shutil.rmtree(grads_dir, ignore_errors=True)
     return {"filtered_lrelu": launches[0], "filtered_lrelu_bwd": launches[1]}
+
+
+# -- phases 17 and 18: style mixing and the int8 train step ----------------------
+
+MIX_PROB = 0.9           # tests/test_train_step.py:127
+MIX_CUTOFF = 7           # of the shipped G's 16 ws
+TRAIN_TIMED_STEPS = 3    # after one warm step
+
+
+def timed_steps(model, batches, device, seed, **step_kwargs):
+    """One warm step and TRAIN_TIMED_STEPS more, from a generator seeded
+    ``seed``: the steps' ms (the median of the timed ones), the peak over
+    the timed ones, and the K1/K2/K3/quantizer launches of each step."""
+    draws = torch.Generator(device=device).manual_seed(seed)
+    times, counts, metrics = [], [], []
+    for i, batch in enumerate(batches[:1 + TRAIN_TIMED_STEPS]):
+        counters = (k1.launches, k1.bwd_launches, k3.launches, k3.quantize_launches,
+                    k3.weight_quantize_launches)
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics.append(model.train_step(batch, float(TRAIN_BATCH * (i + 1)), generator=draws,
+                                        **step_kwargs))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        counts.append(tuple(now - was for now, was in zip(
+            (k1.launches, k1.bwd_launches, k3.launches, k3.quantize_launches,
+             k3.weight_quantize_launches), counters)))
+    finite = all(bool(torch.isfinite(v).all()) for m in metrics for v in m.values())
+    return dict(ms_per_step=float(np.median(times[1:])), step_ms=times,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches_per_step=sorted(set(counts)), losses_finite=finite), counts
+
+
+def train_pair(device, dtype="bfloat16"):
+    """Two equal models of the shipped training config (G, G_ema, D and
+    their optimizers from SEED) on the device, and b16 phantom batches."""
+    model = build_model(train_config(tempfile.gettempdir(), dtype),
+                        generator=torch.Generator().manual_seed(SEED))
+    twin = copy.deepcopy(model)
+    loaders = phantom_train_loaders(depth=6 * TRAIN_BATCH, size=256,
+                                    batch_size=TRAIN_BATCH, seed=SEED)
+    batches = [train_cli.to_device(b, device)
+               for _, b in zip(range(1 + TRAIN_TIMED_STEPS), loaders["train"])]
+    return model.to(device), twin.to(device), batches
+
+
+def check_style_mixing(device):
+    """Phase 17: style mixing (style_mixing_prob 0.9) in the shipped
+    config's train step at bf16 b16 (shared G forward): (a) with the coin
+    false, given draws, one step equals the unmixed step from the same
+    state and generator seed: losses and each net's gradients within
+    1e-5 * max; (b) with the coin true the styles the synthesis gets are
+    those of z before the cutoff and of the second latent's mapping from it
+    on (within 1e-6 * max); (c) the mixed step drawing its own (z2, cutoff,
+    coin): finite losses, 28 K1 and 28 K2 launches per step as the unmixed
+    step, ms/step and peak beside the unmixed step's."""
+    set_matmul_precision("bfloat16")
+    plain, mixed, batches = train_pair(device)
+    mixed.config = dataclasses.replace(mixed.config, style_mixing_prob=MIX_PROB)
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    z = torch.randn((TRAIN_BATCH, plain.z_dim), generator=gen, device=device)
+    z2 = torch.randn((TRAIN_BATCH, plain.z_dim), generator=gen, device=device)
+    c = mixed._cond(batches[0])
+    seen = []
+    hook = mixed.generator.synthesis.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].detach().clone()) if not seen else None)
+    try:
+        out = {}
+        for name, model, mix in (("plain", plain, None),
+                                 ("mixed", mixed, StyleMix(z2, MIX_CUTOFF, False))):
+            grads = first_step_grads(model)
+            draws = torch.Generator(device=device).manual_seed(SEED + 170)
+            metrics = model.train_step(batches[0], float(TRAIN_BATCH), z=z, generator=draws,
+                                       mix=mix)
+            out[name] = (grads, {k: float(v) for k, v in metrics.items()})
+        loss_err = max(abs(out["mixed"][1][k] - v) / max(abs(v), 1e-12)
+                       for k, v in out["plain"][1].items())
+        grad_err = grad_max_rel_err(out["mixed"][0], out["plain"][0])
+        # coin true: the hook reads the styles of the next step's forward
+        seen.clear()
+        with torch.no_grad():
+            num_ws = mixed.generator.synthesis.num_ws
+            want_ws = torch.where(torch.arange(num_ws, device=device)[None, :, None] >= MIX_CUTOFF,
+                                  mixed.generator.mapping(z2, c), mixed.generator.mapping(z, c))
+        mixed.train_step(batches[0], float(2 * TRAIN_BATCH), z=z,
+                         generator=torch.Generator(device=device).manual_seed(SEED + 171),
+                         mix=StyleMix(z2, MIX_CUTOFF, True))
+        ws_err = float((seen[0] - want_ws).abs().max() / want_ws.abs().max())
+    finally:
+        hook.remove()
+    timing_plain, _ = timed_steps(plain, batches, device, SEED + 172)
+    k1.launches = k1.bwd_launches = 0    # the mixed path's run
+    timing_mixed, _ = timed_steps(mixed, batches, device, SEED + 172)
+    launches = {"filtered_lrelu": k1.launches, "filtered_lrelu_bwd": k1.bwd_launches}
+    phase("17 style mixing", style_mixing_prob=MIX_PROB, cutoff=MIX_CUTOFF, batch=TRAIN_BATCH,
+          coin_false_loss_max_rel_err=loss_err, coin_false_grad_max_rel_err=grad_err,
+          coin_true_ws_max_rel_err=ws_err, mixed=timing_mixed, unmixed=timing_plain)
+    if loss_err > 1e-5 or max(grad_err.values()) > 1e-5:
+        raise AssertionError(f"17: the unmixed-by-coin step's losses ({loss_err}) or "
+                             f"gradients ({grad_err}) from the unmixed step's (> 1e-5 * max)")
+    if not ws_err <= 1e-6:
+        raise AssertionError(f"17: the mixed styles {ws_err} from the two mappings' (> 1e-6)")
+    want = [(LAYERS_WITH_KERNEL, LAYERS_WITH_KERNEL, 0, 0, 0)]
+    if timing_mixed["launches_per_step"] != want or not timing_mixed["losses_finite"]:
+        raise AssertionError(f"17: launches per step {timing_mixed['launches_per_step']} "
+                             f"(want {want}), losses finite {timing_mixed['losses_finite']}")
+    del plain, mixed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def routed_convs():
+    """Count the convs ``_try_conv_int8`` routes to K3 (a wrapper around
+    it, removed by the returned function's ``restore``)."""
+    original = modulated_conv._try_conv_int8
+    count = [0]
+
+    def wrapped(x, w, padding):
+        y = original(x, w, padding)
+        count[0] += y is not None
+        return y
+    modulated_conv._try_conv_int8 = wrapped
+
+    def restore():
+        modulated_conv._try_conv_int8 = original
+    return count, restore
+
+
+# K4's backward in a step against the fp32 conv adjoint at its own inputs:
+# the relative L2 bound per dx and dw (phase 18)
+STE_BOUND = 1e-4
+
+
+def rel_l2(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want).clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def ste_backward_audit():
+    """Within the block every backward of K4 (``conv3x3_int8_ste``) is held
+    against what its straight-through rule says it is: the fp32 conv
+    adjoint (``torch.nn.grad``, under the same backend flags) at the
+    unquantized x and w it saved and the dy it was given, rounded to the
+    dtypes of x and w. Yields a list that gets, per call, whether it is the
+    first backward of its forward (R1's gradient and the loss's backward
+    both cross D's forward on real images) and
+    the relative L2 error of dx and of dw (None where not asked for)."""
+    ste = k3._Conv3x3Int8STE
+    original = ste.backward
+    errors = []
+
+    def audited(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw, rest = original(ctx, dy)
+        first, ctx.audited = not getattr(ctx, "audited", False), True
+        with torch.no_grad():
+            g, p = dy.float(), ctx.padding
+            dx_err = None if dx is None else rel_l2(dx, torch.nn.grad.conv2d_input(
+                x.shape, w.float(), g, padding=p).to(x.dtype))
+            dw_err = None if dw is None else rel_l2(dw, torch.nn.grad.conv2d_weight(
+                x.float(), w.shape, g, padding=p).to(w.dtype))
+        errors.append((first, dx_err, dw_err))
+        return dx, dw, rest
+    ste.backward = staticmethod(audited)
+    try:
+        yield errors
+    finally:
+        ste.backward = staticmethod(original)
+
+
+def check_int8_train(device):
+    """Phase 18: the shipped config's train step at bf16 b16 under conv impl
+    'int8' (K4: K3 and its quantizers forward, the fp32 conv adjoint
+    backward, also inside R1's double backward where D's gated convs are
+    routed): finite losses; K3 and each quantizer launched once per routed
+    conv of each step; in the first step every routed conv's backward, dx
+    and dw, within STE_BOUND in relative L2 of the fp32 conv adjoint at its
+    own inputs (``ste_backward_audit``), and G's gradients >= 30 dB from
+    the float step's from the same state and draws (the STE bound,
+    tests/test_conv_int8.py:139-159; D's, and each net's relative L2,
+    printed); ms/step and peak beside the float step's."""
+    set_matmul_precision("bfloat16")
+    plain, quant, batches = train_pair(device)
+    z = torch.randn((TRAIN_BATCH, plain.z_dim), device=device,
+                    generator=torch.Generator(device=device).manual_seed(SEED + 18))
+    grads = {}
+    for name, model, impl in (("float", plain, "xla"), ("int8", quant, "int8")):
+        grads[name] = first_step_grads(model)
+        with conv_impl(impl), ste_backward_audit() as ste_errors:
+            routed, restore = routed_convs()
+            try:
+                model.train_step(batches[0], float(TRAIN_BATCH), z=z,
+                                 generator=torch.Generator(device=device).manual_seed(
+                                     SEED + 180))
+            finally:
+                restore()
+    flat = {name: {net: torch.cat([t.reshape(-1) for t in grads[name][net]])
+                   for net in ("G", "D")} for name in grads}
+    g_psnr = {net: psnr(flat["int8"][net], flat["float"][net]) for net in ("G", "D")}
+    g_rel_l2 = {net: rel_l2(flat["int8"][net], flat["float"][net]) for net in ("G", "D")}
+    ste = {kind: max((e[i] for e in ste_errors if e[i] is not None), default=None)
+           for i, kind in ((1, "dx"), (2, "dw"))}
+    ste_calls, ste_forwards = len(ste_errors), sum(e[0] for e in ste_errors)
+    first_routed = routed[0]
+    timing_float, _ = timed_steps(plain, batches, device, SEED + 181)
+    k1.launches = k1.bwd_launches = k3.launches = 0    # the int8 train path's run
+    k3.quantize_launches = k3.weight_quantize_launches = 0
+    routed, restore = routed_convs()
+    try:
+        with conv_impl("int8"):
+            timing_int8, counts = timed_steps(quant, batches, device, SEED + 181)
+    finally:
+        restore()
+    per_step = routed[0] // len(counts)
+    launches = {"filtered_lrelu": k1.launches, "filtered_lrelu_bwd": k1.bwd_launches,
+                "conv_int8": k3.launches, "quantize_int8": k3.quantize_launches,
+                "quantize_weights_int8": k3.weight_quantize_launches}
+    phase("18 int8 train", batch=TRAIN_BATCH, conv_impl="int8", routed_convs_per_step=per_step,
+          ste_backward_calls=ste_calls, ste_backward_forwards=ste_forwards,
+          ste_backward_max_rel_l2=ste, ste_bound=STE_BOUND,
+          grad_psnr_db_vs_float=g_psnr, grad_rel_l2_vs_float=g_rel_l2, int8=timing_int8,
+          float=timing_float)
+    want = [(LAYERS_WITH_KERNEL, LAYERS_WITH_KERNEL, per_step, per_step, per_step)]
+    if routed[0] != per_step * len(counts) or timing_int8["launches_per_step"] != want \
+            or not per_step or not timing_int8["losses_finite"]:
+        raise AssertionError(f"18: launches per step {timing_int8['launches_per_step']}, "
+                             f"routed convs {routed[0]} in {len(counts)} steps, losses finite "
+                             f"{timing_int8['losses_finite']}")
+    if ste_forwards != first_routed or first_routed != per_step or None in ste.values() \
+            or not max(ste.values()) <= STE_BOUND:
+        raise AssertionError(f"18: K4's backward in the step: {ste_calls} calls on "
+                             f"{ste_forwards} of {first_routed} routed convs, dx/dw relative "
+                             f"L2 {ste} from the "
+                             f"fp32 conv adjoint at its inputs (> {STE_BOUND})")
+    if not g_psnr["G"] >= 30:
+        raise AssertionError(f"18: G's int8 gradients {g_psnr['G']} dB from the float "
+                             "step's (< 30)")
+    del plain, quant
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None):
@@ -2541,6 +2858,8 @@ def main(argv=None):
     dp_launches = check_data_parallel(device)
     mesh_launches = serve_over_mesh(device)
     remat_launches = check_remat(device)
+    mix_launches = check_style_mixing(device)
+    int8_train_launches = check_int8_train(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},
@@ -2558,7 +2877,8 @@ def main(argv=None):
           train_process_group=pg_launches,
           train_two_ranks={f"rank{r}": {"filtered_lrelu": k, "filtered_lrelu_bwd": b}
                            for r, (k, b) in enumerate(dp_launches)},
-          serve_mesh={"filtered_lrelu": mesh_launches}, train_remat=remat_launches)
+          serve_mesh={"filtered_lrelu": mesh_launches}, train_remat=remat_launches,
+          train_style_mixing=mix_launches, train_int8=int8_train_launches)
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
     if not all(int8_launches[1:]):
@@ -2580,7 +2900,8 @@ def main(argv=None):
          "binding": "torch.library operator afcm_tpu_torch::filtered_lrelu",
          "launches": serve_launches[0] + train_launches["filtered_lrelu"]
          + int8_launches[0] + cli_serve_launches + export_launches
-         + pg_launches["filtered_lrelu"] + mesh_launches + remat_launches["filtered_lrelu"],
+         + pg_launches["filtered_lrelu"] + mesh_launches + remat_launches["filtered_lrelu"]
+         + mix_launches["filtered_lrelu"] + int8_train_launches["filtered_lrelu"],
          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
@@ -2589,14 +2910,15 @@ def main(argv=None):
          "replaces": "afcm_tpu/ops/pallas/filtered_lrelu_mxu.py:292",
          "binding": "torch.library operator afcm_tpu_torch::filtered_lrelu_bwd",
          "launches": train_launches["filtered_lrelu_bwd"] + pg_launches["filtered_lrelu_bwd"]
-         + remat_launches["filtered_lrelu_bwd"],
+         + remat_launches["filtered_lrelu_bwd"] + mix_launches["filtered_lrelu_bwd"]
+         + int8_train_launches["filtered_lrelu_bwd"],
          "max_abs_err": bwd_worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
         {"name": "conv_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/conv_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:129",
-         "launches": int8_launches[1] + comodgan_int8[1],
+         "launches": int8_launches[1] + comodgan_int8[1] + int8_train_launches["conv_int8"],
          "max_abs_err": int8_worst, "unequal_elements": unequal,
          "ms": int8_sums["ms"], "plain_ms": int8_sums["plain_ms"],
          "bound_ms": int8_sums["bound"][0], "bound_by": int8_sums["bound"][1],
@@ -2609,11 +2931,13 @@ def main(argv=None):
                       "bound_ms": comodgan_sums["bound"][0],
                       "bound_by": comodgan_sums["bound"][1],
                       "library_ms": comodgan_sums["library_ms"]},
-         "autograd": "K4 = conv3x3_int8_ste: K3 forward, fp32 conv adjoint backward"},
+         "autograd": "K4 = conv3x3_int8_ste: K3 forward, fp32 conv adjoint backward; "
+                     "its launches in training are phase 18's"},
         {"name": "quantize_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:258-262",
-         "launches": int8_launches[2] + comodgan_int8[2],
+         "launches": int8_launches[2] + comodgan_int8[2]
+         + int8_train_launches["quantize_int8"],
          "max_abs_err": quantizer_worst["activations"],
          "unequal_elements": quantizer_unequal["activations"],
          "ms": int8_sums["qx_ms"], "plain_ms": int8_sums["qx_plain_ms"],
@@ -2627,7 +2951,8 @@ def main(argv=None):
         {"name": "quantize_weights_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:276-280",
-         "launches": int8_launches[3] + comodgan_int8[3],
+         "launches": int8_launches[3] + comodgan_int8[3]
+         + int8_train_launches["quantize_weights_int8"],
          "max_abs_err": quantizer_worst["weights"],
          "unequal_elements": quantizer_unequal["weights"],
          "ms": int8_sums["qw_ms"], "plain_ms": int8_sums["qw_plain_ms"],

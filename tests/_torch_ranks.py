@@ -149,3 +149,29 @@ def step_check(rank, world, argv, batch, out_dir):
     result = train_step_check(default_argument_parser(list(argv)), batch, "cpu", seed=3,
                               draw_seed=4, group=parallel.DataGroup.current())
     torch.save(result, os.path.join(out_dir, f"r{rank}_check.pt"))
+
+
+def host_utils(rank, world, values, out_dir):
+    """``utils.training_stats.report_moments`` of this rank's rows of
+    ``values`` summed over the group, and ``utils.misc.
+    check_replica_consistency`` of one module across the ranks: equal, then
+    with rank 1's bias moved. Writes (triple, census, first check, the
+    mismatch's message)."""
+    from afcm_tpu_torch.utils import misc, training_stats
+    group = parallel.DataGroup.current()
+    triple = training_stats.report_moments(
+        torch.from_numpy(values[group.rows(len(values) // world)]), group)
+    census = group.take_census()
+    torch.manual_seed(0)
+    net = torch.nn.Linear(3, 2)
+    consistent = misc.check_replica_consistency(net)
+    if rank == 1:
+        with torch.no_grad():
+            net.bias += 1
+    try:
+        misc.check_replica_consistency(net, group)
+        mismatch = None
+    except AssertionError as exc:
+        mismatch = str(exc)
+    torch.save((triple, census, consistent, mismatch),
+               os.path.join(out_dir, f"r{rank}_host.pt"))

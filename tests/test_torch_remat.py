@@ -196,3 +196,27 @@ class _count_op(torch.utils._python_dispatch.TorchDispatchMode):
         if func is self.op:
             self.calls.append(func)
         return func(*args, **(kwargs or {}))
+
+
+def test_train_path_bounds_the_conv_workspace_on_the_card(monkeypatch):
+    """ROADMAP C12's repair: at float32 on a card the train CLI's entry caps
+    cuDNN's conv workspace (the legacy cuDNN interface under
+    CUDNN_CONV_WSCAP_DBG) before the process's first conv; it leaves
+    bfloat16 and the CPU alone; ``train.main`` applies it with the config's
+    compute dtype (on the CPU here, where it sets nothing) before it trains,
+    and ``train.train``, which a serving process may call too, does not."""
+    from afcm_tpu_torch import train as train_cli
+    for name in ("TORCH_CUDNN_V8_API_DISABLED", "CUDNN_CONV_WSCAP_DBG"):
+        monkeypatch.delenv(name, raising=False)
+    assert not train_cli.bound_conv_workspace(torch.device("cpu"), "float32")
+    assert not train_cli.bound_conv_workspace("cuda", "bfloat16")
+    assert "CUDNN_CONV_WSCAP_DBG" not in os.environ
+    assert train_cli.bound_conv_workspace("cuda", "float32")
+    assert os.environ["TORCH_CUDNN_V8_API_DISABLED"] == "1"
+    assert os.environ["CUDNN_CONV_WSCAP_DBG"] == str(train_cli.CONV_WORKSPACE_MIB)
+
+    calls = []
+    monkeypatch.setattr(train_cli, "bound_conv_workspace", lambda *a: calls.append(a))
+    monkeypatch.setattr(train_cli, "train", lambda cfg, device: calls.append("train") or {})
+    train_cli.main(["--config-file", CONFIG, "--device", "cpu"])
+    assert calls == [(torch.device("cpu"), "float32"), "train"]

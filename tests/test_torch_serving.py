@@ -138,9 +138,10 @@ def test_device_result_duck_types():
 
 
 def test_port_imports_without_jax():
-    """Every afcm_tpu_torch module imports with jax, flax, optax, the JAX
-    package afcm_tpu and PIL blocked (the image-folder datasets read their
-    images with PIL, imported where they read one)."""
+    """Every afcm_tpu_torch module, and the port's rehearsal and workspace
+    scripts, import with jax, flax, optax, the JAX package afcm_tpu and PIL
+    blocked (the image-folder datasets read their images with PIL, imported
+    where they read one)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "blocked = ('jax', 'flax', 'optax', 'afcm_tpu', 'PIL')\n"
@@ -164,8 +165,14 @@ def test_port_imports_without_jax():
         "             'nn.pix2pix', 'nn.motion', 'ops.grid_sample',\n"
         "             'models.pix2pix_model', 'models.template_model',\n"
         "             'data.image_datasets', 'data.template_dataset',\n"
-        "             'utils.image', 'utils.easydict'):\n"
+        "             'utils.image', 'utils.easydict', 'utils.misc',\n"
+        "             'utils.training_stats', 'config.compat', 'data.prepare_h5'):\n"
         "    assert 'afcm_tpu_torch.' + name in names, names\n"
+        "import importlib.util\n"
+        "for script in ('torch_dress_rehearsal', 'torch_conv_workspace', 'torch_ste_mutation'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        script, 'scripts/' + script + '.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(m.split('.')[0] in blocked\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print(len(names))\n")
