@@ -11,8 +11,8 @@ from .motion import (MotionMappingNetwork, MotionSynthesisNetwork,
                      StyleGANVDiscriminator, StyleGANVGenerator)
 from .pix2pix import NLayerDiscriminator, PixelDiscriminator, UnetGenerator
 from .stylegan3 import (EncoderLayer, LayerSpec, Stylegan3Generator,
-                        SynthesisLayer, SynthesisLayout, SynthesisNetwork,
-                        compute_synthesis_layout)
+                        SynthesisInput, SynthesisLayer, SynthesisLayout,
+                        SynthesisNetwork, compute_synthesis_layout)
 
 __all__ = [
     "CALayer", "CoModDiscriminator", "CoModGenerator", "CoModSynthesisNetwork",
@@ -21,7 +21,8 @@ __all__ = [
     "MappingNetwork", "MinibatchStdLayer", "MotionMappingNetwork",
     "MotionSynthesisNetwork", "NLayerDiscriminator", "PixelDiscriminator",
     "RefMappingNetwork", "StyleGANVDiscriminator", "StyleGANVGenerator",
-    "Stylegan3Generator", "SynthesisLayer", "SynthesisLayout", "SynthesisNetwork",
+    "Stylegan3Generator", "SynthesisInput", "SynthesisLayer", "SynthesisLayout",
+    "SynthesisNetwork",
     "UnetGenerator", "adaptive_avg_pool2d",
     "compute_synthesis_layout", "get_synthesizer", "normalize_2nd_moment",
 ]

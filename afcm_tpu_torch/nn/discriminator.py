@@ -16,7 +16,7 @@ runs in float32 (``:85``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +36,8 @@ class DiscriminatorBlock(nn.Module):
 
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
                  resolution: int, img_channels: int, architecture: str = "resnet",
+                 activation: str = "lrelu",
+                 resample_filter: Sequence[int] = (1, 3, 3, 1),
                  conv_clamp: Optional[float] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -45,21 +47,22 @@ class DiscriminatorBlock(nn.Module):
         self.resolution = resolution
         self.architecture = architecture
         # the resample filter of Conv2dLayer's down=2 convs, for the image too
-        self.resample_filter = setup_filter([1, 3, 3, 1])
+        self.resample_filter = setup_filter(list(resample_filter))
         common = dict(generator=generator)
+        down = dict(down=2, resample_filter=resample_filter)
         if in_channels == 0 or architecture == "skip":
             self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1,
-                                       activation="lrelu", conv_clamp=conv_clamp,
+                                       activation=activation, conv_clamp=conv_clamp,
                                        **common)
         if architecture == "resnet":
             self.skip = Conv2dLayer(tmp_channels, out_channels, kernel_size=1,
-                                    use_bias=False, down=2, **common)
+                                    use_bias=False, **down, **common)
         self.conv0 = Conv2dLayer(tmp_channels, tmp_channels, kernel_size=3,
-                                 activation="lrelu", conv_clamp=conv_clamp,
+                                 activation=activation, conv_clamp=conv_clamp,
                                  **common)
         self.conv1 = Conv2dLayer(tmp_channels, out_channels, kernel_size=3,
-                                 activation="lrelu", down=2,
-                                 conv_clamp=conv_clamp, **common)
+                                 activation=activation, conv_clamp=conv_clamp,
+                                 **down, **common)
 
     def forward(self, x, img):
         if x is not None:
@@ -74,6 +77,24 @@ class DiscriminatorBlock(nn.Module):
             y = self.skip(x, gain=np.sqrt(0.5))
             return y + self.conv1(self.conv0(x), gain=np.sqrt(0.5)), img
         return self.conv1(self.conv0(x)), img
+
+
+# The keys a D's ``block_kwargs`` may set: the JAX package's
+# ``DiscriminatorBlock`` fields that the D does not set itself
+# (``afcm_tpu/nn/discriminator.py:21-30``); any other key is a TypeError
+# there, as here.
+BLOCK_KWARGS = ("activation", "resample_filter")
+
+
+def block_kwargs_of(block_kwargs: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """``block_kwargs`` as a dict, refusing a key that ``afcm_tpu``'s
+    discriminators refuse."""
+    block_kwargs = dict(block_kwargs or {})
+    unknown = sorted(set(block_kwargs) - set(BLOCK_KWARGS))
+    if unknown:
+        raise TypeError(f"DiscriminatorBlock takes {list(BLOCK_KWARGS)} from "
+                        f"block_kwargs, not {unknown}")
+    return block_kwargs
 
 
 class DiscriminatorEpilogue(nn.Module):
@@ -122,18 +143,22 @@ class DiscriminatorEpilogue(nn.Module):
 
 class CoModDiscriminator(nn.Module):
     """``afcm_tpu/nn/discriminator.py:109-170``: image [N, img_channels, R, R]
-    and label c [N, c_dim] -> logits [N, 1]."""
+    and label c [N, c_dim] -> logits [N, 1]. ``block_kwargs`` reaches every
+    block (``activation``, ``resample_filter``); the model builder passes
+    none, as ``afcm_tpu/models/__init__.py:61-76`` does not."""
 
     def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
                  architecture: str = "resnet",
                  channel_base: int = 32768, channel_max: int = 512,
                  conv_clamp: Optional[float] = None,
                  cmap_dim: Optional[int] = None,
+                 block_kwargs: Optional[Dict[str, Any]] = None,
                  mapping_kwargs: Optional[Dict[str, Any]] = None,
                  epilogue_kwargs: Optional[Dict[str, Any]] = None,
                  compute_dtype: str = "float32",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        block_kwargs = block_kwargs_of(block_kwargs)
         self.c_dim = c_dim
         self.img_resolution = img_resolution
         self.channel_base, self.channel_max = channel_base, channel_max
@@ -146,7 +171,7 @@ class CoModDiscriminator(nn.Module):
             self.add_module(f"b{res}", DiscriminatorBlock(
                 in_channels, self.channels(res), self.channels(res // 2),
                 resolution=res, img_channels=img_channels, architecture=architecture,
-                conv_clamp=conv_clamp, generator=generator))
+                conv_clamp=conv_clamp, generator=generator, **block_kwargs))
         if c_dim > 0:
             mapping_kwargs = {k: v for k, v in dict(mapping_kwargs or {}).items()
                               if k in ("num_layers", "lr_multiplier")}

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .comodgan import EBlock, EFromRGB, SynthesisBlock, skip_connects
-from .discriminator import DiscriminatorBlock, DiscriminatorEpilogue
+from .discriminator import DiscriminatorBlock, DiscriminatorEpilogue, block_kwargs_of
 from .layers import Conv2dLayer, FullyConnected, dropout, normal_parameter
 from .mapping import MappingNetwork
 
@@ -432,8 +432,11 @@ class StyleGANVDiscriminator(nn.Module):
     """Time-conditioned D: frames in the batch up to ``concat_res``, where
     they are concatenated along the channels, and the time difference's
     embedding beside the label in the projection conditioning (reference:
-    generator.py:840-930). Only the resnet architecture is ported, as for
-    ``CoModDiscriminator``."""
+    generator.py:840-930). ``architecture`` ``resnet`` or ``orig`` reaches
+    the blocks and the epilogue, ``block_kwargs`` the blocks, as in
+    ``afcm_tpu/nn/motion.py:475-531``. ``skip`` is refused: ``afcm_tpu``'s D
+    fails there too, adding the un-concatenated image's ``fromrgb`` to the
+    frame-concatenated features at ``concat_res`` (ROADMAP C15)."""
 
     def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
                  num_frames: int = 3, architecture: str = "resnet",
@@ -445,10 +448,11 @@ class StyleGANVDiscriminator(nn.Module):
                  epilogue_kwargs: Optional[Dict[str, Any]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if architecture != "resnet":
-            raise NotImplementedError(f"discriminator architecture {architecture}")
-        if block_kwargs:
-            raise NotImplementedError(f"discriminator block_kwargs {sorted(block_kwargs)}")
+        if architecture == "skip":
+            raise NotImplementedError(
+                "StyleGAN-V discriminator architecture 'skip': the JAX package's fails at "
+                "concat_res too (ROADMAP C15)")
+        block_kwargs = block_kwargs_of(block_kwargs)
         self.c_dim, self.img_channels = c_dim, img_channels
         self.num_frames, self.concat_res = num_frames, concat_res
         self.channel_base, self.channel_max = channel_base, channel_max
@@ -468,7 +472,8 @@ class StyleGANVDiscriminator(nn.Module):
                     (in_channels // num_frames_div_factor) * num_frames
             self.add_module(f"b{res}", DiscriminatorBlock(
                 in_channels, tmp_channels, out_channels, resolution=res,
-                img_channels=img_channels, conv_clamp=conv_clamp, generator=generator))
+                img_channels=img_channels, architecture=architecture,
+                conv_clamp=conv_clamp, generator=generator, **block_kwargs))
         mapping_kwargs = dict(mapping_kwargs or {})
         mapping_kwargs.setdefault("num_layers", 8)
         self.mapping = MappingNetwork(z_dim=0, c_dim=c_dim + self.time_encoder.get_dim(),
@@ -477,8 +482,9 @@ class StyleGANVDiscriminator(nn.Module):
         epilogue_kwargs = {k: v for k, v in dict(epilogue_kwargs or {}).items()
                            if k in ("mbstd_group_size", "mbstd_num_channels")}
         self.b4 = DiscriminatorEpilogue(self.channels(4), cmap_dim=cmap_dim, resolution=4,
-                                        img_channels=img_channels, conv_clamp=conv_clamp,
-                                        generator=generator, **epilogue_kwargs)
+                                        img_channels=img_channels, architecture=architecture,
+                                        conv_clamp=conv_clamp, generator=generator,
+                                        **epilogue_kwargs)
 
     def channels(self, res: int) -> int:
         return min(self.channel_base // res, self.channel_max)

@@ -294,6 +294,55 @@ class SynthesisLayer(nn.Module):
         return x
 
 
+class SynthesisInput(nn.Module):
+    """Fourier-feature input grid of upstream StyleGAN3 (reference:
+    networks_stylegan3.py:168-248; ``afcm_tpu/nn/stylegan3.py:320-372``).
+    The AFCM generator does not use it: its encoder takes the input's place.
+
+    ``freqs`` and ``phases`` are persistent buffers drawn at construction
+    from ``generator``. ``transform`` is the reference's persistent
+    identity buffer, kept so that a reference state_dict loads strictly;
+    as in ``afcm_tpu``, the forward does not read it (ROADMAP C16)."""
+
+    def __init__(self, w_dim: int, channels: int, size: int, sampling_rate: float,
+                 bandwidth: float, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.channels, self.size = channels, size
+        self.sampling_rate, self.bandwidth = sampling_rate, bandwidth
+        freqs = torch.randn((channels, 2), generator=generator)
+        radii = freqs.square().sum(dim=1, keepdim=True).sqrt()
+        freqs = freqs / (radii * radii.square().exp().pow(0.25)) * bandwidth
+        self.register_buffer("freqs", freqs)
+        self.register_buffer("phases", torch.rand((channels,), generator=generator) - 0.5)
+        self.weight = normal_parameter((channels, channels), 1.0, generator)
+        self.affine = FullyConnected(w_dim, 4, weight_init=0, bias_init=(1, 0, 0, 0),
+                                     generator=generator)
+        self.register_buffer("transform", torch.eye(3, 3))
+
+    def forward(self, w):
+        t = self.affine(w)
+        t = t / t[:, :2].norm(dim=1, keepdim=True)
+        # inverse rotation and translation applied to the frequencies
+        r_c, r_s, t_x, t_y = t.unbind(dim=1)
+        rot = torch.stack([torch.stack([r_c, -r_s], -1),
+                           torch.stack([r_s, r_c], -1)], -2)          # [B, 2, 2]
+        freqs = torch.einsum("cf,bfg->bcg", self.freqs, rot)
+        phases = self.phases[None] + freqs[:, :, 0] * -t_x[:, None] \
+            + freqs[:, :, 1] * -t_y[:, None]
+        amplitudes = (1 - (freqs.norm(dim=2) - self.bandwidth)
+                      / (self.sampling_rate / 2 - self.bandwidth)).clamp(0, 1)
+        # the sampling grid of affine_grid with align_corners=False
+        half = 0.5 * self.size / self.sampling_rate
+        coords = (np.arange(self.size) * 2 + 1) / self.size - 1
+        gy, gx = np.meshgrid(coords * half, coords * half, indexing="ij")
+        grid = torch.tensor(np.stack([gx, gy], axis=-1), dtype=torch.float32,
+                            device=w.device)                           # [H, W, 2]
+        x = torch.einsum("hwf,bcf->bhwc", grid, freqs) + phases[:, None, None, :]
+        x = torch.sin(x * (np.pi * 2)) * amplitudes[:, None, None, :]
+        x = x @ (self.weight.T / np.sqrt(self.channels))
+        return x.permute(0, 3, 1, 2)
+
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

@@ -1,8 +1,10 @@
 """Bias + activation + gain + clamp (``afcm_tpu/ops/bias_act.py``).
 
 Plain elementwise torch; the JAX package leaves this chain to XLA's fusion
-and the port leaves it to PyTorch's elementwise kernels. Only the two
-activations the JAX package's networks use are ported.
+and the port leaves it to PyTorch's elementwise kernels. The activations
+are the JAX package's nine (the reference's bias_act table): the networks
+use ``linear`` and ``lrelu``, a discriminator's ``block_kwargs`` may name
+any.
 """
 
 from __future__ import annotations
@@ -27,6 +29,14 @@ activation_funcs = {
     # contract, so it is written out.
     "lrelu": ActivationSpec(lambda x, alpha: torch.where(x > 0, x, x * alpha),
                             def_alpha=0.2, def_gain=float(np.sqrt(2.0))),
+    "relu": ActivationSpec(lambda x, alpha: torch.relu(x), def_gain=float(np.sqrt(2.0))),
+    "tanh": ActivationSpec(lambda x, alpha: torch.tanh(x)),
+    "sigmoid": ActivationSpec(lambda x, alpha: torch.sigmoid(x)),
+    "elu": ActivationSpec(lambda x, alpha: torch.nn.functional.elu(x)),
+    "selu": ActivationSpec(lambda x, alpha: torch.nn.functional.selu(x)),
+    "softplus": ActivationSpec(lambda x, alpha: torch.nn.functional.softplus(x)),
+    "swish": ActivationSpec(lambda x, alpha: torch.sigmoid(x) * x,
+                            def_gain=float(np.sqrt(2.0))),
 }
 
 

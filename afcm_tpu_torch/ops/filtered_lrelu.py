@@ -17,6 +17,8 @@ import numpy as np
 
 from .cuda.filtered_lrelu import (filtered_lrelu_call, filtered_lrelu_cuda,
                                   filtered_lrelu_plain)
+from .filter_design import filter_size
+from .upfirdn2d import parse_padding
 
 
 def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
@@ -48,3 +50,15 @@ def filtered_lrelu(x, fu=None, fd=None, b=None, up=1, down=1, padding=0,
     if x.device.type == "cuda":
         return filtered_lrelu_cuda(x, **kwargs)
     return filtered_lrelu_call(x, **kwargs)
+
+
+def filtered_lrelu_output_size(in_size, fu, fd, up, down, padding):
+    """Static output (h, w) of ``filtered_lrelu`` for an input of
+    ``in_size`` (h, w) (``afcm_tpu/ops/filtered_lrelu.py:154-163``)."""
+    px0, px1, py0, py1 = parse_padding(padding)
+    fu_w, fu_h = filter_size(fu)
+    fd_w, fd_h = filter_size(fd)
+    in_h, in_w = in_size
+    out_w = (in_w * up + (px0 + px1) - (fu_w - 1) - (fd_w - 1) + (down - 1)) // down
+    out_h = (in_h * up + (py0 + py1) - (fu_h - 1) - (fd_h - 1) + (down - 1)) // down
+    return out_h, out_w

@@ -67,6 +67,13 @@ def get_conv_impl() -> str:
     return _CONV_IMPL
 
 
+def fma(a, b, c):
+    """Fused multiply-add a*b + c (``afcm_tpu/ops/modulated_conv.py:74-77``;
+    reference: torch_utils/ops/fma.py, whose unbroadcasting backward is
+    autograd's own here)."""
+    return a * b + c
+
+
 def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True):
     """NCHW conv2d (correlation when flip_weight, like torch.conv2d);
     padding is an int or (padH, padW), symmetric."""

@@ -55,6 +55,18 @@ from .utils.metrics import evaluate_2D
 from .utils.visualizer import Visualizer
 
 
+def lr_factor(epoch: int, cfg, metric=None) -> float:
+    """The per-epoch LR factor of ``cfg.scheduler`` from a fresh
+    ``LRScheduler`` (``afcm_tpu/train.py:33-42``). ``plateau`` keeps state
+    across epochs, which a fresh scheduler per call would drop, so it is
+    refused: ``train`` keeps one scheduler for the run."""
+    if cfg.scheduler.lr_policy == "plateau":
+        raise ValueError(
+            "lr_factor() is stateless; the 'plateau' policy needs a single "
+            "persistent LRScheduler across epochs (see train())")
+    return LRScheduler(cfg).factor(epoch, metric)
+
+
 def _slice_idx_of(batch) -> np.ndarray:
     """slice_idx for models that consume it; zeros for datasets without a
     fractional slice position (``afcm_tpu/train.py:45-50``)."""
@@ -134,6 +146,22 @@ def bound_conv_workspace(device, compute_dtype: str) -> bool:
     return True
 
 
+def note_default_workspace(device, compute_dtype: str) -> bool:
+    """Print one line when the train step runs at float32 on a card whose
+    process has no workspace cap (``CUDNN_CONV_WSCAP_DBG`` unset): ``train``
+    called in process, not through ``main``, plans its convs under PyTorch's
+    default cuDNN workspace (ROADMAP C13). Returns whether it printed."""
+    if (torch.device(device).type != "cuda" or compute_dtype != "float32"
+            or "CUDNN_CONV_WSCAP_DBG" in os.environ):
+        return False
+    print("train: float32 on a card plans each cuDNN conv under PyTorch's default "
+          "workspace, up to the card's free memory (ROADMAP C12); the train CLI "
+          "(python -m afcm_tpu_torch.train, train.main) caps it at "
+          f"{CONV_WORKSPACE_MIB} MiB, as train.bound_conv_workspace(device, 'float32') "
+          "does when called before this process's first conv", flush=True)
+    return True
+
+
 def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
           on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]] = None
           ) -> Dict[str, float]:
@@ -148,6 +176,7 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
     device = resolve_device(device)
     check_device_knobs(cfg)
     set_matmul_precision(cfg.tpu.compute_dtype)
+    note_default_workspace(device, cfg.tpu.compute_dtype)
     group = parallel.DataGroup.current()
     lead = group is None or group.rank == 0
     batch_size = cfg.loaders.batch_size

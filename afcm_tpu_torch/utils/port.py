@@ -1,4 +1,5 @@
-"""Load ``afcm_tpu`` variable trees and train states into the port.
+"""Load reference checkpoints, ``afcm_tpu`` variable trees and train
+states into the port.
 
 Module and buffer names mirror the JAX package's, which mirror the
 reference state_dict, so ``variables_to_state_dict`` (the port's own copy
@@ -8,10 +9,22 @@ pix2pix networks' ``batch_stats`` included, which the JAX package's
 function does not walk; ``load_jax_train_state`` also carries optax's Adam
 state into ``torch.optim.Adam``, so that both packages can step from one
 state (a ``GANTrainState`` or a ``Pix2PixState``).
+
+A reference AFCM checkpoint (``{epoch}_net_{G,D,G_ema}.pth``) becomes the
+port's by ``reference_state_dict``, the routing of
+``afcm_tpu/utils/port.py:state_dict_to_variables``:
+
+    python -m afcm_tpu_torch.utils.port 50_net_G_ema.pth 50_net_G_ema.pth
+
+writes the port's ``{tag}_net_G_ema.pth``, which ``evaluate`` and ``serve``
+load strictly (``evaluate.load_generator_ema``).
 """
 
 from __future__ import annotations
 
+import argparse
+import pickle
+import sys
 from typing import Dict, Mapping
 
 import numpy as np
@@ -28,6 +41,27 @@ _CA_UNRENAMES = {
     ("ca", "up", "kernel"): ("ca", "conv_du", "2", "weight"),
     ("ca", "up", "bias"): ("ca", "conv_du", "2", "bias"),
 }
+
+
+# The reference's construction-time buffers, which the port computes when
+# it builds a module and does not keep: the alias-free layers' FIR taps,
+# the resample filters and the StyleGAN-V time encoders' tables
+# (``afcm_tpu/utils/port.py:23-26``, ``_DROP_LEAVES``).
+DROP_LEAVES = frozenset({"up_filter", "down_filter", "resample_filter",
+                         "fourier_coefs", "phase_scales"})
+
+
+def reference_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference state_dict as the port's: the keys whose last part is in
+    ``DROP_LEAVES`` dropped, every other tensor kept under its own name
+    (trainable tensors, ``w_avg``, ``magnitude_ema``, ``noise_const``,
+    ``SynthesisInput``'s ``freqs``, ``phases`` and ``transform``, the CALayer
+    ``conv_du.{0,2}`` convs, whose layout the port mirrors), on the CPU. A
+    port checkpoint passes through unchanged. The load that follows stays
+    strict: a key the port does not know still fails there, by name."""
+    return {key: torch.as_tensor(value).detach().cpu()
+            for key, value in state_dict.items()
+            if key.rsplit(".", 1)[-1] not in DROP_LEAVES}
 
 
 def variables_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
@@ -152,3 +186,34 @@ def load_jax_train_state(model, state):
     _load_adam(model.opt_D, model.discriminator, _get(state, "opt_state_D"))
     model.step = int(np.asarray(_get(state, "step")))
     return model
+
+
+def main(argv=None):
+    """Convert a reference AFCM ``.pth`` state_dict into the port's
+    ``{tag}_net_G_ema.pth`` format (the counterpart of ``python -m
+    afcm_tpu.utils.port``). Host code: it reads with ``map_location="cpu"``
+    (files trained on a card hold CUDA tensors) and moves no tensor to a
+    device.
+
+        python -m afcm_tpu_torch.utils.port SRC.pth DST.pth
+    """
+    parser = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    parser.add_argument("src", help="reference torch .pth state_dict")
+    parser.add_argument("dst", help="the port's .pth state_dict")
+    args = parser.parse_args(argv)
+    try:
+        state_dict = torch.load(args.src, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as exc:
+        raise SystemExit(f"{args.src} holds a pickled object, not a state_dict of "
+                         f"tensors; save the network's state_dict() instead ({exc})")
+    if not isinstance(state_dict, Mapping):
+        raise SystemExit(f"{args.src} holds a {type(state_dict).__name__}, not a "
+                         "state_dict (a dict of tensors)")
+    converted = reference_state_dict(state_dict)
+    torch.save(converted, args.dst)
+    print(f"wrote {args.dst} ({len(converted)} tensors; "
+          f"{len(state_dict) - len(converted)} construction-time buffers dropped)")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,8 @@ the int8 serving path (tpu.conv_int8 True), all at full width and depth
 point's loop, the serving export, the CoModGAN baseline's serving,
 int8 and training paths, the pix2pix baseline's training, and the CMSR
 train step under remat, with style mixing and under the int8 conv, with the
-StyleGAN-V family and grid_sample held against the CPU — and checks the
+StyleGAN-V family and grid_sample held against the CPU, and reference AFCM
+checkpoints converted and served — and checks the
 hand-written kernels on them: K1
 and K2 (the fused filtered leaky ReLU forward and backward, bound as the
 torch.library operators afcm_tpu_torch::filtered_lrelu{,_bwd}), K3 (the int8 3x3 conv
@@ -55,9 +56,14 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    loop (afcm_tpu_torch.train.train) on the shipped CMSR config over a
    phantom subject: bf16 b16, shared G forward, R1 every step, blur sigma
    10: finite losses, 28 K1 and 28 K2 launches per step, median ms/step
-   and img/s over 3 windows with the spread, peak memory; then fp32 b16
-   steps and their peak memory (a phase line says so if they do not fit
-   the card); (d) the trained EMA generator, saved as
+   and img/s over 3 windows with the spread, peak memory; then three fp32
+   b16 steps in a fresh process through the train CLI's entry
+   (train.main), so that cuDNN plans them under the train path's 4 GiB
+   workspace cap (train.bound_conv_workspace; this process has planned
+   convs under PyTorch's default): finite losses, 28 K1 and 28 K2 a step,
+   the cap in force, ms/step and the peak (a phase line says so if they do
+   not fit the card; phase 16 reuses the run); (d) the trained EMA
+   generator, saved as
    latest_net_G_ema.pth, served through serve_and_score. With --trace DIR
    one bf16 train step is traced too;
 8. the int8 path: (a) K3 against its plain version on quantized inputs made
@@ -157,10 +163,12 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    mesh served over it within 1e-4 * max of the in-process mesh volume;
 16. tpu.remat and the train path's conv workspace (ROADMAP C12): the train
    step at bf16 b16 and fp32 b16, each (dtype, workspace policy, remat
-   setting) in a fresh process: at fp32 PyTorch's default cuDNN planning
-   ("plain") at remat off and 0, then the train path's policy
+   setting) in a fresh process through the train CLI's entry (train.main,
+   three steps, its checkpoint and validation): at fp32 PyTorch's default
+   cuDNN planning ("plain") at remat off and 0, and the train path's policy
    (train.bound_conv_workspace, "train": a 4 GiB cap at fp32, the default
-   at bf16) at off, 148 and 0; the peak over a step after a warm one and
+   at bf16) at off (7c's fp32 run), 148 and 0; the peak over a step after a
+   warm one and
    ms/step printed per setting; under the train path's policy, at both
    dtypes, the peak falls from off to 148 to 0, K1 launches per step are 28
    + the rematted layers that launch K1 (28 K2), and the first step's
@@ -180,7 +188,20 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    and each quantizer launched once per routed conv of each step, every
    routed conv's backward (dx, dw) in the step within 1e-4 in relative L2
    of the fp32 conv adjoint at its own inputs, G's gradients >= 30 dB from
-   the float step's, ms/step and peak beside it.
+   the float step's, ms/step and peak beside it;
+19. reference AFCM checkpoints (afcm_tpu_torch.utils.port): (a) the shipped
+   CMSR G_ema written as a reference 50_net_G_ema.pth (its state_dict and
+   the construction-time filter buffers the reference registers), refused
+   by the strict load (the keys it names printed), converted by python -m
+   afcm_tpu_torch.utils.port in a subprocess and loaded by
+   evaluate.load_generator_ema: the phantom through serve_and_score at
+   bf16 b16 equals the directly loaded weights' volume bit for bit, with 28
+   K1 launches a batch; (b) the same for the CCSR CoModGAN G with channel
+   attention (its CALayer conv_du keys in the file): one batch bit-equal,
+   no K1; (c) SynthesisInput (w_dim 512, 512 channels, 36^2), the
+   StyleGAN-V D at architecture orig (CCSR widths) and the CCSR D with
+   block_kwargs resample_filter [1, 2, 1], b4, on the card against the CPU
+   as in 13a.
 
 Then prints the total seconds, the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
@@ -221,7 +242,7 @@ from afcm_tpu_torch.infer import export
 from afcm_tpu_torch.models import (CMSR_ADNI_G, StyleMix, build_eval_model,
                                    build_generator, build_model)
 from afcm_tpu_torch.models.losses import gan_loss, l1_loss
-from afcm_tpu_torch.nn import motion
+from afcm_tpu_torch.nn import CoModDiscriminator, SynthesisInput, motion
 from afcm_tpu_torch.ops import (conv2d_gradfix, get_conv_impl, grid_sample, modulated_conv,
                                 set_conv_impl)
 from afcm_tpu_torch.ops.cuda import _build
@@ -232,6 +253,8 @@ from afcm_tpu_torch.ops.cuda import probe_stream as ps
 from afcm_tpu_torch.parallel.check import grad_errors, train_step_check
 from afcm_tpu_torch.probes import (element_windows, fir_roofline, int8_kernel,
                                    int8_matmul, stream_diag)
+from afcm_tpu_torch.utils.nifti import read_nifti
+from afcm_tpu_torch.utils.port import DROP_LEAVES
 from afcm_tpu_torch.utils.profiling import cuda_median_ms, cuda_ms
 
 SEED = 0
@@ -634,19 +657,24 @@ def check_generator_backward(device):
         raise AssertionError(f"{worst}: max|diff| / max|plain| {ratios[worst]} > 1e-3")
 
 
-def train_config(out_dir, compute_dtype, *opts):
-    """The shipped CMSR training config (configs/adni/stylegan3/cmsr.yml:
-    b16, shared G forward, R1 every step, blur sigma 10 fading over 100
-    kimg) with its periodic display, printing and saving turned off, on the
-    one-device mesh [1, 1], and ``opts`` (KEY VALUE ...) over it."""
-    from afcm_tpu_torch.config import default_argument_parser
+def train_argv(out_dir, compute_dtype, *opts):
+    """The train CLI's arguments for the shipped CMSR training config
+    (configs/adni/stylegan3/cmsr.yml: b16, shared G forward, R1 every step,
+    blur sigma 10 fading over 100 kimg) with its periodic display, printing
+    and saving turned off, on the one-device mesh [1, 1], and ``opts``
+    (KEY VALUE ...) over it."""
     never = str(10 ** 9)
-    return default_argument_parser([
-        "--config-file", TRAIN_CONFIG, "tpu.compute_dtype", compute_dtype,
-        "checkpoints_dir", out_dir, "name", f"smoke_{compute_dtype}",
-        "trainer.display_freq", never, "trainer.print_freq", never,
-        "trainer.save_latest_freq", never, "trainer.save_epoch_freq", never,
-        "tpu.mesh_shape", "[1, 1]", *opts])
+    return ["--config-file", TRAIN_CONFIG, "tpu.compute_dtype", compute_dtype,
+            "checkpoints_dir", out_dir, "name", f"smoke_{compute_dtype}",
+            "trainer.display_freq", never, "trainer.print_freq", never,
+            "trainer.save_latest_freq", never, "trainer.save_epoch_freq", never,
+            "tpu.mesh_shape", "[1, 1]", *opts]
+
+
+def train_config(out_dir, compute_dtype, *opts):
+    """The config of ``train_argv``."""
+    from afcm_tpu_torch.config import default_argument_parser
+    return default_argument_parser(train_argv(out_dir, compute_dtype, *opts))
 
 
 class StepMonitor:
@@ -693,8 +721,8 @@ class StepMonitor:
 
 
 def train_shipped(device, trace_dir=None):
-    """Phase 7c: the train CLI's loop on the shipped config, bf16 b16, then
-    fp32 b16; returns the bf16 run's directory."""
+    """Phase 7c: the train CLI's loop on the shipped config, bf16 b16;
+    returns the run's directory (its fp32 leg is ``train_fp32``)."""
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     loaders = phantom_train_loaders(depth=6 * TRAIN_BATCH, size=256,
                                     batch_size=TRAIN_BATCH, seed=SEED)
@@ -731,27 +759,31 @@ def train_shipped(device, trace_dir=None):
         raise AssertionError("non-finite losses in the bf16 train steps")
     reference = {"metrics": monitor.metrics[:WARM_STEPS + WINDOW_STEPS],
                  "ms_per_step": float(np.median(ms))}
-
-    fp32 = StepMonitor(boundaries=(1, 3))
-    k1.launches = k1.bwd_launches = 0
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        train_cli.train(train_config(out_dir, "float32"), max_iters=3 * TRAIN_BATCH,
-                        loaders=loaders, device=device, on_step=fp32)
-    except torch.cuda.OutOfMemoryError as exc:
-        phase("7c train fp32 b16", fits=False, steps=len(fp32.counts),
-              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-              error=str(exc).splitlines()[0])
-    else:
-        if not fp32.losses_finite():
-            raise AssertionError("non-finite losses in the fp32 train steps")
-        phase("7c train fp32 b16", fits=True, steps=len(fp32.counts),
-              ms_per_step=1e3 * (fp32.times[3] - fp32.times[1]) / 2,
-              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-              launches_per_step=sorted(set(fp32.counts)))
     torch.cuda.empty_cache()
     return os.path.join(out_dir, cfg.name), launches, reference
+
+
+def train_fp32(grads_dir):
+    """Phase 7c's fp32 leg: three fp32 b16 steps of the shipped config in a
+    fresh process through the train CLI's entry, so that cuDNN plans them
+    under the train path's workspace cap (``train.bound_conv_workspace``,
+    which ``train.main`` sets before the process's first conv; this
+    process has run convs under PyTorch's default planning, ROADMAP C13).
+    Phase 16 reuses the run as its (float32, train policy, remat off)
+    setting. Returns the setting's row."""
+    row = run_setting("float32", "train", None, grads_dir)
+    phase("7c train fp32 b16", planned_by="train.main -> train.bound_conv_workspace "
+          "(a fresh process; phase 16's float32 train-policy remat-off setting)", **row)
+    if not row["fits"]:
+        return row
+    if not row["losses_finite"]:
+        raise AssertionError("non-finite losses in the fp32 train steps")
+    if row["workspace_cap_mib"] != train_cli.CONV_WORKSPACE_MIB:
+        raise AssertionError(f"the fp32 leg planned without the train path's cap: {row}")
+    if row["launches_per_step"] != [[LAYERS_WITH_KERNEL, LAYERS_WITH_KERNEL]]:
+        raise AssertionError(f"fp32 K1/K2 launches per step {row['launches_per_step']}, "
+                             f"want {LAYERS_WITH_KERNEL} each")
+    return row
 
 
 def serve_trained(device, run_dir):
@@ -1602,10 +1634,21 @@ print(json.dumps({"k1_launches": k1.launches, "k3_launches": k3.launches,
 """
 
 
+def release_cached_memory():
+    """Hand what this process's allocator caches back to the card before a
+    fresh process needs it: under PyTorch's default cuDNN planning a float32
+    conv's workspace is sized by the free memory (51 GiB at phase 6's fp32
+    b16 leg), and the allocator keeps it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def serve_artifact_in_fresh_process(path, out_dir, compute_dtype):
     """The artifact served over the phantom by serve.serve_subjects in a new
     Python process; returns its volume and what it counted."""
     out = os.path.join(out_dir, "served.npy")
+    release_cached_memory()
     proc = subprocess.run([sys.executable, "-c", SERVE_ARTIFACT, path, out, compute_dtype,
                            str(SEED), str(SERVE_BATCH)], cwd=REPO, capture_output=True,
                           text=True, timeout=600, check=False)
@@ -2400,6 +2443,20 @@ import chip_smoke
 size = None if sys.argv[4] == "off" else int(sys.argv[4])
 print(json.dumps(chip_smoke.remat_setting(sys.argv[2], sys.argv[3], size, sys.argv[5])))
 """
+REMAT_STEPS = 3
+
+
+def run_setting(dtype, policy, size, grads_dir):
+    """``remat_setting`` in a fresh ``python -c`` process; its row."""
+    release_cached_memory()
+    proc = subprocess.run(
+        [sys.executable, "-c", REMAT_SETTING, REPO, dtype, policy,
+         "off" if size is None else str(size), grads_dir],
+        cwd=REPO, capture_output=True, text=True, timeout=600, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {dtype} {policy} remat {size} process failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def first_step_grads(model):
@@ -2421,63 +2478,78 @@ def grad_max_rel_err(got, want):
 
 
 def remat_setting(dtype, policy, size, grads_dir):
-    """Phase 16, one setting in this (fresh) process: the workspace policy,
-    then three train steps of the shipped config at b16 from SEED with
-    remat off (``size`` None) or at ``remat_min_size`` ``size``; the peak is
-    read over the second step (reset after the first), ms/step is the
-    median of the second and third. The first step's gradients go to
-    ``grads_dir`` at remat off and are held against them otherwise, and the
-    train policy's remat-off gradients against the plain policy's where it
-    ran."""
-    device = torch.device("cuda")
-    capped = policy == "train" and train_cli.bound_conv_workspace(device, dtype)
-    train_cli.init_cublas(device)
-    set_matmul_precision(dtype)
-    loaders = phantom_train_loaders(depth=6 * TRAIN_BATCH, size=256,
-                                    batch_size=TRAIN_BATCH, seed=SEED)
-    batches = [b for _, b in zip(range(3), loaders["train"])]
+    """Phase 16 (and 7c's fp32 leg), one setting in this (fresh) process:
+    REMAT_STEPS train steps of the shipped config at b16 from SEED through
+    the train CLI's entry (``train.main``, the phantom in place of the h5
+    data) with remat off (``size`` None) or at ``remat_min_size`` ``size``,
+    under the entry's workspace policy ("train": ``bound_conv_workspace``)
+    or with it replaced by nothing ("plain": PyTorch's default planning).
+    The peak is read over the second step (reset after the first),
+    ms/step is the median of the second and third. The first step's
+    gradients go to ``grads_dir`` at remat off and are held against them
+    otherwise, and the two policies' remat-off gradients against each
+    other once both ran."""
+    from afcm_tpu_torch.config import pop_flag  # noqa: F401  (yaml, as the CLI)
+    if policy == "plain":
+        train_cli.bound_conv_workspace = lambda device, compute_dtype: False
+    train_cli.get_train_loaders = lambda cfg, seed=0: phantom_train_loaders(
+        depth=6 * TRAIN_BATCH, size=256, batch_size=TRAIN_BATCH, seed=seed)
+    built = {}
+    build = train_cli.build_model
+
+    def build_model(cfg, generator=None):
+        built["model"] = model = build(cfg, generator=generator)
+        built["grads"] = first_step_grads(model)
+        return model
+
+    counts, times, finite = [], [], []
+    row = dict(compute_dtype=dtype, batch=TRAIN_BATCH, workspace_policy=policy,
+               remat=size is not None, remat_min_size=size)
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        counts.append((k1.launches - sum(c[0] for c in counts),
+                       k1.bwd_launches - sum(c[1] for c in counts)))
+        finite.append(all(bool(torch.isfinite(v).all()) for v in metrics.values()))
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        elif step == 2:
+            row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    train = train_cli.train
+    train_cli.build_model = build_model
+    train_cli.train = lambda cfg, **kw: train(cfg, max_iters=REMAT_STEPS * TRAIN_BATCH,
+                                              on_step=on_step, **kw)
     opts = [] if size is None else ["tpu.remat", "True", "tpu.remat_min_size", str(size)]
-    model = build_model(train_config(tempfile.gettempdir(), dtype, *opts),
-                        generator=torch.Generator().manual_seed(SEED))
-    synthesis = model.generator.synthesis
+    k1.launches = k1.bwd_launches = 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            train_cli.main(["--device", "cuda", *train_argv(out_dir, dtype, *opts)])
+        except torch.cuda.OutOfMemoryError as exc:
+            row.update(fits=False, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       error=str(exc).splitlines()[0])
+            return row
+    synthesis = built["model"].generator.synthesis
     rematted = sum(layer.remat and not layer.spec.is_torgb
                    for layer in synthesis.encoders + synthesis.decoders)
-    model.to(device)
-    grads = first_step_grads(model)
-    draws = torch.Generator(device=device).manual_seed(SEED + 16)
-    row = dict(compute_dtype=dtype, batch=TRAIN_BATCH, workspace_policy=policy,
-               workspace_cap_mib=train_cli.CONV_WORKSPACE_MIB if capped else None,
-               remat=size is not None, remat_min_size=size, rematted_k1_layers=rematted)
-    counts, times = [], []
-    k1.launches = k1.bwd_launches = 0
-    try:
-        for i, batch in enumerate(batches):
-            before = (k1.launches, k1.bwd_launches)
-            torch.cuda.synchronize()
-            if i == 1:
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            model.train_step(train_cli.to_device(batch, device),
-                             float(TRAIN_BATCH * (i + 1)), generator=draws)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            if i == 1:
-                row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-            counts.append((k1.launches - before[0], k1.bwd_launches - before[1]))
-        row.update(fits=True, ms_per_step=float(np.median(times[1:])), step_ms=times,
-                   launches_per_step=sorted(set(counts)),
-                   launches=[k1.launches, k1.bwd_launches],
-                   want_k1_per_step=LAYERS_WITH_KERNEL + rematted)
-    except torch.cuda.OutOfMemoryError as exc:
-        row.update(fits=False, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   error=str(exc).splitlines()[0])
-        return row
+    cap = os.environ.get("CUDNN_CONV_WSCAP_DBG")
+    row.update(fits=True, workspace_cap_mib=int(cap) if cap else None,
+               rematted_k1_layers=rematted, ms_per_step=1e3 * float(np.median(np.diff(times))),
+               step_end_s=times, launches_per_step=sorted(set(counts)),
+               launches=[sum(c[0] for c in counts), sum(c[1] for c in counts)],
+               want_k1_per_step=LAYERS_WITH_KERNEL + rematted, losses_finite=all(finite))
+    grads = built["grads"]
     off = os.path.join(grads_dir, f"{dtype}_{policy}_off.pt")
     if size is None:
         torch.save(grads, off)
-        plain = os.path.join(grads_dir, f"{dtype}_plain_off.pt")
-        if policy == "train" and os.path.exists(plain):
-            row["grad_max_rel_err_vs_plain"] = grad_max_rel_err(grads, torch.load(plain))
+        other = os.path.join(grads_dir, f"{dtype}_{'plain' if policy == 'train' else 'train'}"
+                             "_off.pt")
+        if os.path.exists(other):
+            train_grads, plain_grads = ((grads, torch.load(other)) if policy == "train"
+                                        else (torch.load(other), grads))
+            row["grad_max_rel_err_train_vs_plain"] = grad_max_rel_err(train_grads,
+                                                                      plain_grads)
     else:
         base = torch.load(off)
         row["grad_max_rel_err_vs_off"] = grad_max_rel_err(grads, base)
@@ -2486,40 +2558,35 @@ def remat_setting(dtype, policy, size, grads_dir):
     return row
 
 
-def check_remat(device):
+def check_remat(device, grads_dir, reused):
     """Phase 16: the shipped config's train step at bf16 b16 and fp32 b16,
     each (dtype, workspace policy, remat setting) in a fresh process
-    (``remat_setting``): at fp32 the plain policy at remat off and 0, then
-    the train path's at off, 148 and 0; at bf16 the train path's, which is
-    the default planning there. Holds, under the train path's policy at
-    both dtypes: one step's gradients within 1e-5 * max of remat off (bit
-    equality printed), a peak that falls from remat off to 148 to 0, K1
-    launches per step 28 + the rematted layers that launch K1 (28 K2); and
-    at fp32 its remat-off gradients within 1e-3 * max per net of the plain
-    policy's (other cuDNN algorithms; phase 7b's bound for two
-    implementations of the same step), as the plain policy's remat-0
-    gradients of its remat-off ones (REMAT_GRAD_BOUND). Prints per setting
-    the peak, the ms/step and the policy in force."""
+    (``remat_setting``, through the train CLI's entry): at fp32 the plain
+    policy at remat off and 0 and the train path's at off, 148 and 0; at
+    bf16 the train path's, which is the default planning there. ``reused``
+    maps a setting (dtype, policy, size) to the row of a process an earlier
+    phase ran (7c's fp32 leg), whose gradients are in ``grads_dir``. Holds,
+    under the train path's policy at both dtypes: one step's gradients
+    within 1e-5 * max of remat off (bit equality printed), a peak that falls
+    from remat off to 148 to 0, K1 launches per step 28 + the rematted
+    layers that launch K1 (28 K2); and at fp32 its remat-off gradients
+    within 1e-3 * max per net of the plain policy's (other cuDNN
+    algorithms; phase 7b's bound for two implementations of the same step),
+    as the plain policy's remat-0 gradients of its remat-off ones
+    (REMAT_GRAD_BOUND). Prints per setting the peak, the ms/step and the
+    policy in force. Removes ``grads_dir``."""
     launches = [0, 0]
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    grads_dir = tempfile.mkdtemp(prefix="chip_smoke_remat_")
     try:
         for dtype, policies in WORKSPACE_POLICIES.items():
-            peaks = {}
+            peaks, compared = {}, False
             for policy, sizes in policies:
                 for size in sizes:
-                    proc = subprocess.run(
-                        [sys.executable, "-c", REMAT_SETTING, REPO, dtype, policy,
-                         "off" if size is None else str(size), grads_dir],
-                        cwd=REPO, capture_output=True, text=True, timeout=600, check=False)
-                    if proc.returncode != 0:
-                        raise AssertionError(f"16: the {dtype} {policy} remat {size} process "
-                                             f"failed:\n{proc.stdout[-2000:]}\n"
-                                             f"{proc.stderr[-4000:]}")
-                    row = json.loads(proc.stdout.strip().splitlines()[-1])
-                    phase("16 remat", **row)
+                    row = reused.get((dtype, policy, size))
+                    if row is None:
+                        row = run_setting(dtype, policy, size, grads_dir)
+                        phase("16 remat", **row)
+                    else:
+                        phase("16 remat", reused="7c train fp32 b16", **row)
                     if not row["fits"]:
                         continue
                     peaks[policy, size] = row["peak_mem_gib"]
@@ -2534,11 +2601,15 @@ def check_remat(device):
                         raise AssertionError(f"16: remat {size} at {dtype} under the {policy} "
                                              f"policy: gradients {err} from remat off "
                                              f"(> {bound} * max)")
-                    err = row.get("grad_max_rel_err_vs_plain", {})
+                    err = row.get("grad_max_rel_err_train_vs_plain", {})
+                    compared |= bool(err)
                     if err and max(err.values()) > 1e-3:
                         raise AssertionError(f"16: the train path's workspace policy's "
                                              f"gradients at {dtype} {err} from the plain "
                                              "one's (> 1e-3 * max)")
+            if {("plain", None), ("train", None)} <= set(peaks) and not compared:
+                raise AssertionError(f"16: the two policies' gradients at {dtype} were "
+                                     "not compared")
             train = [peaks.get(("train", size), float("nan")) for size in REMAT_SIZES]
             if not train[2] < train[1] < train[0]:
                 raise AssertionError(f"16: at {dtype} under the train path's workspace policy "
@@ -2793,6 +2864,192 @@ def check_int8_train(device):
     return launches
 
 
+# -- phase 19: reference checkpoints -----------------------------------------------
+
+REFERENCE_TAG = "50"               # the reference's {epoch}_net_G_ema.pth
+
+
+def reference_style(module):
+    """A reference AFCM state_dict of the port's ``module`` (on the CPU):
+    its own state_dict plus the construction-time buffers the reference
+    registers and the port computes (``utils.port.DROP_LEAVES``): each
+    alias-free layer's 1-D up/down taps (toRGB has none), each resample
+    filter at [4, 4]. Returns the dict and the added keys."""
+    state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    added = []
+    for name, mod in module.named_modules():
+        for leaf in sorted(DROP_LEAVES):
+            value = getattr(mod, leaf, None)
+            if value is not None:
+                added.append(f"{name}.{leaf}")
+                state[added[-1]] = torch.as_tensor(np.asarray(value, np.float32))
+    return state, added
+
+
+def convert_reference(model, g_cfg, out_dir, label):
+    """Write ``model``'s G_ema (of the config ``g_cfg``) as a reference
+    file, show the strict load (``evaluate.load_generator_ema``) refusing
+    it, convert it with ``python -m afcm_tpu_torch.utils.port`` in a
+    subprocess into a run directory, and return that directory and the
+    phase fields."""
+    state, added = reference_style(model.generator_ema)
+    ref_dir, run_dir = os.path.join(out_dir, f"{label}_ref"), os.path.join(out_dir, label)
+    os.makedirs(ref_dir)
+    os.makedirs(run_dir)
+    src = os.path.join(ref_dir, f"{REFERENCE_TAG}_net_G_ema.pth")
+    torch.save(state, src)
+    fresh = build_eval_model(g_cfg, compute_dtype="bfloat16")
+    try:
+        load_generator_ema(fresh, ref_dir, REFERENCE_TAG)
+    except RuntimeError as exc:
+        named = [k for k in added if f'"{k}"' in str(exc)]
+    else:
+        raise AssertionError(f"19: the strict load took the raw {label} reference file")
+    if named != added:
+        raise AssertionError(f"19: the strict load named {len(named)} of the {len(added)} "
+                             f"construction-time buffers of the {label} reference file")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "afcm_tpu_torch.utils.port", src,
+         os.path.join(run_dir, f"{REFERENCE_TAG}_net_G_ema.pth")],
+        cwd=REPO, capture_output=True, text=True, timeout=300, check=False)
+    if proc.returncode != 0:
+        raise AssertionError(f"19: the converter failed on the {label} file:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return run_dir, dict(reference_keys=len(state), construction_buffers=len(added),
+                         strict_load_refused=named[:4] + ["..."],
+                         converter=proc.stdout.strip().splitlines()[-1],
+                         converter_s=time.perf_counter() - t0)
+
+
+def served_predictions(forward, out_dir):
+    """The phantom through serve_and_score at b16; the stitched volume it
+    writes (``_predictions0.nii.gz``), the scores and the batches."""
+    loader = phantom_test_loader(depth=24, size=256, batch_size=SERVE_BATCH, seed=SEED)
+    os.makedirs(out_dir)
+    scores = serve_and_score(forward, [loader], out_dir, "t1_hr4sr")
+    (subject,) = scores["subjects"]
+    volume, _ = read_nifti(os.path.join(out_dir, f"{subject}_predictions0.nii.gz"))
+    return volume, scores, len(loader)
+
+
+def net_tensors(nets, inputs):
+    """One net's output and every parameter's gradient of a weighted sum of
+    it (phase 19c, for ``card_against_cpu``)."""
+    (net,) = nets
+    *args, weight = inputs
+    out = net(*args)
+    names, params = zip(*net.named_parameters())
+    grads = torch.autograd.grad((out * weight).sum(), params)
+    return {"net.out": out.detach(), **{f"net.grad.{n}": g for n, g in zip(names, grads)}}
+
+
+def check_reference_checkpoints(device):
+    """Phase 19 (ROADMAP A14, A15): (a) the shipped CMSR G_ema (seed 0)
+    written as a reference AFCM ``50_net_G_ema.pth``, refused by the strict
+    load with its construction-time buffers named, converted by ``python -m
+    afcm_tpu_torch.utils.port`` and loaded by ``evaluate.load_generator_ema``
+    into a model of other random weights: the phantom through
+    serve_and_score at bf16 b16 equals, bit for bit, the volume of the
+    weights loaded directly, with 28 K1 launches a batch; (b) the same for
+    the CCSR CoModGAN G (configs/adni/comodgan/ccsr.yml with channel
+    attention, so the CALayer ``conv_du`` keys are in the file): one
+    batch's output bit-equal, no K1; (c) A15's modules on the card against
+    the CPU (``card_against_cpu``, fp32, TF32 off): SynthesisInput at
+    w_dim 512, 512 channels, 36^2; the StyleGAN-V D at ``orig``, CCSR
+    widths, b4; the CCSR D with ``block_kwargs`` resample_filter [1, 2, 1],
+    b4. Returns K1's launches on the served path."""
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        direct = shipped_model("bfloat16")
+        run_dir, fields = convert_reference(direct, CMSR_ADNI_G, out_dir, "cmsr")
+        loaded = build_eval_model(CMSR_ADNI_G, compute_dtype="bfloat16",
+                                  generator=torch.Generator().manual_seed(SEED + 19))
+        load_generator_ema(loaded, run_dir, REFERENCE_TAG)
+        loaded.generator_ema.to(device)
+        set_matmul_precision("bfloat16")
+        want, _, _ = served_predictions(make_forward_fn(direct, device, seed=SEED,
+                                                        norm_range=PHANTOM_RANGE),
+                                        os.path.join(out_dir, "direct"))
+        k1.launches = 0                          # phase 19's served path starts here
+        got, scores, batches = served_predictions(
+            make_forward_fn(loaded, device, seed=SEED, norm_range=PHANTOM_RANGE),
+            os.path.join(out_dir, "converted"))
+        launches = k1.launches
+        equal = bool(np.array_equal(got, want))
+        phase("19a reference checkpoint CMSR", model="CMSR_ADNI_G", compute_dtype="bfloat16",
+              batch=SERVE_BATCH, batches=batches, volume=list(got.shape),
+              bit_equal_to_direct=equal, max_abs_diff=float(np.abs(got - want).max()),
+              psnr=scores["psnr"], ssim=scores["ssim"], k1_launches=launches, **fields)
+        if not equal:
+            raise AssertionError("19a: the converted reference checkpoint's volume differs "
+                                 "from the directly loaded weights'")
+        if launches != LAYERS_WITH_KERNEL * batches:
+            raise AssertionError(f"19a: {launches} K1 launches for {batches} batches")
+        del direct, loaded
+
+        g_cfg = dict(ccsr_config().model.G)
+        g_cfg["synthesis_kwargs"] = dict(g_cfg["synthesis_kwargs"], channel_attention=True)
+        direct = build_eval_model(g_cfg, compute_dtype="bfloat16",
+                                  generator=torch.Generator().manual_seed(SEED))
+        conv_du = sum(".conv_du." in k for k in direct.generator_ema.state_dict())
+        run_dir, fields = convert_reference(direct, g_cfg, out_dir, "ccsr")
+        loaded = build_eval_model(g_cfg, compute_dtype="bfloat16",
+                                  generator=torch.Generator().manual_seed(SEED + 19))
+        load_generator_ema(loaded, run_dir, REFERENCE_TAG)
+        cond, c, z = forward_inputs(SERVE_BATCH, device)
+        k1.launches = 0
+        outs = []
+        for model in (direct, loaded):
+            model.generator_ema.to(device)
+            outs.append(model.eval_step(cond, c, z=z))
+        equal = torch.equal(*outs)
+        phase("19b reference checkpoint CCSR", config=os.path.relpath(CCSR_CONFIG, REPO),
+              channel_attention=True, conv_du_keys=conv_du, batch=SERVE_BATCH,
+              bit_equal_to_direct=equal, k1_launches=k1.launches, **fields)
+        if not (equal and conv_du and k1.launches == 0):
+            raise AssertionError("19b: the converted CCSR checkpoint's batch differs from "
+                                 f"the direct one's ({equal}, {conv_du} conv_du keys, "
+                                 f"{k1.launches} K1)")
+        del direct, loaded, outs
+    torch.cuda.empty_cache()
+
+    draw = torch.Generator().manual_seed(SEED + 19)
+    n = MOTION_BATCH
+    synthesis_input = SynthesisInput(w_dim=512, channels=512, size=36, sampling_rate=16,
+                                     bandwidth=2, generator=draw)
+    with torch.no_grad():                        # a rotation and a translation
+        synthesis_input.affine.weight.normal_(generator=draw)
+    card_against_cpu("19c SynthesisInput card vs CPU", net_tensors, [synthesis_input],
+                     [torch.randn((n, 512), generator=draw),
+                      torch.randn((n, 512, 36, 36), generator=draw)], device, batch=n)
+    disc = motion.StyleGANVDiscriminator(**STYLEGANV_D, architecture="orig", generator=draw)
+    frames, res = STYLEGANV_D["num_frames"], STYLEGANV_D["img_resolution"]
+    card_against_cpu("19c StyleGAN-V D orig card vs CPU", net_tensors, [disc],
+                     [torch.randn((n, frames, res, res), generator=draw),
+                      torch.rand((n, 1), generator=draw),
+                      torch.randint(0, STYLEGANV_D["max_num_frames"] - 1, (n, 1),
+                                    generator=draw).float(),
+                      torch.randn((n, 1), generator=draw)], device, batch=n)
+    d_cfg = dict(ccsr_config().model.D)
+    block_kwargs = dict(resample_filter=[1, 2, 1])
+    disc = CoModDiscriminator(
+        c_dim=d_cfg["c_dim"], img_resolution=d_cfg["img_resolution"],
+        img_channels=d_cfg["img_channels"], channel_base=d_cfg["channel_base"],
+        channel_max=d_cfg["channel_max"], mapping_kwargs=dict(d_cfg["mapping_kwargs"]),
+        epilogue_kwargs=dict(d_cfg["epilogue_kwargs"]), block_kwargs=block_kwargs,
+        generator=draw)
+    card_against_cpu("19c CoModDiscriminator block_kwargs card vs CPU", net_tensors, [disc],
+                     [torch.randn((n, d_cfg["img_channels"], d_cfg["img_resolution"],
+                                   d_cfg["img_resolution"]), generator=draw),
+                      torch.rand((n, d_cfg["c_dim"]), generator=draw),
+                      torch.randn((n, 1), generator=draw)], device, batch=n,
+                     block_kwargs=block_kwargs)
+    phase("19 reference checkpoints", seconds=time.perf_counter() - started)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", metavar="DIR",
@@ -2834,6 +3091,8 @@ def main(argv=None):
     bwd_worst, bwd_ms, bwd_plain_ms, bwd_bound = check_backward_variants(device)
     check_generator_backward(device)
     run_dir, train_launches, train_reference = train_shipped(device, args.trace)
+    grads_dir = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    fp32_train = train_fp32(grads_dir)
     serve_trained(device, run_dir)
     shutil.rmtree(os.path.dirname(run_dir), ignore_errors=True)
 
@@ -2857,9 +3116,11 @@ def main(argv=None):
     pg_launches = train_process_group(device, train_reference)
     dp_launches = check_data_parallel(device)
     mesh_launches = serve_over_mesh(device)
-    remat_launches = check_remat(device)
+    remat_launches = check_remat(device, grads_dir,
+                                 {("float32", "train", None): fp32_train})
     mix_launches = check_style_mixing(device)
     int8_train_launches = check_int8_train(device)
+    reference_launches = check_reference_checkpoints(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},
@@ -2878,7 +3139,8 @@ def main(argv=None):
           train_two_ranks={f"rank{r}": {"filtered_lrelu": k, "filtered_lrelu_bwd": b}
                            for r, (k, b) in enumerate(dp_launches)},
           serve_mesh={"filtered_lrelu": mesh_launches}, train_remat=remat_launches,
-          train_style_mixing=mix_launches, train_int8=int8_train_launches)
+          train_style_mixing=mix_launches, train_int8=int8_train_launches,
+          serve_reference_checkpoint={"filtered_lrelu": reference_launches})
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
     if not all(int8_launches[1:]):
@@ -2901,7 +3163,8 @@ def main(argv=None):
          "launches": serve_launches[0] + train_launches["filtered_lrelu"]
          + int8_launches[0] + cli_serve_launches + export_launches
          + pg_launches["filtered_lrelu"] + mesh_launches + remat_launches["filtered_lrelu"]
-         + mix_launches["filtered_lrelu"] + int8_train_launches["filtered_lrelu"],
+         + mix_launches["filtered_lrelu"] + int8_train_launches["filtered_lrelu"]
+         + reference_launches,
          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},

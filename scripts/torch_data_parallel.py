@@ -19,7 +19,11 @@ name and power limit, then one JSON line per check:
    ``--dtype`` with ``--batch`` samples a rank (a global batch of W x
    ``--batch``) against one process at ``--batch``: ms/step as the median of
    ``--windows`` windows of ``--steps`` steps after ``--warm`` steps, img/s
-   and the scaling efficiency (img/s over W x one process's).
+   and the scaling efficiency (img/s over W x one process's), with each
+   loop's peak device memory. The cuDNN workspace policy is the train CLI's
+   (``train.bound_conv_workspace``, set before the first conv, which the
+   ranks inherit: a 4 GiB cap at float32, nothing at bfloat16) unless
+   ``--workspace default`` keeps PyTorch's default planning.
 3. ``serve``: a phantom subject served at fp32 (TF32 off) over a mesh of
    the W devices (one replica each, every batch of 16 split over them),
    and from the artifact exported over that mesh served over it, each
@@ -32,6 +36,7 @@ name and power limit, then one JSON line per check:
 
 Weights, data and draws come from seed 0; nothing is read from disk. A rank
 that fails fails the run, and NCCL does not fall back to gloo.
+``--train-only`` stops after check 2.
 """
 
 import argparse
@@ -101,6 +106,8 @@ def train_loop(args, device, world):
     steps = args.warm + args.windows * args.steps
     batch = world * args.batch
     monitor = Monitor(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     train_cli.train(config(args, args.dtype, batch), max_iters=batch * steps,
                     loaders=phantom_train_loaders(depth=2 * batch, size=args.size,
                                                   batch_size=batch, seed=SEED),
@@ -108,7 +115,10 @@ def train_loop(args, device, world):
     t = monitor.times[args.warm - 1:]
     windows = [1e3 * (t[(i + 1) * args.steps] - t[i * args.steps]) / args.steps
                for i in range(args.windows)]
-    return {"ms_per_step": float(np.median(windows)), "windows_ms": windows}
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
+    return {"ms_per_step": float(np.median(windows)), "windows_ms": windows,
+            "peak_mem_gib": peak}
 
 
 def rank_main(rank, world, args, out_dir):
@@ -208,6 +218,9 @@ def main(argv=None):
     ap.add_argument("--windows", type=int, default=3)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--subjects", type=int, default=4, help="subjects a serving window")
+    ap.add_argument("--workspace", default="train", choices=["train", "default"],
+                    help="cuDNN workspace policy: the train CLI's, or PyTorch's default")
+    ap.add_argument("--train-only", action="store_true", help="checks 1 and 2 alone")
     args = ap.parse_args(argv)
     args.size = 64 if args.tiny else 256
     if args.device == "cuda":
@@ -219,6 +232,9 @@ def main(argv=None):
     device = torch.device("cuda", 0) if args.device == "cuda" else torch.device("cpu")
     if args.device == "cpu":
         torch.set_num_threads(1)
+    # as the train CLI's entry: before this process's first conv; the ranks
+    # inherit it
+    capped = args.workspace == "train" and train_cli.bound_conv_workspace(device, args.dtype)
 
     want = one_step(args, device)
     loop_one = train_loop(args, device, 1)
@@ -251,9 +267,13 @@ def main(argv=None):
                       "rank0": ranks[0]["loop"], "img_per_s_one": one_img_s,
                       "img_per_s_world": many_img_s,
                       "efficiency": many_img_s / (args.world * one_img_s),
+                      "workspace_policy": args.workspace,
+                      "workspace_cap_mib": train_cli.CONV_WORKSPACE_MIB if capped else None,
                       "spawn_s": spawn_s}), flush=True)
     if max(loss_rel.values()) > 1e-3 or max(grad_rel.values()) > 1e-3:
         raise SystemExit(f"the ranks' step is off one process's: {loss_rel} {grad_rel}")
+    if args.train_only:
+        return 0
 
     devices = ([torch.device("cuda", i) for i in range(args.world)] if args.device == "cuda"
                else ["cpu"] * args.world)

@@ -89,3 +89,64 @@ def test_discriminator_architectures_match_jax(architecture):
 def test_discriminator_refuses_an_unknown_architecture():
     with pytest.raises(ValueError, match="architecture"):
         CoModDiscriminator(architecture="dense", **D_ARGS)
+
+
+def _param_grads_match(disc, jax_grads, module):
+    """Each parameter's gradient of the port's backward against JAX's (the
+    motion D's bounds: rtol 1e-3, atol 1e-4 * max|g|)."""
+    want = dict(load_jax_variables(module, {"params": jax.tree.map(np.asarray, jax_grads)})
+                .named_parameters())
+    for name, p in disc.named_parameters():
+        g_want = want[name].detach().numpy()
+        np.testing.assert_allclose(p.grad.numpy(), g_want, rtol=1e-3,
+                                   atol=1e-4 * np.abs(g_want).max() + 1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("architecture,block_kwargs", [
+    ("resnet", dict(resample_filter=[1, 2, 1])),
+    ("resnet", dict(activation="swish")),
+    ("orig", dict(activation="relu", resample_filter=[1, 4, 6, 4, 1])),
+])
+def test_discriminator_block_kwargs_match_jax(architecture, block_kwargs):
+    """``block_kwargs`` reaches every block (``afcm_tpu/nn/discriminator.py:
+    118,143-154``): the blocks' activation and the resample filter of their
+    down-convs and of the image. Logits, R1 and every parameter's gradient
+    of the logits' sum against JAX's on the same weights."""
+    rng = np.random.RandomState(6)
+    img = rng.randn(2, 5, 32, 32).clip(-1, 1).astype(np.float32)
+    c = rng.rand(2, 1).astype(np.float32)
+    kwargs = dict(D_ARGS, architecture=architecture, block_kwargs=block_kwargs)
+    jdisc = JaxDiscriminator(**kwargs)
+    variables = jax.tree.map(np.asarray, jdisc.init(jax.random.PRNGKey(1), img, c))
+    disc = load_jax_variables(CoModDiscriminator(**kwargs), variables)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jdisc.apply(variables, img, c))
+        want_r1 = float(jlosses.r1_penalty(lambda x: jdisc.apply(variables, x, c), img))
+        grads = jax.grad(lambda p: jnp.sum(jdisc.apply({"params": p}, img, c)))(
+            variables["params"])
+    x = torch.from_numpy(img).requires_grad_(True)
+    got = disc(x, torch.from_numpy(c))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(losses.r1_penalty(got, x).detach()), want_r1,
+                               rtol=1e-4)
+    disc.zero_grad()
+    disc(torch.from_numpy(img), torch.from_numpy(c)).sum().backward()
+    _param_grads_match(disc, grads, CoModDiscriminator(**kwargs))
+    # the default block_kwargs give another D: the keys are not ignored
+    plain = load_jax_variables(CoModDiscriminator(**dict(kwargs, block_kwargs=None)),
+                               variables)
+    assert not torch.allclose(plain(torch.from_numpy(img), torch.from_numpy(c)),
+                              got.detach(), rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("block_kwargs", [dict(conv_clamp=256), dict(kernel_size=5)])
+def test_discriminator_refuses_block_kwargs_jax_refuses(block_kwargs):
+    """A key the JAX D's blocks do not take, or that the D sets itself, is a
+    TypeError in both packages."""
+    img = np.zeros((2, 5, 32, 32), np.float32)
+    c = np.zeros((2, 1), np.float32)
+    with pytest.raises(TypeError):
+        JaxDiscriminator(block_kwargs=block_kwargs, **D_ARGS).init(
+            jax.random.PRNGKey(0), img, c)
+    with pytest.raises(TypeError, match=sorted(block_kwargs)[0]):
+        CoModDiscriminator(block_kwargs=block_kwargs, **D_ARGS)

@@ -163,6 +163,39 @@ def test_jax_checkpoint_converts_to_port_weights(tiny, tmp_path):
         np.testing.assert_array_equal(state_dict[k].numpy(), np.asarray(v))
 
 
+@pytest.mark.parametrize("size,sampling_rate,bandwidth", [(36, 16, 2), (20, 8, 3.5)])
+def test_synthesis_input_matches_jax(size, sampling_rate, bandwidth):
+    """SynthesisInput, upstream StyleGAN3's Fourier-feature input
+    (``afcm_tpu/nn/stylegan3.py:320-372``): JAX's ``freqs``, ``phases``,
+    ``weight`` and a random affine (rotation and translation) loaded into
+    the port with the reference's identity ``transform``; the grids agree at
+    the generator's tolerance. The port draws its own freqs and phases at
+    construction from its generator, as persistent buffers."""
+    from afcm_tpu.nn import SynthesisInput as JaxSynthesisInput
+    from afcm_tpu_torch.nn import SynthesisInput
+    from afcm_tpu_torch.utils.port import jax_state_dict
+    kwargs = dict(w_dim=16, channels=24, size=size, sampling_rate=sampling_rate,
+                  bandwidth=bandwidth)
+    w = np.random.RandomState(2).randn(3, 16).astype(np.float32)
+    jmod = JaxSynthesisInput(**kwargs)
+    variables = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(0), w))
+    variables = {k: dict(v) for k, v in variables.items()}
+    variables["params"]["affine"] = dict(
+        variables["params"]["affine"],
+        weight=np.random.RandomState(3).randn(4, 16).astype(np.float32))
+    want = np.asarray(jmod.apply(variables, w))
+    port = SynthesisInput(**kwargs, generator=torch.Generator().manual_seed(0))
+    assert {k for k, _ in port.named_buffers()} == {"freqs", "phases", "transform"}
+    assert port.state_dict().keys() == {"freqs", "phases", "transform", "weight",
+                                        "affine.weight", "affine.bias"}
+    torch.testing.assert_close(port.transform, torch.eye(3))
+    port.load_state_dict(dict(jax_state_dict(variables), transform=torch.eye(3)),
+                         strict=True)
+    got = port(torch.from_numpy(w)).detach().numpy()
+    assert got.shape == want.shape == (3, 24, size, size)
+    np.testing.assert_allclose(got, want, **GEN_TOL)
+
+
 @pytest.mark.slow
 def test_full_size_generator_matches_jax_cpu():
     """The shipped generator at full width on CPU (minutes; not Tier-1)."""

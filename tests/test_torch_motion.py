@@ -197,21 +197,23 @@ def _disc_inputs(seed, batch=2):
     return img, c, delta_t
 
 
-def test_styleganv_discriminator_matches_jax():
-    """StyleGANVDiscriminator (frames concatenated at 16²): the logits, and
-    every parameter's gradient of their sum."""
+def _check_styleganv_discriminator(**kwargs):
+    """The port's StyleGANVDiscriminator(**DISC, **kwargs) on JAX's weights:
+    the logits, and every parameter's gradient of their sum. Returns the
+    port's D."""
     img, c, delta_t = _disc_inputs(2)
-    jdisc = jmotion.StyleGANVDiscriminator(**DISC)
+    args = dict(DISC, **kwargs)
+    jdisc = jmotion.StyleGANVDiscriminator(**args)
     variables = _init_jax(jdisc, img, c, delta_t)
     want = np.asarray(jax.jit(jdisc.apply)(variables, img, c, delta_t))
-    disc = load_jax_variables(motion.StyleGANVDiscriminator(**DISC), variables)
+    disc = load_jax_variables(motion.StyleGANVDiscriminator(**args), variables)
     got = disc(*_t(img, c, delta_t))
     assert got.shape == want.shape == (2, 1)
     np.testing.assert_allclose(got.detach().numpy(), want, **NET_TOL)
 
     grads = jax.jit(jax.grad(lambda p: jnp.sum(jdisc.apply({"params": p}, img, c,
                                                             delta_t))))(variables["params"])
-    want_grads = load_jax_variables(motion.StyleGANVDiscriminator(**DISC),
+    want_grads = load_jax_variables(motion.StyleGANVDiscriminator(**args),
                                     {"params": jax.tree.map(np.asarray, grads)})
     got.sum().backward()
     want_named = dict(want_grads.named_parameters())
@@ -219,6 +221,36 @@ def test_styleganv_discriminator_matches_jax():
         g_want = want_named[name].detach().numpy()
         np.testing.assert_allclose(p.grad.numpy(), g_want, rtol=1e-3,
                                    atol=1e-4 * np.abs(g_want).max() + 1e-12, err_msg=name)
+    return disc
+
+
+def test_styleganv_discriminator_matches_jax():
+    """StyleGANVDiscriminator (frames concatenated at 16²): the logits, and
+    every parameter's gradient of their sum."""
+    _check_styleganv_discriminator()
+
+
+@pytest.mark.parametrize("block_kwargs", [None, dict(resample_filter=[1, 2, 1],
+                                                     activation="swish")])
+def test_styleganv_discriminator_orig_matches_jax(block_kwargs):
+    """``architecture="orig"`` (no residual branch) reaches the blocks and
+    the epilogue, and ``block_kwargs`` the blocks, as in
+    ``afcm_tpu/nn/motion.py:475-531``."""
+    disc = _check_styleganv_discriminator(architecture="orig", block_kwargs=block_kwargs)
+    names = [k for k, _ in disc.named_parameters()]
+    assert not any(".skip." in k for k in names)
+
+
+def test_styleganv_discriminator_skip_fails_in_both_packages():
+    """ROADMAP C15: at ``architecture="skip"`` the JAX D adds the
+    un-concatenated image's ``fromrgb`` to the frame-concatenated features
+    at ``concat_res`` and fails; the port refuses it when it is built."""
+    img, c, delta_t = _disc_inputs(2)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        _init_jax(jmotion.StyleGANVDiscriminator(**dict(DISC, architecture="skip")),
+                  img, c, delta_t)
+    with pytest.raises(NotImplementedError, match="C15"):
+        motion.StyleGANVDiscriminator(**dict(DISC, architecture="skip"))
 
 
 def test_comod_generator_cannot_build_motion_synthesis():

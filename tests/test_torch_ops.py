@@ -122,10 +122,36 @@ def test_shipped_layout_has_five_variants():
                     (1, 1, None, None, (0, 0, 0, 0)): 1}
 
 
+def test_filtered_lrelu_output_size_and_fma_match_jax():
+    """``ops.filtered_lrelu_output_size`` at every filter variant of the
+    shipped generator (and a 2-D filter and a [x, y] padding), equal to the
+    shape the op returns; ``ops.fma`` with broadcasting, against JAX's."""
+    fu, fd = (tops.design_lowpass_filter(n, cutoff=0.25, width=0.1, fs=2) for n in (12, 24))
+    cases = [((36, 36), fu, fu, 2, 2, (9, 8, 9, 8)), ((40, 40), fd, fu, 4, 2, (-6, -9, -6, -9)),
+             ((48, 52), fu, fd, 2, 4, (34, 33, 34, 33)), ((70, 70), fu, fu, 2, 2, -11),
+             ((9, 11), None, None, 1, 1, 0), ((20, 24), np.outer(fu, fu), fd, 2, 2, [5, 7])]
+    for in_size, f_up, f_down, up, down, padding in cases:
+        want = jops.filtered_lrelu_output_size(in_size, f_up, f_down, up, down, padding)
+        assert tops.filtered_lrelu_output_size(in_size, f_up, f_down, up, down,
+                                               padding) == want
+    x = torch.from_numpy(np.random.RandomState(3).randn(1, 2, 36, 36).astype(np.float32))
+    y = tops.filtered_lrelu(x, fu=fu, fd=fu, up=2, down=2, padding=(9, 8, 9, 8))
+    assert tuple(y.shape[2:]) == tops.filtered_lrelu_output_size((36, 36), fu, fu, 2, 2,
+                                                                 (9, 8, 9, 8))
+    rng = np.random.RandomState(4)
+    a, b, c = (rng.randn(*shape).astype(np.float32) for shape in ((3, 1, 5), (4, 1), (5,)))
+    np.testing.assert_allclose(
+        tops.fma(*map(torch.from_numpy, (a, b, c))).numpy(),
+        np.asarray(jops.fma(*map(jnp.asarray, (a, b, c)))), rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("act,alpha,gain,clamp", [
     ("linear", None, None, None), ("linear", None, 2.0, 1.0),
     ("lrelu", 0.2, np.sqrt(2), 256.0), ("lrelu", 0.2, 1.7, 0.5),
-    ("lrelu", None, None, None), ("lrelu", 1.0, 1.0, 256.0)])
+    ("lrelu", None, None, None), ("lrelu", 1.0, 1.0, 256.0),
+    *[(act, None, None, None) for act in ("relu", "tanh", "sigmoid", "elu", "selu",
+                                          "softplus", "swish")],
+    ("swish", None, 1.5, 0.5)])
 def test_bias_act_matches_jax(act, alpha, gain, clamp):
     rng = np.random.RandomState(1)
     x = rng.randn(2, 5, 7, 6).astype(np.float32)

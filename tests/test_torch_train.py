@@ -11,6 +11,7 @@ tests/test_train_parity.py (dropout masks cannot match across frameworks).
 
 import copy
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -211,10 +212,10 @@ def jax_model():
                             jmodels.GANConfig(**STEP_CFG))
 
 
-def _batch(seed, n=2):
+def _batch(seed, n=2, res=32):
     rng = np.random.RandomState(seed)
-    return {"A": rng.randn(n, 4, 32, 32).clip(-1, 1).astype(np.float32),
-            "B": rng.randn(n, 1, 32, 32).clip(-1, 1).astype(np.float32),
+    return {"A": rng.randn(n, 4, res, res).clip(-1, 1).astype(np.float32),
+            "B": rng.randn(n, 1, res, res).clip(-1, 1).astype(np.float32),
             "slice_idx": rng.rand(n, 1).astype(np.float32)}
 
 
@@ -295,6 +296,24 @@ def test_lr_scheduler_matches_jax():
     with pytest.raises(NotImplementedError):
         LRScheduler(ED(scheduler=ED(lr_policy="exp", n_epochs=1,
                                     n_epochs_decay=1, lr_decay_iters=1)))
+
+
+def test_lr_factor_matches_jax():
+    """``train.lr_factor``, the stateless per-epoch factor, against
+    ``afcm_tpu.train.lr_factor`` for the three stateless policies, and its
+    refusal of ``plateau`` in both packages."""
+    from afcm_tpu.train import lr_factor as jax_lr_factor
+    from afcm_tpu_torch.train import lr_factor
+    for policy in ("linear", "step", "cosine"):
+        cfg = ED(scheduler=ED(lr_policy=policy, epoch_count=1, n_epochs=5,
+                              n_epochs_decay=5, lr_decay_iters=3))
+        for epoch in range(1, 12):
+            assert lr_factor(epoch, cfg) == jax_lr_factor(epoch, cfg), (policy, epoch)
+    cfg = ED(scheduler=ED(lr_policy="plateau", epoch_count=1, n_epochs=5,
+                          n_epochs_decay=5, lr_decay_iters=3))
+    for fn in (lr_factor, jax_lr_factor):
+        with pytest.raises(ValueError, match="plateau"):
+            fn(3, cfg, -0.5)
 
 
 def test_dropout_draws_from_an_explicit_generator():
@@ -445,6 +464,174 @@ def test_train_step_matches_jax(jax_state, name, overrides, r1_schedule):
         np.testing.assert_array_equal(fresh.opt_D.state[p]["exp_avg_sq"].numpy(), nu[key])
         assert int(fresh.opt_D.state[p]["step"]) == 2
     assert fresh.step == 2
+
+
+def _port_params(port):
+    """Per net of a port model, each parameter as numpy, by name."""
+    return {name: {k: p.detach().numpy().copy() for k, p in net.named_parameters()}
+            for name, net in (("G", port.generator), ("D", port.discriminator))}
+
+
+def _port_arrays(port, start):
+    """Per net of a stepped port model: each parameter's update from
+    ``start`` (``_port_params`` before the step) and the step's gradient
+    (Adam's first moment, beta1 = 0), as numpy by name."""
+    params = _port_params(port)
+    return {name: ({k: params[name][k] - start[name][k] for k in params[name]},
+                   {k: opt.state[p]["exp_avg"].numpy() for k, p in net.named_parameters()})
+            for name, net, opt in (("G", port.generator, port.opt_G),
+                                   ("D", port.discriminator, port.opt_D))}
+
+
+def _jax_arrays(state, start):
+    """``_port_arrays`` of a ``GANTrainState`` stepped from ``start``."""
+    return {name: ({k: v - _named(getattr(start, f"params_{name}"))[k]
+                    for k, v in _named(getattr(state, f"params_{name}")).items()},
+                   _adam_mu_nu(getattr(state, f"opt_state_{name}"))[0])
+            for name in ("G", "D")}
+
+
+def step_misses(got, want):
+    """Per net, how far one step's parameter updates and gradients
+    (``got``, by ``_port_arrays``) are from another's (``want``), against
+    _compare_step's bounds, which hold the parameters after steps from one
+    state: the gradients' max |got - want| over max|g| of the tensor; where
+    |g| > 1e-6 the updates' entries more than 1e-5 apart (their count by
+    tensor), the largest distance, the largest |g| / max|g| of the tensor
+    among those entries, and the worst entry's tensor, both gradients and
+    the tensor's max|g|."""
+    out = {}
+    for net, (params, grads) in want.items():
+        got_params, got_grads = got[net]
+        row = dict(grad_max_rel_err=0.0, param_misses=0, param_max_abs_err=0.0,
+                   misses_max_g_rel=0.0, misses_by_tensor={}, worst=None)
+        for key, g in grads.items():
+            scale = max(float(np.abs(g).max()), 1e-30)
+            row["grad_max_rel_err"] = max(row["grad_max_rel_err"],
+                                          float(np.abs(got_grads[key] - g).max()) / scale)
+            apart = np.abs(got_params[key] - params[key]) * (np.abs(g) > 1e-6)
+            over = apart > 1e-5
+            if float(apart.max()) > row["param_max_abs_err"]:
+                i = np.unravel_index(int(apart.argmax()), apart.shape)
+                row["param_max_abs_err"] = float(apart.max())
+                row["worst"] = dict(tensor=key, g=float(g[i]), g_got=float(got_grads[key][i]),
+                                    max_abs_g=scale)
+            if over.any():
+                row["param_misses"] += int(over.sum())
+                row["misses_by_tensor"][key] = int(over.sum())
+                row["misses_max_g_rel"] = max(row["misses_max_g_rel"],
+                                              float(np.abs(g[over]).max()) / scale)
+        out[net] = row
+    return out
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# ROADMAP C14: the shipped CMSR training config at its published widths,
+# batch 2, one G forward for both phases
+FULL_SIZE_ARGV = ("--config-file", os.path.join(REPO, "configs/adni/stylegan3/cmsr.yml"),
+                  "loaders.batch_size", "2", "tpu.shared_g_fwd", "True")
+LOSSES = ("G_GAN", "G_L1", "D_real", "D_fake", "D_r1")
+
+
+def full_size_jax_step():
+    """afcm_tpu's side of the full-size step: the GANTrainState it starts
+    from, the batch and z (seeded numpy), one _train_step_impl under the
+    highest matmul precision, and the co-modulation dropout's keep-mask,
+    read off flax's nn.Dropout inside the jitted step."""
+    import types
+
+    import flax.linen as fnn
+    from afcm_tpu.config import default_argument_parser as jax_config
+
+    jmodel = jmodels.build_gan_model(jax_config(list(FULL_SIZE_ARGV)))
+    cfg = jmodel.config
+    assert cfg.shared_g_fwd and cfg.lambda_r1 > 0 and cfg.batch_size == 2
+    batch = _batch(7, n=2, res=jmodel.generator.img_resolution)
+    z = np.random.RandomState(8).randn(2, cfg.z_dim).astype(np.float32)
+    nimg = 2.0
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    state = jax.tree.map(np.asarray, jax.jit(jmodel.init_state)(
+        jax.random.PRNGKey(0), jbatch))
+
+    def step(state, batch, z, key):
+        masks = []
+
+        def record(next_fun, args, kwargs, context):
+            out = next_fun(*args, **kwargs)
+            if isinstance(context.module, fnn.Dropout):
+                masks.append(out != 0)
+            return out
+
+        with fnn.intercept_methods(record):
+            new, metrics = jmodel._train_step_impl(state, batch, z, key, key, nimg,
+                                                   with_r1=True)
+        return new, metrics, masks
+
+    with jax.default_matmul_precision("highest"):
+        new_state, metrics, masks = jax.jit(step)(
+            jax.tree.map(jnp.asarray, state), jbatch, jnp.asarray(z), jax.random.PRNGKey(5))
+    assert len(masks) == 1                  # one G forward serves both phases
+    return types.SimpleNamespace(
+        state=state, batch=batch, z=z, nimg=nimg, keep=np.array(masks[0]),
+        new_state=jax.tree.map(np.asarray, new_state),
+        metrics={k: float(v) for k, v in metrics.items()})
+
+
+def full_size_port_step(case, nudge=0.0, seed=0):
+    """The port's side: a GANModel built from the same config, loaded with
+    ``case``'s starting state, its dropout given JAX's mask, one
+    train_step on ``case``'s batch and z, on every core. With ``nudge``
+    every weight, buffer and input is first multiplied by 1 + nudge·N(0, 1)
+    (chip_smoke.py's rounding-floor nudge). Returns the model, the losses
+    and its parameters before the step (``_port_params``)."""
+    from afcm_tpu_torch.config import default_argument_parser
+    from afcm_tpu_torch.models import build_gan_model
+    from afcm_tpu_torch.nn.layers import dropout
+
+    port = build_gan_model(default_argument_parser(list(FULL_SIZE_ARGV)))
+    load_jax_train_state(port, case.state)
+    inputs = {k: torch.from_numpy(v) for k, v in dict(case.batch, z=case.z).items()}
+    if nudge:
+        draws = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for net in (port.generator, port.generator_ema, port.discriminator):
+                for v in [*net.parameters(), *net.buffers()]:
+                    v.mul_(1 + nudge * torch.randn(v.shape, generator=draws))
+            inputs = {k: v * (1 + nudge * torch.randn(v.shape, generator=draws))
+                      for k, v in inputs.items()}
+    synthesis = port.generator.synthesis
+    keep = torch.from_numpy(case.keep)
+    synthesis.dropout = lambda x, train, generator, keep_mask=None: dropout(
+        x, synthesis.dropout_rate, train, generator, keep)
+    z = inputs.pop("z")
+    start = _port_params(port)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)     # alone, not under xdist
+    try:
+        metrics = port.train_step(inputs, case.nimg, with_r1=True, z=z)
+    finally:
+        torch.set_num_threads(threads)
+    return port, {k: float(v) for k, v in metrics.items()}, start
+
+
+@pytest.mark.slow
+def test_full_size_train_step_matches_jax_cpu():
+    """One step of the shipped CMSR training config at full width (b2,
+    float32, shared_g_fwd, R1 on) against afcm_tpu's _train_step_impl under
+    the highest matmul precision, from one GANTrainState carried across by
+    load_jax_train_state (ROADMAP C14). z is injected and the port's
+    co-modulation dropout takes JAX's keep-mask; the StyleGAN3 G draws no
+    noise. Held to _compare_step's bounds. About 15 minutes and 20 GiB on
+    the CPU: not Tier-1. ``pytest -m slow -rP -k full_size_train_step``
+    prints the misses; scripts/torch_full_step_parity.py prints them beside
+    float32's rounding floor."""
+    case = full_size_jax_step()
+    port, metrics, start = full_size_port_step(case)
+    print("full-size train step: losses' relative errors",
+          {k: abs(metrics[k] - case.metrics[k]) / max(abs(case.metrics[k]), 1e-30)
+           for k in LOSSES}, "against afcm_tpu",
+          step_misses(_port_arrays(port, start), _jax_arrays(case.new_state, case.state)))
+    _compare_step(port, case.new_state, metrics, case.metrics, "full-size step", {})
 
 
 def test_jax_train_state_converts_to_port_weights(jax_state, tmp_path):

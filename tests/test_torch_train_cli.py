@@ -180,3 +180,30 @@ def test_train_says_matmul_precision_has_no_effect(monkeypatch, capsys):
         assert len(said) == lines
         assert all("tpu.compute_dtype alone" in line for line in said)
         assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.parametrize("card,dtype,capped,said", [
+    (True, "float32", False, True), (True, "float32", True, False),
+    (True, "bfloat16", False, False), (False, "float32", False, False)])
+def test_train_says_when_float32_plans_under_the_default_workspace(
+        monkeypatch, capsys, card, dtype, capped, said):
+    """ROADMAP C13: ``train.train`` called in process (not through the CLI's
+    entry, which caps cuDNN's workspace first) prints one line at float32 on
+    a card when ``CUDNN_CONV_WSCAP_DBG`` is not set, and nothing at
+    bfloat16, under the cap or on the CPU. The device check is patched to
+    see a card; the run stops at its data loading."""
+    monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
+    if card:
+        monkeypatch.setattr(train_cli, "resolve_device", lambda device=None: torch.device("cuda"))
+    if capped:
+        monkeypatch.setenv("CUDNN_CONV_WSCAP_DBG", str(train_cli.CONV_WORKSPACE_MIB))
+    else:
+        monkeypatch.delenv("CUDNN_CONV_WSCAP_DBG", raising=False)
+    from afcm_tpu_torch.config import default_argument_parser
+    cfg = default_argument_parser(["--config-file", CONFIG, "tpu.compute_dtype", dtype])
+    with pytest.raises(_Stop):
+        train_cli.train(cfg, device="cpu")
+    lines = [line for line in capsys.readouterr().out.splitlines()
+             if "default workspace" in line]
+    assert len(lines) == int(said)
+    assert all("train.bound_conv_workspace" in line for line in lines)
