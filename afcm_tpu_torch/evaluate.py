@@ -11,7 +11,10 @@ raises when there is none, unless ``--device cpu`` asks for the CPU (where
 every kernel's plain version runs). ``tpu.conv_int8 True`` routes the gated
 3x3 convs through the int8 conv kernel (``ops/cuda/conv_int8.py``);
 ``tpu.fetch_dtype bfloat16`` rounds each prediction batch on the device so
-that the copy to the host moves half the bytes.
+that the copy to the host moves half the bytes. ``tpu.mesh_shape [D, M]``
+with M > 1 serves over D·M ranks (``serve_over_model_axis``): rank 0 reads,
+draws z and stitches; each data row runs its contiguous chunk of every
+batch through its slices of G_ema (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from __future__ import annotations
 import glob
 import os
 import sys
-from typing import Optional
+import tempfile
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -104,6 +108,117 @@ def mesh_forward(run, device, a, s, z, mesh=None):
                        for i, c in enumerate(chunks)])
 
 
+class ModelAxisServer:
+    """Serving over the D·M ranks of a mesh with a model axis
+    (``afcm_tpu/evaluate.py:148-201`` under ``shard_params``). Every rank
+    builds the config's G_ema, loads its checkpoint whole and keeps its
+    slices (``parallel.shard_module``). Rank 0 sends each batch (the inputs
+    normalized, the whole batch's z) to every rank; each data row serves its
+    contiguous chunk of it, as ``mesh_forward`` splits a batch over the data
+    axis, its model ranks together; the chunks come back to rank 0. Each
+    exchange is one all-reduce over every rank of the values placed in
+    zeros, counted in the data group's census (``serve_header``,
+    ``serve_batch``, ``serve_result``). The other ranks run ``serve`` until
+    rank 0 calls ``close``."""
+
+    def __init__(self, cfg, device):
+        import torch.distributed as dist
+        check_model_name(cfg)
+        self.compute_dtype = configure_numerics(cfg)
+        self.device = torch.device(device)
+        self.model = build_eval_model(dict(cfg.model.G), compute_dtype=self.compute_dtype)
+        self.run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
+        load_generator_ema(self.model, self.run_dir, checkpoint_tag(cfg))
+        self.model.generator_ema.to(self.device)
+        self.group, self.model_group = parallel.make_groups(model_axis(cfg))
+        parallel.shard_module(self.model.generator_ema, self.model_group)
+        self.lead = dist.get_rank() == 0
+        self.world = dist.group.WORLD
+
+    def _from_lead(self, tensor: torch.Tensor, purpose: str) -> torch.Tensor:
+        if not self.lead:
+            tensor.zero_()
+        return self.group._all_reduce(tensor, purpose, self.world)
+
+    def _exchange(self, a=None, s=None, z=None) -> Optional[torch.Tensor]:
+        """One batch through every rank (None: the stop). Returns the whole
+        batch's output on rank 0."""
+        header = torch.zeros(5, dtype=torch.float64, device=self.device)
+        if a is not None:
+            header[:] = torch.tensor((*a.shape, s.reshape(len(s), -1).shape[1]),
+                                     dtype=torch.float64)
+        n, c, h, w, s_cols = (int(v) for v in
+                              self._from_lead(header, "serve_header").tolist())
+        if n == 0:
+            return None
+        sizes = (n * c * h * w, n * s_cols, n * self.model.z_dim)
+        flat = torch.empty(sum(sizes), dtype=torch.float32, device=self.device)
+        if self.lead:
+            flat.copy_(torch.cat([a.float().reshape(-1), s.float().reshape(-1),
+                                  z.float().reshape(-1)]))
+        a, s, z = self._from_lead(flat, "serve_batch").split(sizes)
+        rows = self.group.rows(n // self.group.world)
+        a = a.view(n, c, h, w)[rows]
+        with torch.inference_mode():
+            out = eval_forward(self.model.generator_ema, self.model.c_dim, a,
+                               s.view(n, -1)[rows], z.view(n, -1)[rows])
+        whole = torch.zeros((n, *out.shape[1:]), dtype=torch.float32, device=self.device)
+        if self.model_group.rank == 0:
+            whole[rows] = out.float()
+        whole = self.group._all_reduce(whole, "serve_result", self.world)
+        return whole.to(out.dtype)
+
+    def forward(self, a, s, z) -> torch.Tensor:
+        """Rank 0: one batch (on its device) through the mesh."""
+        parallel.local_batch_size(a.shape[0], self.group.world)  # raises if it does not divide
+        return self._exchange(a, s, z)
+
+    def serve(self) -> None:
+        """The other ranks: serve until rank 0 stops."""
+        while self._exchange() is not None:
+            pass
+
+    def close(self) -> None:
+        """Rank 0: stop the other ranks."""
+        self._exchange()
+
+
+def _serving_rank(rank: int, world: int, argv, device_type: str, run: Callable,
+                  run_args: Sequence, result_path: str) -> None:
+    """One rank of ``serve_over_model_axis``: rank 0 runs ``run(cfg,
+    device, *run_args, server=)`` and saves what it returns, the others
+    serve its batches."""
+    from .config import default_argument_parser
+    cfg = default_argument_parser(list(argv))
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    server = ModelAxisServer(cfg, device)
+    if not server.lead:
+        return server.serve()
+    try:
+        result = run(cfg, device, *run_args, server=server)
+    finally:
+        server.close()
+    torch.save(result, result_path)
+
+
+def serve_over_model_axis(run: Callable, run_args: Sequence, cfg, argv,
+                          device) -> object:
+    """Run a serving entry point (``run(cfg, device, *run_args, server=)``)
+    over the D·M ranks of the config's mesh, NCCL on the cards, gloo on the
+    CPU; returns what rank 0's ``run`` returned."""
+    mesh = parallel.resolve_mesh(cfg.tpu.mesh_shape, cfg.loaders.batch_size, device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    print(f"serving over {mesh.devices.size} ranks ({mesh.shape['data']} x "
+          f"{mesh.shape['model']}) over {backend}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        result_path = os.path.join(tmp, "result.pt")
+        parallel.spawn(_serving_rank, mesh.devices.size,
+                       (list(argv), device.type, run, tuple(run_args), result_path),
+                       backend=backend, init_file=os.path.join(tmp, "store"),
+                       device_type=device.type)
+        return torch.load(result_path, weights_only=False)
+
+
 def fetch_dtype_or_none(fetch_dtype):
     """``tpu.fetch_dtype`` -> the dtype the output is cast to on the device
     before the copy to the host; None leaves it float32
@@ -116,13 +231,16 @@ def fetch_dtype_or_none(fetch_dtype):
 
 
 def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
-                    eval_z: str = "per-batch", fetch_dtype=None, mesh=None):
+                    eval_z: str = "per-batch", fetch_dtype=None, mesh=None,
+                    server: Optional[ModelAxisServer] = None):
     """(A, slice_idx) numpy batch -> ``DeviceResult`` of the EMA generator.
 
     With a ``mesh`` of several devices (``prepare_mesh_state``) one replica
     of the EMA generator serves each device of its data axis and each batch
     is split over them (``mesh_forward``; ``afcm_tpu/evaluate.py:186-201``);
-    z is drawn on the mesh's first device for the whole batch.
+    z is drawn on the mesh's first device for the whole batch. With a
+    ``server`` (rank 0 of a mesh with a model axis) each batch goes through
+    ``ModelAxisServer.forward`` and ``model`` is the server's.
 
     ``eval_z="per-batch"`` draws a fresh z for every batch from one seeded
     ``torch.Generator`` (the reference protocol, comodgan_model.py:101-108);
@@ -156,8 +274,11 @@ def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
     def run(i, a, s, z):
         if a.dtype == torch.uint8:
             a = normalize_uint8(a, float(norm_range[0]), float(norm_range[1]))
-        with torch.inference_mode():
-            out = eval_forward(replicas[i], model.c_dim, a, s, z)
+        if server is not None:
+            out = server.forward(a, s, z)
+        else:
+            with torch.inference_mode():
+                out = eval_forward(replicas[i], model.c_dim, a, s, z)
         return out if out_dtype is None else out.to(out_dtype)
 
     def forward(a_batch, slice_idx):
@@ -187,24 +308,33 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def refuse_model_axis(cfg) -> None:
-    """Refuse a mesh whose model axis is larger than 1 (tensor parallelism,
-    ROADMAP item A12c; ``afcm_tpu/train.py:114-117``), where ``afcm_tpu``
-    honours it, instead of ignoring it."""
-    model = int(cfg.tpu.mesh_shape[1])
-    if model > 1:
+def model_axis(cfg) -> int:
+    """The model axis of the config's mesh (``tpu.mesh_shape [D, M]``)."""
+    return max(int(cfg.tpu.mesh_shape[1]), 1)
+
+
+def check_model_axis(cfg) -> int:
+    """The config's model axis. Over more than 1 the StyleGAN3 GAN shards
+    its networks (``parallel/tensor.py``) and pix2pix runs its whole state
+    on every rank, as ``afcm_tpu`` runs them; the CoModGAN and StyleGAN-V
+    generators have no tensor-parallel layers yet and raise, naming ROADMAP
+    item A12d, instead of running replicated."""
+    model = model_axis(cfg)
+    net_g = getattr(cfg.model.G, "netG", "stylegan3")
+    if (model > 1 and getattr(cfg.model, "name", "stylegan3") != "pix2pix"
+            and net_g != "stylegan3"):
         raise NotImplementedError(
             f"tpu.mesh_shape {list(cfg.tpu.mesh_shape)} asks for a model axis of "
-            f"{model}; tensor parallelism is not ported yet (ROADMAP item A12c): "
-            "the port splits the batch over the data axis alone; set the model "
-            "axis to 1")
+            f"{model}; the {net_g} generator has no tensor-parallel layers yet "
+            "(ROADMAP item A12d): set the model axis to 1")
+    return model
 
 
 def check_device_knobs(cfg) -> None:
-    """``refuse_model_axis``, and one line for a ``tpu.matmul_precision``
+    """``check_model_axis``, and one line for a ``tpu.matmul_precision``
     other than ``default``: the port sets TF32 from ``tpu.compute_dtype``
     alone."""
-    refuse_model_axis(cfg)
+    check_model_axis(cfg)
     if cfg.tpu.matmul_precision != "default":
         print(f"tpu.matmul_precision {cfg.tpu.matmul_precision} has no effect: the "
               "port sets TF32 from tpu.compute_dtype alone (off for float32)")
@@ -325,23 +455,27 @@ def prepare_mesh_state(cfg, model: GANModel, device):
     return serving_mesh(cfg.tpu.mesh_shape, cfg.loaders.batch_size, device)
 
 
-def build_serving_forward(cfg, device):
+def build_serving_forward(cfg, device, server: Optional[ModelAxisServer] = None):
     """What the evaluate and serve CLIs share: set the numerics of the
     config (the caller resets the conv implementation when it ends), build
     the model, load ``<tag>_net_G_ema.pth`` strictly, move the weights to
     the device (or each device of the config's mesh) once and return
-    ``(forward, run_dir)``."""
-    check_model_name(cfg)
-    compute_dtype = configure_numerics(cfg)
-    model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
-    run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
-    load_generator_ema(model, run_dir, checkpoint_tag(cfg))
-    mesh = prepare_mesh_state(cfg, model, device)
+    ``(forward, run_dir)``. With a ``server`` (rank 0 over a model axis)
+    the server holds the model and serves each batch over the mesh."""
+    if server is not None:
+        model, run_dir, mesh = server.model, server.run_dir, None
+    else:
+        check_model_name(cfg)
+        compute_dtype = configure_numerics(cfg)
+        model = build_eval_model(dict(cfg.model.G), compute_dtype=compute_dtype)
+        run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
+        load_generator_ema(model, run_dir, checkpoint_tag(cfg))
+        mesh = prepare_mesh_state(cfg, model, device)
     forward = make_forward_fn(model, device,
                               norm_range=pipeline_norm_range(cfg),
                               eval_z=getattr(cfg.tpu, "eval_z", "per-batch"),
                               fetch_dtype=getattr(cfg.tpu, "fetch_dtype", None),
-                              mesh=mesh)
+                              mesh=mesh, server=server)
     return forward, run_dir
 
 
@@ -429,8 +563,17 @@ def main(argv=None):
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""))
     ensure_volumetric(cfg, "afcm_tpu_torch.evaluate")
+    if check_model_axis(cfg) > 1:
+        return serve_over_model_axis(score, (), cfg, argv, device)
+    return score(cfg, device)
+
+
+def score(cfg, device, server: Optional[ModelAxisServer] = None):
+    """The evaluate CLI's run: serve and score the config's test subjects
+    (``serve_and_score``) with the checkpoint's G_ema, in this process or,
+    with a ``server``, over the mesh's model axis."""
     try:
-        forward, run_dir = build_serving_forward(cfg, device)
+        forward, run_dir = build_serving_forward(cfg, device, server)
         out_path = os.path.join(run_dir, "evaluate")
         os.makedirs(out_path, exist_ok=True)
         return serve_and_score(forward, get_test_loaders(cfg), out_path,

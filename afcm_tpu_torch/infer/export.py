@@ -126,13 +126,9 @@ def export_eval(model: GANModel, batch_size: Optional[int], img_shape: Sequence[
     bf16, about half the file. The trace runs on the device of the model's
     weights, with the float conv (conv impl ``xla``), and the process's conv
     setting is restored whatever happens."""
-    devices = 1
-    if mesh is not None:
-        if mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                f"a mesh with a model axis of {mesh.shape['model']}: tensor "
-                "parallelism is not ported yet (ROADMAP item A12c)")
-        devices = mesh.shape["data"]
+    # over a model axis too, the artifact is split by batch over the data
+    # axis with whole weights, as afcm_tpu/infer/export.py:117-121 exports it
+    devices = 1 if mesh is None else mesh.shape["data"]
     device = next(model.generator_ema.parameters()).device
     step = make_eval_fn(model, norm_range=norm_range, fetch_dtype=fetch_dtype,
                         weights_dtype=weights_dtype).eval()

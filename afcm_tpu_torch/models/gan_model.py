@@ -27,6 +27,16 @@ global batch's statistics, each net's gradient is averaged over the ranks
 in one flat all-reduce before it is scrubbed, and the losses returned are
 the global batch's.
 
+Tensor parallel (``distribute`` with a model group, ``tpu.mesh_shape [D,
+M]``): G, G_ema and D keep their slices of the parameters
+``parallel.infer_param_sharding`` shards (``parallel/tensor.py``); the
+draws are sliced by the data index, so every rank of a data row draws the
+same z and masks; after each backward the gradients of the parameters
+that are not sharded are reduced over the model group (the biases of
+sharded layers summed, the rest averaged: ``ModelGroup.reduce_replicated_``),
+then every gradient is averaged over the data group, and the losses are
+averaged over the data group alone.
+
 Style mixing (``style_mixing_prob > 0``, ``:162-192``): each train-mode G
 forward maps ``z`` (updating the mapper's ``w_avg``, as the JAX step does
 for both generator families) and a second latent ``z2`` (not updating it),
@@ -125,6 +135,7 @@ class GANModel:
         self.blur_max_radius = int(np.floor(config.blur_init_sigma * 3.0))
         self.step = 0
         self.group: Optional[parallel.DataGroup] = None
+        self.model_group: Optional[parallel.ModelGroup] = None
         if generator is not None:
             self.opt_G = make_optimizer(generator.parameters(), config.lr_g,
                                         config.adam_beta1, config.adam_beta2,
@@ -144,12 +155,19 @@ class GANModel:
         with_lr(self.opt_G, lr_g)
         with_lr(self.opt_D, lr_d)
 
-    def distribute(self, group: Optional[parallel.DataGroup]) -> None:
-        """Train as one rank of ``group`` (None: alone); the module
+    def distribute(self, group: Optional[parallel.DataGroup],
+                   model_group: Optional[parallel.ModelGroup] = None) -> None:
+        """Train as one rank of the data group ``group`` (None: alone) and,
+        with a ``model_group``, shard the networks over it; the module
         docstring says what that changes."""
         self.group = group
         parallel.attach(self.generator, group)
         parallel.attach(self.discriminator, group)
+        if model_group is not None:
+            self.model_group = model_group
+            parallel.shard_module(self.generator, model_group, self.opt_G)
+            parallel.shard_module(self.discriminator, model_group, self.opt_D)
+            parallel.shard_module(self.generator_ema, model_group)
 
     # -- helpers -------------------------------------------------------------
 
@@ -260,7 +278,7 @@ class GANModel:
             # Lazy R1 scales by the interval so the sum over steps matches
             # the every-step schedule (interval 1 => the same loss).
             loss_d = loss_d + loss_r1 * cfg.lambda_r1 * max(1, cfg.r1_interval)
-        self._step(self.opt_D, params_d, loss_d)
+        self._step(self.opt_D, params_d, loss_d, disc)
 
         # ---- G phase, through the updated D (stylegan3_model.py:126-135) ----
         fake_b = fake_shared if cfg.shared_g_fwd else run_g(mixes[-1])
@@ -270,7 +288,7 @@ class GANModel:
                                    self._blur(real_b, sigma)) * cfg.lambda_l1
         # Gradients w.r.t. G's parameters only: D's weights get none from
         # the G head, so nothing reaches D's optimizer.
-        self._step(self.opt_G, params_g, loss_g_gan + loss_g_l1)
+        self._step(self.opt_G, params_g, loss_g_gan + loss_g_l1, gen)
 
         # ---- EMA (reference train.py:67-77) ----
         if cfg.ema_enabled:
@@ -283,13 +301,16 @@ class GANModel:
         metrics["blur_sigma"] = torch.tensor(sigma)
         return metrics
 
-    def _step(self, optimizer, params, loss):
+    def _step(self, optimizer, params, loss, net):
         """Gradients of ``loss`` w.r.t. ``params`` (zeros where a parameter
         does not reach the loss, as JAX gives, so every Adam state steps
-        together), averaged over the ranks, NaN/Inf scrubbing, one Adam
-        step."""
+        together), the replicated ones of ``net`` reduced over the model
+        group, all averaged over the data group, NaN/Inf scrubbing, one
+        Adam step."""
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if self.model_group is not None:
+            self.model_group.reduce_replicated_(net, params, grads)
         if self.group is not None:
             self.group.average_(grads, "grads")
         for p, g in zip(params, grads):

@@ -26,7 +26,28 @@ def normal_parameter(shape, stddev: float,
     return nn.Parameter(torch.randn(shape, generator=generator) * stddev)
 
 
-class FullyConnected(nn.Module):
+class TensorParallel:
+    """What a layer whose weight ``parallel.tensor.shard_module`` may shard
+    needs: ``tp`` (its model group, None while whole) and ``tp_out`` (its
+    whole output size). Sharded, the layer enters its full input, computes
+    its slice of output channels with its slice of the bias, and gathers
+    them (``parallel/tensor.py``); whole, the three steps are identities."""
+
+    tp: Optional["parallel.tensor.ModelGroup"] = None
+    tp_out: Optional[int] = None
+    tp_purpose = "tp_gather"
+
+    def tp_enter(self, x):
+        return x if self.tp is None else self.tp.enter(x)
+
+    def tp_bias(self, b):
+        return b if self.tp is None or b is None else b[self.tp.channels(self.tp_out)]
+
+    def tp_gather(self, y):
+        return y if self.tp is None else self.tp.gather_channels(y, self.tp_purpose)
+
+
+class FullyConnected(TensorParallel, nn.Module):
     """Equalized-LR dense layer with fused bias+activation."""
 
     def __init__(self, in_features: int, out_features: int,
@@ -47,19 +68,22 @@ class FullyConnected(nn.Module):
             self.bias = nn.Parameter(torch.tensor(np.array(init)))
 
     def forward(self, x):
+        x = self.tp_enter(x)
         w = self.weight.to(x.dtype) * self.weight_gain
         b = None
         if self.bias is not None:
-            b = self.bias.to(x.dtype)
+            b = self.tp_bias(self.bias).to(x.dtype)
             if self.lr_multiplier != 1:
                 b = b * self.lr_multiplier
         x = x @ w.T
         if self.activation == "linear":
-            return x if b is None else x + b
-        return bias_act(x, b, act=self.activation)
+            x = x if b is None else x + b
+        else:
+            x = bias_act(x, b, act=self.activation)
+        return self.tp_gather(x)
 
 
-class Conv2dLayer(nn.Module):
+class Conv2dLayer(TensorParallel, nn.Module):
     """Equalized-LR conv with optional fused FIR up/downsampling."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -80,13 +104,15 @@ class Conv2dLayer(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
     def forward(self, x, gain: float = 1.0):
-        x = conv2d_resample(x, self.weight.to(x.dtype) * self.weight_gain,
+        x = conv2d_resample(self.tp_enter(x), self.weight.to(x.dtype) * self.weight_gain,
                             f=self.resample_filter, up=self.up, down=self.down,
-                            padding=self.padding, flip_weight=(self.up == 1))
+                            padding=self.padding, flip_weight=(self.up == 1),
+                            out_channels=self.tp_out)
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
-        return bias_act(x, None if self.bias is None else self.bias.to(x.dtype),
-                        act=self.activation, gain=act_gain, clamp=act_clamp)
+        b = self.tp_bias(self.bias)
+        return self.tp_gather(bias_act(x, None if b is None else b.to(x.dtype),
+                                       act=self.activation, gain=act_gain, clamp=act_clamp))
 
 
 class MinibatchStdLayer(nn.Module):

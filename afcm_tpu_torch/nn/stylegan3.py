@@ -31,8 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import design_lowpass_filter, filtered_lrelu, modulated_conv2d
 from ..ops.modulated_conv import conv2d
-from .layers import (Conv2dLayer, FullyConnected, adaptive_avg_pool2d,
-                     dropout, normal_parameter)
+from .layers import (Conv2dLayer, FullyConnected, TensorParallel,
+                     adaptive_avg_pool2d, dropout, normal_parameter)
 from .mapping import MappingNetwork
 
 # ---------------------------------------------------------------------------
@@ -199,9 +199,10 @@ def _design_layer_filters(spec: LayerSpec, is_torgb: bool, filter_size: int,
 # Layers
 
 
-class EncoderLayer(nn.Module):
+class EncoderLayer(TensorParallel, nn.Module):
     """Alias-free encoder layer: conv3x3 -> filtered lrelu (+resampling).
-    Reference: networks_stylegan3.py:416-549."""
+    Reference: networks_stylegan3.py:416-549. Sharded over the model axis,
+    its slice of channels runs the conv and ``filtered_lrelu``."""
 
     def __init__(self, spec: LayerSpec, conv_kernel: int = 3,
                  filter_size: int = 6, lrelu_upsampling: int = 2,
@@ -228,20 +229,25 @@ class EncoderLayer(nn.Module):
         spec = self.spec
         assert x.shape[1:] == (spec.in_channels, spec.in_size, spec.in_size), \
             f"EncoderLayer: got {tuple(x.shape)}, want {spec}"
-        x = conv2d(x, self.weight.to(x.dtype) * self.weight_gain,
-                   padding=self.conv_kernel - 1)
+        x = conv2d(self.tp_enter(x), self.weight.to(x.dtype) * self.weight_gain,
+                   padding=self.conv_kernel - 1, out_channels=self.tp_out)
         x = filtered_lrelu(x, fu=self.up_filter, fd=self.down_filter,
-                           b=self.bias.to(x.dtype), up=self.up, down=self.down,
-                           padding=self.padding, gain=np.sqrt(2), slope=0.2,
-                           clamp=self.conv_clamp)
+                           b=self.tp_bias(self.bias).to(x.dtype), up=self.up,
+                           down=self.down, padding=self.padding, gain=np.sqrt(2),
+                           slope=0.2, clamp=self.conv_clamp)
+        x = self.tp_gather(x)
         assert x.shape[1:] == (spec.out_channels, spec.out_size, spec.out_size)
         return x
 
 
-class SynthesisLayer(nn.Module):
+class SynthesisLayer(TensorParallel, nn.Module):
     """Alias-free modulated layer with global co-modulation
     (reference: networks_stylegan3.py:252-379). The affine input is
-    ``concat(w, global_w)`` when ``cond_mod`` — the AFCM graft."""
+    ``concat(w, global_w)`` when ``cond_mod`` — the AFCM graft. Sharded
+    over the model axis, its slice of output channels runs the modulated
+    conv on the whole input and styles (the affine, sharded or not, hands
+    on whole styles: their normalization reads them all) and
+    ``filtered_lrelu``; the skip is added to the gathered channels."""
 
     def __init__(self, spec: LayerSpec, w_dim: int, global_w_dim: int,
                  cond_mod: bool = True, conv_kernel: int = 3,
@@ -262,6 +268,7 @@ class SynthesisLayer(nn.Module):
         affine_in = w_dim + (global_w_dim if cond_mod else 0)
         self.affine = FullyConnected(affine_in, spec.in_channels, bias_init=1.0,
                                      generator=generator)
+        self.affine.tp_purpose = "tp_styles"
         self.weight = normal_parameter(
             (spec.out_channels, spec.in_channels, self.kernel, self.kernel),
             1.0, generator)
@@ -279,15 +286,17 @@ class SynthesisLayer(nn.Module):
         if spec.is_torgb:
             styles = styles * (1 / np.sqrt(spec.in_channels * self.kernel ** 2))
 
-        x = modulated_conv2d(x, self.weight, styles,
+        x = modulated_conv2d(self.tp_enter(x), self.weight, self.tp_enter(styles),
                              demodulate=not spec.is_torgb,
-                             padding=self.kernel - 1, input_gain=input_gain)
+                             padding=self.kernel - 1, input_gain=input_gain,
+                             out_channels=self.tp_out)
         x = filtered_lrelu(x, fu=self.up_filter, fd=self.down_filter,
-                           b=self.bias.to(x.dtype), up=self.up, down=self.down,
-                           padding=self.padding,
+                           b=self.tp_bias(self.bias).to(x.dtype), up=self.up,
+                           down=self.down, padding=self.padding,
                            gain=1 if spec.is_torgb else np.sqrt(2),
                            slope=1 if spec.is_torgb else 0.2,
                            clamp=self.conv_clamp)
+        x = self.tp_gather(x)
         assert x.shape[1:] == (spec.out_channels, spec.out_size, spec.out_size)
         if x_skip is not None:
             x = x + x_skip.to(x.dtype)

@@ -15,8 +15,10 @@ from .upfirdn2d import parse_padding, upfirdn2d
 
 def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
                     groups: int = 1, flip_weight: bool = True,
-                    flip_filter: bool = False):
-    """2D conv with optional up/downsampling (padding w.r.t. upsampled image)."""
+                    flip_filter: bool = False, out_channels=None):
+    """2D conv with optional up/downsampling (padding w.r.t. upsampled image).
+    ``out_channels``: the conv's whole output size where ``w`` holds a slice
+    of it (``conv2d``)."""
     assert x.ndim == 4 and w.ndim == 4
     fw, fh = filter_size(f)
     px0, px1, py0, py1 = parse_padding(padding)
@@ -43,7 +45,9 @@ def conv2d_resample(x, w, f=None, up: int = 1, down: int = 1, padding=0,
     x = upfirdn2d(x, f if up > 1 else None, up=up,
                   padding=[px0, px1, py0, py1], gain=up ** 2,
                   flip_filter=flip_filter)
-    x = conv2d(x, w, padding=0, groups=groups, flip_weight=flip_weight)
+    # passed only for a slice: a whole conv calls as it did
+    whole = {} if out_channels is None else {"out_channels": out_channels}
+    x = conv2d(x, w, padding=0, groups=groups, flip_weight=flip_weight, **whole)
     if down > 1:
         x = upfirdn2d(x, f, down=down, flip_filter=flip_filter)
     return x

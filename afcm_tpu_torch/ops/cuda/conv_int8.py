@@ -301,9 +301,18 @@ def int8_conv_cuda(x_packed, w_packed, scale, out_channels: int):
     return y
 
 
+def _kernel_takes(x_shape, w_shape, padding) -> bool:
+    """What K3 and its plain version take: a conv ``int8_routable`` passes
+    but for its floor of 32 output channels, which belongs to the routing:
+    the kernel masks the output channels it computes past O, so the slice
+    of a conv sharded over the model axis runs (``ops/modulated_conv.py``
+    decides the routing on the whole conv)."""
+    return int8_routable(x_shape, (max(int(w_shape[0]), 32), *w_shape[1:]), padding)
+
+
 def _check(x, w, padding):
     if x.ndim != 4 or w.ndim != 4 or x.shape[1] != w.shape[1] or \
-            not int8_routable(x.shape, w.shape, padding):
+            not _kernel_takes(x.shape, w.shape, padding):
         raise ValueError(f"conv3x3_int8 does not take x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, padding {padding!r} (int8_routable)")
     if w.device != x.device:

@@ -74,9 +74,13 @@ def fma(a, b, c):
     return a * b + c
 
 
-def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True):
+def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True,
+           out_channels=None):
     """NCHW conv2d (correlation when flip_weight, like torch.conv2d);
-    padding is an int or (padH, padW), symmetric."""
+    padding is an int or (padH, padW), symmetric. ``out_channels`` is the
+    conv's whole output size where ``w`` holds a slice of it (a layer
+    sharded over the model axis): the int8 routing decides on the whole
+    shape, as ``afcm_tpu``'s does under GSPMD."""
     if isinstance(padding, (int, np.integer)):
         padding = (int(padding), int(padding))
     else:
@@ -84,32 +88,37 @@ def conv2d(x, w, padding=0, groups: int = 1, flip_weight: bool = True):
     if not flip_weight and (w.shape[2] > 1 or w.shape[3] > 1):
         w = w.flip([2, 3])
     if _CONV_IMPL in ("int8", "int8_all") and groups == 1:
-        y = _try_conv_int8(x, w, padding)
+        # passed only for a slice: a whole conv calls as it did
+        y = _try_conv_int8(x, w, padding, *(() if out_channels is None else (out_channels,)))
         if y is not None:
             return y
     return conv2d_gradfix.conv2d(x, w.to(x.dtype), padding=padding, groups=groups)
 
 
-def _try_conv_int8(x, w, padding):
+def _try_conv_int8(x, w, padding, out_channels=None):
     """Route an eligible conv to the int8 conv kernel, else None.
 
     Eligibility is static, as in the JAX package: equal padding 0..2 on
     both axes, a 3x3 kernel on a square input, channels at or above the
-    routing floor, and the gate under mode 'int8'. A conv that is eligible
-    runs the kernel or raises; nothing declines because the kernel failed."""
+    routing floor, and the gate under mode 'int8', all of the whole conv
+    (``out_channels`` output channels; the weight's slice of them is what
+    runs). A conv that is eligible runs the kernel or raises; nothing
+    declines because the kernel failed. The quantization is per output
+    channel, so a slice computes the same channels as the whole conv."""
+    whole = (int(out_channels or w.shape[0]), *w.shape[1:])
     if padding[0] != padding[1]:
         return None
-    if min(w.shape[0], w.shape[1]) < _CONV_INT8_MIN_CH:
+    if min(whole[0], whole[1]) < _CONV_INT8_MIN_CH:
         return None
-    if _CONV_IMPL == "int8" and not _int8_gate(x.shape, w.shape):
+    if _CONV_IMPL == "int8" and not _int8_gate(x.shape, whole):
         return None
-    if not int8_routable(x.shape, w.shape, padding[0]):
+    if not int8_routable(x.shape, whole, padding[0]):
         return None
     return conv3x3_int8_ste(x, w.float(), padding[0]).to(x.dtype)
 
 
 def modulated_conv2d(x, w, s, demodulate: bool = True, padding=0,
-                     input_gain=None):
+                     input_gain=None, out_channels=None):
     """StyleGAN3-style modulated conv (reference: networks_stylegan3.py:24-64).
 
     Args:
@@ -119,6 +128,10 @@ def modulated_conv2d(x, w, s, demodulate: bool = True, padding=0,
       demodulate: apply weight pre-normalization + demodulation.
       padding: int or (padH, padW).
       input_gain: optional extra scale on input channels: scalar, [I], or [N, I].
+      out_channels: the whole O where ``w`` holds a slice of the output
+        channels (``conv2d``); the pre-normalization and the demodulation
+        reduce over I and the taps of each output channel, so a slice needs
+        nothing of the others, but the styles must be whole.
     """
     batch = x.shape[0]
     in_channels = w.shape[1]
@@ -142,7 +155,7 @@ def modulated_conv2d(x, w, s, demodulate: bool = True, padding=0,
         styles = styles * input_gain.expand(batch, in_channels)
 
     x = x * styles.to(x.dtype)[:, :, None, None]
-    x = conv2d(x, w, padding=padding)
+    x = conv2d(x, w, padding=padding, out_channels=out_channels)
     if demodulate:
         x = x * dcoefs.to(x.dtype)[:, :, None, None]
     return x

@@ -39,11 +39,15 @@ GROUP_TIMEOUT_S = 1800
 
 
 class DataGroup:
-    """The ranks of the default process group as the data axis of a step."""
+    """The ranks of the data axis of a step: the default process group, or,
+    with a model axis (``tensor.make_groups``), the subgroup of the ranks of
+    one model index, where this rank is ``rank`` of ``world``."""
 
-    def __init__(self):
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
+    def __init__(self, process_group=None, rank: Optional[int] = None,
+                 world: Optional[int] = None):
+        self.process_group = process_group
+        self.rank = dist.get_rank() if rank is None else rank
+        self.world = dist.get_world_size() if world is None else world
         self.census: Dict[str, Dict[str, int]] = {}
 
     @classmethod
@@ -56,12 +60,15 @@ class DataGroup:
         census, self.census = self.census, {}
         return census
 
-    def _all_reduce(self, tensor: torch.Tensor, purpose: str) -> torch.Tensor:
-        """Sum ``tensor`` over the ranks, in place; count the call."""
+    def _all_reduce(self, tensor: torch.Tensor, purpose: str,
+                    process_group=None) -> torch.Tensor:
+        """Sum ``tensor`` over the ranks (of ``process_group`` when given),
+        in place; count the call."""
         entry = self.census.setdefault(purpose, {"count": 0, "bytes": 0})
         entry["count"] += 1
         entry["bytes"] += tensor.numel() * tensor.element_size()
-        dist.all_reduce(tensor)
+        dist.all_reduce(tensor, group=self.process_group if process_group is None
+                        else process_group)
         return tensor
 
     def rows(self, n_local: int) -> slice:
@@ -99,9 +106,11 @@ class DataGroup:
                 offset += t.numel()
 
     def barrier(self) -> None:
-        """Wait for every rank (an all-reduce of one element, which every
+        """Wait for every rank of the process group, those of the other
+        model indices too (an all-reduce of one element, which every
         backend runs on the device the ranks compute on)."""
-        self._all_reduce(torch.zeros(1, device=_device_of_group()), "barrier")
+        self._all_reduce(torch.zeros(1, device=_device_of_group()), "barrier",
+                         dist.group.WORLD)
 
 
 def _device_of_group() -> torch.device:

@@ -11,9 +11,8 @@ names and shape, and the two uses of its data axis are explicit:
 - training runs one process per device of the data axis, each with its
   contiguous slice of every global batch (``parallel.group``).
 
-A model axis larger than 1 (tensor parallelism: ``infer_param_sharding``,
-``shard_params``) is not ported; the CLIs refuse it
-(``evaluate.refuse_model_axis``, ROADMAP item A12c).
+A model axis larger than 1 (tensor parallelism) runs one process per
+device of the whole mesh, data row by data row (``parallel.tensor``).
 """
 
 from __future__ import annotations
@@ -130,11 +129,12 @@ def replicate_state(module: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module
 def resolve_mesh(mesh_shape: Sequence[int], batch_size: int,
                  device: torch.device) -> Optional[Mesh]:
     """The mesh of a config on ``device``'s type: the visible cards for
-    ``cuda``; for the CPU the data axis as the config gives it (0 is one
-    process). None when it holds one device."""
+    ``cuda``; for the CPU the mesh as the config gives it (a data axis of 0
+    is one row). None when it holds one device."""
     if device.type == "cuda":
         devices = visible_devices()
     else:
-        devices = [torch.device("cpu")] * max(int(mesh_shape[0]), 1)
+        devices = [torch.device("cpu")] * (max(int(mesh_shape[0]), 1)
+                                           * max(int(mesh_shape[1]), 1))
     mesh = make_mesh_for_batch(mesh_shape, batch_size, devices)
     return mesh if mesh.devices.size > 1 else None

@@ -12,7 +12,9 @@ precision are those the evaluation was scored at; or from an artifact of
 (``afcm_tpu/serve.py:41-51``), over as many devices as it was exported
 over. In process a data axis the config sets (``tpu.mesh_shape [N, 1]``,
 ``--num-gpus N``) holds one replica of the generator per device; the
-default serves on one card (``evaluate.serving_mesh``). Subjects stream through the pipelined
+default serves on one card (``evaluate.serving_mesh``); a model axis
+(``tpu.mesh_shape [D, M]``, M > 1) serves over D·M ranks
+(``evaluate.serve_over_model_axis``). Subjects stream through the pipelined
 predictor (``tpu.pipeline_depth``); per-subject NIfTI heads are written
 write-behind. It runs on the CUDA device and raises when there is none,
 unless ``--device cpu`` asks for the CPU (an artifact serves only on the
@@ -66,9 +68,8 @@ def serve_subjects(forward, loaders, out_dir: str, config=None,
 def main(argv=None):
     # The config layer needs yaml; only the CLIs import it.
     from .config import default_argument_parser, pop_flag
-    from .data import get_test_loaders
-    from .evaluate import build_serving_forward, ensure_volumetric, resolve_device
-    from .ops.modulated_conv import set_conv_impl
+    from .evaluate import (check_model_axis, ensure_volumetric, resolve_device,
+                           serve_over_model_axis)
 
     argv = list(sys.argv[1:] if argv is None else argv)
     artifact = pop_flag(argv, "--artifact")
@@ -79,18 +80,32 @@ def main(argv=None):
     device = resolve_device(device_name)
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""))
+    # the artifact fixes the data axis it serves over, not the config
+    if artifact is None and check_model_axis(cfg) > 1:
+        return serve_over_model_axis(serve_run, (artifact, out_dir), cfg, argv, device)
+    return serve_run(cfg, device, artifact, out_dir)
+
+
+def serve_run(cfg, device, artifact=None, out_dir=None, server=None) -> str:
+    """The serve CLI's run: the config's test subjects through the
+    checkpoint's G_ema (in this process or, with a ``server``, over the
+    mesh's model axis) or through an ``artifact``; returns the directory
+    of the predictions."""
+    from .data import get_test_loaders
+    from .evaluate import build_serving_forward
+    from .ops.modulated_conv import set_conv_impl
+
     try:
         if artifact is not None:
             from .infer.export import load_exported, mesh_devices, serving_forward
             from .parallel import resolve_mesh
-            # the artifact fixes the data axis it serves over, not the config
             exported, _ = load_exported(artifact)
             n = mesh_devices(exported)
             forward = serving_forward(exported, device=device,
                                       mesh=resolve_mesh((n, 1), n, device))
             run_dir = os.path.join(cfg.checkpoints_dir, cfg.name)
         else:
-            forward, run_dir = build_serving_forward(cfg, device)
+            forward, run_dir = build_serving_forward(cfg, device, server)
         out_dir = out_dir or os.path.join(run_dir, "serve")
         serve_subjects(forward, get_test_loaders(cfg), out_dir, cfg,
                        patch_halo=cfg.predictor.patch_halo,

@@ -30,6 +30,16 @@ builds the same loader from the same seed and takes its contiguous slice
 ``loaders.batch_size`` and the image count stay global. Rank 0 alone
 writes ``config.yml`` and the checkpoints, shows, prints and validates;
 the other ranks wait at a barrier. Every rank loads a checkpoint to resume.
+
+Tensor parallel, as ``afcm_tpu/train.py:111-120`` shards its state over
+the mesh's model axis: ``tpu.mesh_shape [D, M]`` with M > 1 starts D·M
+ranks, rank r at data index ``r // M`` and model index ``r % M``
+(``parallel.make_groups``); each data row takes one slice of every global
+batch, and the ranks of a row hold the slices of the StyleGAN3 GAN's
+sharded parameters (``GANModel.distribute``). The generator's forward
+crosses the row, so under a model axis every rank displays and validates
+along with rank 0, which alone prints and writes. Each rank's float32 step
+is under the same cuDNN workspace cap (``bound_conv_workspace``).
 """
 
 from __future__ import annotations
@@ -46,8 +56,8 @@ import torch
 
 from . import parallel
 from .data import get_train_loaders
-from .evaluate import (check_device_knobs, refuse_model_axis, resolve_device,
-                       set_matmul_precision)
+from .evaluate import (check_device_knobs, check_model_axis, model_axis,
+                       resolve_device, set_matmul_precision)
 from .models import GANModel, build_model
 from .models.schedulers import LRScheduler
 from .utils import checkpoint as ckpt
@@ -177,8 +187,8 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
     check_device_knobs(cfg)
     set_matmul_precision(cfg.tpu.compute_dtype)
     note_default_workspace(device, cfg.tpu.compute_dtype)
-    group = parallel.DataGroup.current()
-    lead = group is None or group.rank == 0
+    group, model_group = parallel.make_groups(model_axis(cfg))
+    lead = group is None or torch.distributed.get_rank() == 0
     batch_size = cfg.loaders.batch_size
     local_batch = parallel.local_batch_size(batch_size, group.world if group else 1)
     seed = cfg.manual_seed if cfg.manual_seed is not None else 0
@@ -187,14 +197,23 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
     if loaders is None:
         loaders = get_train_loaders(cfg, seed=seed)
     print(f"The number of training images = {len(loaders['train'].dataset)}"
-          + (f" (rank {group.rank} of {group.world}, {local_batch} a step)"
-             if group else ""))
+          + (f" (data rank {group.rank} of {group.world}, {local_batch} a step)"
+             if group else "")
+          + (f" (model rank {model_group.rank} of {model_group.size})"
+             if model_group else ""))
 
     model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     model.to(device)
     init_cublas(device)
-    if group is not None:
+    if not isinstance(model, GANModel):
+        model_group = None      # pix2pix: the whole state on every rank of a row
+    if model_group is not None:
+        model.distribute(group, model_group)
+    elif group is not None:
         model.distribute(group)
+    # the ranks that run G_ema's forward: rank 0, or every rank of a row
+    # when the forward crosses the row
+    evaluates = lead or model_group is not None
     rng = torch.Generator(device=device).manual_seed(seed)
     # display and validation draw from their own stream: rank 0 alone runs
     # them, and the step's stream must stay the same on every rank
@@ -250,16 +269,17 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
             if on_step is not None:
                 on_step(opt_steps, metrics)
 
-            if lead and total_iters % cfg.trainer.display_freq < batch_size:
+            if evaluates and total_iters % cfg.trainer.display_freq < batch_size:
                 first = to_device({k: v[:1] for k, v in batch.items()}, device)
                 # the target goes to G as ref_img, as in validate
                 fake = model.eval_step(first["A"], first["slice_idx"], generator=vis_rng,
                                        ref_img=first["B"])
                 # the center slice of the 4-slice input window (channel 1)
                 a_ch = 1 if batch["A"].shape[1] > 1 else 0
-                visualizer.display_current_results(
-                    {"real_A": batch["A"][:1, a_ch:a_ch + 1],
-                     "fake_B": fake.cpu().numpy(), "real_B": batch["B"][:1]}, epoch)
+                if lead:
+                    visualizer.display_current_results(
+                        {"real_A": batch["A"][:1, a_ch:a_ch + 1],
+                         "fake_B": fake.cpu().numpy(), "real_B": batch["B"][:1]}, epoch)
 
             if lead and total_iters % cfg.trainer.print_freq < batch_size:
                 values = {k: float(v) for k, v in metrics.items()}
@@ -269,15 +289,20 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
 
             if total_iters % cfg.trainer.save_latest_freq < batch_size:
                 ckpt.save_state(model, run_dir, "latest", group)
-                val = validate(model, loaders["val"], device, vis_rng) if lead else None
+                val = validate(model, loaders["val"], device, vis_rng) if evaluates else None
+                if model_group is not None:
+                    val = rank0_scores(val, group, device)
                 if val:
                     last_val = val
-                    visualizer.plot_val_results(val)
-                    print(f" ^^^VALIDATION   psnr:{val['psnr']:.6}, "
-                          f"ssim:{val['ssim']:.6}", flush=True)
+                    if lead:
+                        visualizer.plot_val_results(val)
+                        print(f" ^^^VALIDATION   psnr:{val['psnr']:.6}, "
+                              f"ssim:{val['ssim']:.6}", flush=True)
                     if val["ssim"] > ssim_max:
                         ssim_max = val["ssim"]
-                        ckpt.save_state(model, run_dir, "best")
+                        # over a model axis the rows gather the state with rank 0
+                        ckpt.save_state(model, run_dir, "best",
+                                        group if model_group is not None else None)
                 if group is not None:
                     group.barrier()
 
@@ -297,11 +322,25 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
 
     ckpt.save_state(model, run_dir, "latest", group)   # G_ema's too but for pix2pix
     final_val = None
-    if lead:
+    if evaluates:
         final_val = validate(model, loaders["val"], device, vis_rng) or last_val
     if group is not None:
         group.barrier()
-    return final_val or {}
+    return (final_val or {}) if lead else {}
+
+
+def rank0_scores(val: Optional[Dict[str, float]], group: parallel.DataGroup,
+                 device) -> Optional[Dict[str, float]]:
+    """Rank 0's validation scores on every rank (rank 0's values summed
+    with zeros over every rank), so that all ranks take the same checkpoint
+    decision whatever their own forward rounded to."""
+    lead = torch.distributed.get_rank() == 0
+    values = torch.zeros(3, dtype=torch.float64, device=device)
+    if lead and val:
+        values[:] = torch.tensor([1.0, val["psnr"], val["ssim"]], dtype=torch.float64)
+    group._all_reduce(values, "scores", torch.distributed.group.WORLD)
+    flag, psnr, ssim = values.tolist()
+    return {"psnr": psnr, "ssim": ssim} if flag else None
 
 
 def _train_rank(rank: int, world: int, argv, device_type: str) -> None:
@@ -321,8 +360,9 @@ def main(argv=None):
     device = resolve_device(pop_flag(argv, "--device"))
     cfg = default_argument_parser(argv)
     print(cfg.dump())
-    refuse_model_axis(cfg)
-    # before this process's first conv; the ranks it starts inherit it
+    check_model_axis(cfg)
+    # before this process's first conv; the ranks it starts inherit it,
+    # so the cap applies to each rank
     bound_conv_workspace(device, cfg.tpu.compute_dtype)
     backend = "nccl" if device.type == "cuda" else "gloo"
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:      # under torchrun
@@ -338,11 +378,12 @@ def main(argv=None):
     mesh = parallel.resolve_mesh(cfg.tpu.mesh_shape, cfg.loaders.batch_size, device)
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else "")
-          + (f"; {mesh.shape['data']} ranks over {backend}" if mesh else ""))
+          + (f"; {mesh.devices.size} ranks ({mesh.shape['data']} x "
+             f"{mesh.shape['model']}) over {backend}" if mesh else ""))
     if mesh is None:
         return train(cfg, device=device)
     with tempfile.TemporaryDirectory() as tmp:
-        parallel.spawn(_train_rank, mesh.shape["data"], (argv, device.type),
+        parallel.spawn(_train_rank, mesh.devices.size, (argv, device.type),
                        backend=backend, init_file=os.path.join(tmp, "store"),
                        device_type=device.type)
     return {}

@@ -10,8 +10,9 @@ the int8 serving path (tpu.conv_int8 True), all at full width and depth
 point's loop, the serving export, the CoModGAN baseline's serving,
 int8 and training paths, the pix2pix baseline's training, and the CMSR
 train step under remat, with style mixing and under the int8 conv, with the
-StyleGAN-V family and grid_sample held against the CPU, and reference AFCM
-checkpoints converted and served — and checks the
+StyleGAN-V family and grid_sample held against the CPU, reference AFCM
+checkpoints converted and served, and the model axis (tensor parallelism)
+on two ranks sharing the card — and checks the
 hand-written kernels on them: K1
 and K2 (the fused filtered leaky ReLU forward and backward, bound as the
 torch.library operators afcm_tpu_torch::filtered_lrelu{,_bwd}), K3 (the int8 3x3 conv
@@ -201,7 +202,18 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    no K1; (c) SynthesisInput (w_dim 512, 512 channels, 36^2), the
    StyleGAN-V D at architecture orig (CCSR widths) and the CCSR D with
    block_kwargs resample_filter [1, 2, 1], b4, on the card against the CPU
-   as in 13a.
+   as in 13a;
+20. the model axis (parallel.tensor): two gloo ranks sharing the card at
+   mesh (1, 2) on the shipped CMSR config, each holding its slices of the
+   parameters the placement rule shards, at fp32 (TF32 off) and at bf16,
+   b4: (a) the sharded G_ema forward against the unsharded forward in this
+   process, at fp32 within 1e-3 * max, 28 K1 launches per rank (on channel
+   slices where a layer is sharded); (b) one train step against one
+   process at the same inputs and draws, at fp32 the losses within rtol
+   1e-4 and the whole gradients within 1e-4 in relative L2 or 10x the
+   rounding floor (bf16's own floor at b4 is percents: its errors are
+   printed), every rank holding the same whole gradients, the census per
+   purpose and each rank's peak; (c) the times at bf16.
 
 Then prints the total seconds, the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
@@ -315,8 +327,13 @@ STYLEGANV_D = dict(c_dim=1, img_resolution=256, img_channels=1, num_frames=3,
 MOTION_BATCH = 4
 
 
+# the host clock at import: each phase line says when it was printed
+STARTED = time.perf_counter()
+
+
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, **fields,
+                      "at_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def psnr(got, want):
@@ -2864,6 +2881,163 @@ def check_int8_train(device):
     return launches
 
 
+# -- phase 20: the model axis -------------------------------------------------------
+
+TP_WORLD = 2                   # two gloo ranks sharing the card: mesh (1, 2)
+TP_BATCH = 4
+TP_FORWARDS = 3
+TP_DTYPES = ("float32", "bfloat16")
+
+
+def tensor_parallel_batch():
+    """Phase 20's global train batch: the phantom's first batch of 4."""
+    return next(iter(phantom_train_loaders(depth=6 * TP_BATCH, size=256,
+                                           batch_size=TP_BATCH, seed=SEED)["train"]))
+
+
+def tensor_parallel_step(device, dtype, group=None, model_group=None, nudge_seed=None):
+    """One b4 train step of the shipped config at ``dtype``
+    (``train_step_check``), over the groups when given."""
+    cfg = train_config(tempfile.gettempdir(), dtype, "loaders.batch_size", str(TP_BATCH))
+    return train_step_check(cfg, tensor_parallel_batch(), device, seed=SEED,
+                            draw_seed=SEED + 20, group=group, model_group=model_group,
+                            nudge_seed=nudge_seed)
+
+
+def tensor_parallel_forward(model, device, timed=0):
+    """G_ema's forward on phase 6's seeded b4 inputs, the K1 launches, and
+    ``timed`` more forwards' ms on the host clock around a synchronize."""
+    inputs = forward_inputs(TP_BATCH, device)
+    k1.launches = 0
+    with torch.no_grad():
+        out = model.eval_step(inputs[0], inputs[1], z=inputs[2])
+        launches = k1.launches
+        times = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.eval_step(inputs[0], inputs[1], z=inputs[2])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return out.float().cpu(), launches, times
+
+
+def tensor_parallel_rank(rank, world, out_dir, device):
+    """A rank of phase 20 (started by ``parallel.spawn``): at each dtype the
+    shipped G_ema sharded over the model group and its forward (timed at
+    bf16), then at each dtype one train step."""
+    group, model_group = parallel.make_groups(world)
+    result = {}
+    for dtype in TP_DTYPES:
+        set_matmul_precision(dtype)
+        model = build_eval_model(CMSR_ADNI_G, compute_dtype=dtype,
+                                 generator=torch.Generator().manual_seed(SEED))
+        model.generator_ema.to(device)
+        parallel.shard_module(model.generator_ema, model_group)
+        out, launches, times = tensor_parallel_forward(
+            model, device, TP_FORWARDS if dtype == "bfloat16" else 0)
+        result[dtype] = {"out": out, "k1_launches": launches, "forward_ms": times,
+                         "forward_census": model_group.take_census()}
+        del model
+        torch.cuda.empty_cache()
+    for dtype in TP_DTYPES:
+        result[dtype]["step"] = tensor_parallel_step(device, dtype, group, model_group)
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def check_tensor_parallel(device):
+    """Phase 20: two gloo ranks sharing the card at mesh (1, 2) on the
+    shipped CMSR config at full width (parallel.tensor), each at fp32 (TF32
+    off) and at bf16, b4. (a) The sharded G_ema forward against the
+    unsharded one in this process: at fp32 within 1e-3 * max (7b's bound),
+    with K1's launches per rank (every layer runs K1 on its channel slice
+    or, replicated, on all channels); (b) one train step against one
+    process at the same inputs and draws: at fp32 the losses within rtol
+    1e-4 and each net's gradient (whole again) within 1e-4 in relative L2,
+    or 10x the rounding floor where that is larger (a one-process step with
+    every weight and input nudged by 2^-24), as 15b; the census per purpose
+    and each rank's peak; (c) the times at bf16. bf16 is the timed leg: its
+    own floor at b4 moves the losses by percents and the gradients by ~10%
+    in L2 (this phase's first chip runs: 0.55-9.6% and 9.0-12.1%), so its
+    errors are printed beside one process's, not held. Returns each rank's
+    K1/K2 launches."""
+    started = time.perf_counter()
+    want = {}
+    set_matmul_precision("float32")
+    one = tensor_parallel_step(device, "float32")
+    nudged = tensor_parallel_step(device, "float32", nudge_seed=SEED + 21)
+    loss_floor = max(abs(nudged["metrics"][k] - v) / max(abs(v), 1e-30)
+                     for k, v in one["metrics"].items())
+    grad_floor = grad_errors(nudged["grads"], one["grads"])
+    for dtype in TP_DTYPES:
+        set_matmul_precision(dtype)
+        if dtype != "float32":
+            one = tensor_parallel_step(device, dtype)
+        want[dtype] = (*tensor_parallel_forward(
+            shipped_model(dtype), device, TP_FORWARDS if dtype == "bfloat16" else 0), one)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parallel.spawn(tensor_parallel_rank, TP_WORLD, (tmp, device), backend="gloo",
+                       init_file=os.path.join(tmp, "store"), device_type=device.type,
+                       timeout_s=600)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP_WORLD)]
+    rows, failures = {}, []
+    for dtype in TP_DTYPES:
+        out, launches, times, one = want[dtype]
+        got = [r[dtype] for r in ranks]
+        out_err = max(float((g["out"] - out).abs().max()) for g in got)
+        step = got[0]["step"]
+        loss_rel = {k: abs(step["metrics"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in one["metrics"].items()}
+        err = grad_errors(step["grads"], one["grads"])
+        agree = all(torch.equal(got[1]["step"]["grads"][k], g)
+                    for k, g in step["grads"].items())
+        held = dtype == "float32"
+        allowed = {net: max(1e-4, 10 * grad_floor[net]) for net in err} if held else None
+        out_bound = 1e-3 * float(out.abs().max()) if held else None
+        rows[dtype] = dict(
+            forward_max_abs_err=out_err, forward_bound=out_bound,
+            forward_max=float(out.abs().max()),
+            forward_k1_launches_per_rank=[g["k1_launches"] for g in got],
+            forward_census=got[0]["forward_census"], loss_rel_err=loss_rel,
+            loss_rel_floor=loss_floor if held else None, loss_bound=1e-4 if held else None,
+            grad_rel_l2_err=err, grad_rel_l2_floor=grad_floor if held else None,
+            grad_allowed=allowed,
+            ranks_hold_equal_gradients=agree, census_per_step=step["census"],
+            step_launches_per_rank=[list(g["step"]["launches"]) for g in got],
+            one_process_launches=list(one["launches"]),
+            peak_gib_per_rank=[g["step"]["peak_bytes"] / 2 ** 30 for g in got],
+            one_process_peak_gib=one["peak_bytes"] / 2 ** 30,
+            step_ms_per_rank=[g["step"]["ms"] for g in got], one_process_step_ms=one["ms"],
+            forward_ms_per_rank=[g["forward_ms"] for g in got], one_process_forward_ms=times)
+        if held and not out_err <= out_bound:
+            failures.append(f"20a {dtype}: sharded forward {out_err} from one process's "
+                            f"(bound {out_bound})")
+        if held and (max(loss_rel.values()) > 1e-4 or any(err[n] > allowed[n] for n in err)):
+            failures.append(f"20b {dtype}: losses {loss_rel} (bound 1e-4), "
+                            f"gradients {err} (allowed {allowed})")
+        if not all(np.isfinite(v) for v in step["metrics"].values()):
+            failures.append(f"20b {dtype}: losses {step['metrics']}")
+        if not agree or launches != LAYERS_WITH_KERNEL \
+                or any(g["k1_launches"] != LAYERS_WITH_KERNEL for g in got) \
+                or any(tuple(g["step"]["launches"]) != (LAYERS_WITH_KERNEL,) * 2 for g in got):
+            failures.append(f"20 {dtype}: ranks agree {agree}, K1 launches "
+                            f"{[g['k1_launches'] for g in got]}, step "
+                            f"{[g['step']['launches'] for g in got]}")
+        if not step["census"].get("tp_gather", {}).get("count"):
+            failures.append(f"20b {dtype}: no channel gather in {step['census']}")
+    phase("20 the model axis on one card", backend="gloo", mesh=[1, TP_WORLD],
+          batch=TP_BATCH, spawn_s=spawn_s, seconds=time.perf_counter() - started, **rows)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return [[sum(r[d]["k1_launches"] + r[d]["step"]["launches"][0] for d in TP_DTYPES),
+             sum(r[d]["step"]["launches"][1] for d in TP_DTYPES)] for r in ranks]
+
+
 # -- phase 19: reference checkpoints -----------------------------------------------
 
 REFERENCE_TAG = "50"               # the reference's {epoch}_net_G_ema.pth
@@ -3121,6 +3295,7 @@ def main(argv=None):
     mix_launches = check_style_mixing(device)
     int8_train_launches = check_int8_train(device)
     reference_launches = check_reference_checkpoints(device)
+    tp_launches = check_tensor_parallel(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},
@@ -3140,7 +3315,9 @@ def main(argv=None):
                            for r, (k, b) in enumerate(dp_launches)},
           serve_mesh={"filtered_lrelu": mesh_launches}, train_remat=remat_launches,
           train_style_mixing=mix_launches, train_int8=int8_train_launches,
-          serve_reference_checkpoint={"filtered_lrelu": reference_launches})
+          serve_reference_checkpoint={"filtered_lrelu": reference_launches},
+          model_axis_two_ranks={f"rank{r}": {"filtered_lrelu": k, "filtered_lrelu_bwd": b}
+                                for r, (k, b) in enumerate(tp_launches)})
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
     if not all(int8_launches[1:]):
@@ -3164,7 +3341,7 @@ def main(argv=None):
          + int8_launches[0] + cli_serve_launches + export_launches
          + pg_launches["filtered_lrelu"] + mesh_launches + remat_launches["filtered_lrelu"]
          + mix_launches["filtered_lrelu"] + int8_train_launches["filtered_lrelu"]
-         + reference_launches,
+         + reference_launches + sum(k for k, _ in tp_launches),
          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},
@@ -3174,7 +3351,7 @@ def main(argv=None):
          "binding": "torch.library operator afcm_tpu_torch::filtered_lrelu_bwd",
          "launches": train_launches["filtered_lrelu_bwd"] + pg_launches["filtered_lrelu_bwd"]
          + remat_launches["filtered_lrelu_bwd"] + mix_launches["filtered_lrelu_bwd"]
-         + int8_train_launches["filtered_lrelu_bwd"],
+         + int8_train_launches["filtered_lrelu_bwd"] + sum(b for _, b in tp_launches),
          "max_abs_err": bwd_worst, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": None,
          "timed_at": "the four filter variants' layer shapes, batch 2, fp32, summed"},

@@ -6,6 +6,7 @@ test process holds the JAX side and compares. A rank writes what it
 computed under ``out_dir`` as ``r{rank}_...pt``.
 """
 
+import copy
 import os
 
 import numpy as np
@@ -175,3 +176,171 @@ def host_utils(rank, world, values, out_dir):
         mismatch = str(exc)
     torch.save((triple, census, consistent, mismatch),
                os.path.join(out_dir, f"r{rank}_host.pt"))
+
+
+# -- tensor parallelism (tests/test_torch_tensor_parallel.py) ----------------------
+
+NETS = ("generator", "discriminator", "generator_ema")
+
+
+def _census(*groups):
+    census = {}
+    for group in groups:
+        if group is not None:
+            census.update(group.take_census())
+    return census
+
+
+def _whole(model, model_group):
+    """Each net's state and each optimizer's state, whole again (copies:
+    a state dict holds the live tensors)."""
+    return copy.deepcopy((
+        {net: parallel.full_state_dict(getattr(model, net), model_group) for net in NETS},
+        {key: ckpt.full_optimizer_state(getattr(model, key), net, model_group)
+         for key, net in (("opt_G", model.generator), ("opt_D", model.discriminator))}))
+
+
+def tp_steps(rank, world, model_path, runs, out_dir):
+    """For each (model_size, steps) of ``runs``: ``GANModel.train_step``
+    from the pickled model over a mesh of world / model_size data rows of
+    model_size ranks, on this row's slice of each global batch; writes
+    (metrics, whole nets, whole optimizer states, census) after each step
+    as ``r{rank}_m{model_size}_s{step}.pt``."""
+    for model_size, steps in runs:
+        model = torch.load(model_path, weights_only=False)
+        group, model_group = parallel.make_groups(model_size)
+        model.distribute(group, model_group)
+        for step, (batch, z, nimg, with_r1) in enumerate(steps, start=1):
+            metrics = model.train_step(_local(group, batch), nimg, with_r1=with_r1,
+                                       z=torch.from_numpy(z),
+                                       generator=torch.Generator().manual_seed(step))
+            census = _census(group, model_group)
+            torch.save((metrics, *_whole(model, model_group), census),
+                       os.path.join(out_dir, f"r{rank}_m{model_size}_s{step}.pt"))
+
+
+def tp_checkpoint(rank, world, model_path, steps, out_dir):
+    """Over a (1, world) mesh: one step, ``save_state``; a model built from
+    the same file loads it (``load_state``); both take the next step.
+    Writes the whole states after the save and after the next step."""
+    group, model_group = parallel.make_groups(world)
+    models = []
+    for _ in range(2):
+        model = torch.load(model_path, weights_only=False)
+        model.distribute(group, model_group)
+        models.append(model)
+    first, loaded = models
+
+    def step(model, i):
+        batch, z, nimg, with_r1 = steps[i]
+        return model.train_step(_local(group, batch), nimg, with_r1=with_r1,
+                                z=torch.from_numpy(z),
+                                generator=torch.Generator().manual_seed(i))
+
+    step(first, 0)
+    ckpt.save_state(first, os.path.join(out_dir, "ckpt"), "mid", group)
+    saved = _whole(first, model_group)
+    ckpt.load_state(loaded, os.path.join(out_dir, "ckpt"), "mid")
+    metrics = [step(model, 1) for model in models]
+    torch.save({"saved": saved, "metrics": metrics,
+                "after": [_whole(model, model_group) for model in models]},
+               os.path.join(out_dir, f"r{rank}_ckpt.pt"))
+
+
+def stub_loader(depth, size, channels=4, batch_size=4, seed=0):
+    """tests/test_parallel.py:207-236 at another size: ``depth``
+    full-frame slices of a random volume in batches of ``batch_size``."""
+    vol = np.random.RandomState(seed).randn(depth, size, size).astype(np.float32)
+
+    class _Dataset:
+        file_path = os.path.join(os.getcwd(), "subject.h5")
+        raw = {"t1": vol}
+        volume = vol
+        slices = [(slice(0, 1), slice(i, i + 1), slice(0, size), slice(0, size))
+                  for i in range(depth)]
+
+        def __len__(self):
+            return depth
+
+        def get_item(self, i):
+            a = np.repeat(vol[i][None], channels, axis=0)
+            idx = (slice(i, i + 1), slice(0, size), slice(0, size))
+            return a, np.asarray([i % 4 / 4.0], np.float32), idx
+
+    class _Loader:
+        dataset = _Dataset()
+
+        def __init__(self):
+            self.batch_size = batch_size
+
+        def __iter__(self):
+            ds = self.dataset
+            for start in range(0, len(ds), self.batch_size):
+                items = [ds.get_item(i) for i in range(start, min(start + self.batch_size,
+                                                                   len(ds)))]
+                yield (np.stack([x[0] for x in items]), np.stack([x[1] for x in items]),
+                       [x[2] for x in items])
+
+    return _Loader()
+
+
+def stitched(forward, out_dir, loader):
+    """The volume ``StandardPredictor`` stitches of ``loader`` with ``forward``."""
+    from afcm_tpu_torch.infer.predictor import StandardPredictor
+    from afcm_tpu_torch.utils.nifti import read_nifti
+    predictor = StandardPredictor(forward, str(out_dir), None, patch_halo=(0, 0, 0))
+    path = predictor(loader)
+    predictor.wait_for_writes()
+    return np.asarray(read_nifti(path)[0])
+
+
+def tp_serve(rank, world, argv, batch, depth, out_dir):
+    """``evaluate.ModelAxisServer`` over the config's mesh: rank 0 serves
+    one batch (a, s, z) and stitches ``stub_loader(depth, ...)``'s volume
+    (z from seed 3); writes (the batch's output, the volume, the census of
+    rank 0's data and model groups)."""
+    from afcm_tpu_torch.config import default_argument_parser
+    from afcm_tpu_torch.evaluate import ModelAxisServer, make_forward_fn
+    cfg = default_argument_parser(list(argv))
+    server = ModelAxisServer(cfg, "cpu")
+    if not server.lead:
+        return server.serve()
+    try:
+        out = server.forward(*(torch.from_numpy(v) for v in batch))
+        res = int(cfg.model.G.img_resolution)
+        volume = stitched(make_forward_fn(server.model, "cpu", seed=3, server=server),
+                          os.path.join(out_dir, "served"),
+                          stub_loader(depth, res, int(cfg.model.G.img_channels_in)))
+    finally:
+        server.close()
+    torch.save((out, volume, _census(server.group, server.model_group)),
+               os.path.join(out_dir, "r0_serve.pt"))
+
+
+def tp_int8_forward(rank, world, model_path, inputs, out_dir):
+    """G_ema's eval forward over a (1, world) mesh with every eligible conv
+    routed to the int8 conv (``int8_all``, floor 32 channels; its plain
+    version on the CPU); writes (output, routed convs counted)."""
+    from afcm_tpu_torch.models.gan_model import eval_forward
+    from afcm_tpu_torch.ops import modulated_conv
+    model = torch.load(model_path, weights_only=False)
+    _, model_group = parallel.make_groups(world)
+    parallel.shard_module(model.generator_ema, model_group)
+    routed = []
+    real = modulated_conv.conv3x3_int8_ste
+    modulated_conv.conv3x3_int8_ste = lambda x, w, p: routed.append(w.shape) or real(x, w, p)
+    modulated_conv.set_conv_impl("int8_all", min_ch=32)
+    with torch.no_grad():
+        out = eval_forward(model.generator_ema, model.c_dim,
+                           *(torch.from_numpy(v) for v in inputs))
+    torch.save((out, routed), os.path.join(out_dir, f"r{rank}_int8.pt"))
+
+
+def tp_step_check(rank, world, argv, batch, out_dir):
+    """``parallel.check.train_step_check`` over a (1, world) mesh."""
+    from afcm_tpu_torch.config import default_argument_parser
+    from afcm_tpu_torch.parallel.check import train_step_check
+    group, model_group = parallel.make_groups(world)
+    result = train_step_check(default_argument_parser(list(argv)), batch, "cpu", seed=3,
+                              draw_seed=4, group=group, model_group=model_group)
+    torch.save(result, os.path.join(out_dir, f"r{rank}_check.pt"))

@@ -173,16 +173,25 @@ def test_export_pins_conv_impl(tiny, rng, impl):
     torch.testing.assert_close(got, float_out, rtol=0, atol=2e-6)
 
 
-def test_export_mesh_raises(tiny):
-    """Exporting over a mesh with a model axis raises naming ROADMAP item
-    A12c; an artifact exported over a two-device data axis records that
-    count and refuses to serve over another (``afcm_tpu/serve.py:43-51``)."""
+def test_export_mesh_raises(tiny, rng):
+    """Since tensor parallelism was ported (ROADMAP item A12c) exporting over
+    a mesh with a model axis runs, as ``afcm_tpu/infer/export.py:117-121``
+    does: the artifact is split by batch over the data axis, with whole
+    weights, so a (2, 2) mesh's artifact records two devices and serves
+    over them what the (2, 1) mesh's does; an artifact exported over a
+    two-device data axis records that count and refuses to serve over
+    another (``afcm_tpu/serve.py:43-51``)."""
     from afcm_tpu_torch.parallel import make_mesh
     _, model = tiny
     cpus = ["cpu"] * 4
-    with pytest.raises(NotImplementedError, match="A12c"):
-        ex.export_eval(model, 2, SHAPE, mesh=make_mesh((2, 2), cpus))
     exported = ex.export_eval(model, 2, SHAPE, mesh=make_mesh((2, 1), cpus))
+    over_model = ex.export_eval(model, 2, SHAPE, mesh=make_mesh((2, 2), cpus))
+    assert ex.mesh_devices(over_model) == 2
+    a = rng.randn(2, *SHAPE).clip(-1, 1).astype(np.float32)
+    s = rng.rand(2, 1).astype(np.float32)
+    got, want = (np.asarray(ex.serving_forward(e, mesh=make_mesh((2, 1), cpus))(a, s))
+                 for e in (over_model, exported))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
     assert ex.mesh_devices(exported) == 2
     for mesh in (None, make_mesh((4, 1), cpus)):
         with pytest.raises(ValueError, match="exported over 2 device"):

@@ -137,8 +137,10 @@ def test_checkpointed_layers_draw_nothing(case):
 def test_config_knob_reaches_the_generator(monkeypatch):
     """``tpu.remat`` / ``tpu.remat_min_size`` reach the StyleGAN3 G of the
     train model (``afcm_tpu/models/__init__.py:103-107``) and not G_ema's
-    inference; the train CLI no longer refuses them, and a model axis is
-    still refused naming ROADMAP item A12c."""
+    inference; the train CLI no longer refuses them, and since tensor
+    parallelism was ported (ROADMAP item A12c) remat over a (2, 2) mesh
+    starts its four ranks (the launch is recorded here, not run; remat over
+    a model axis runs in tests/test_torch_tensor_parallel.py)."""
     from afcm_tpu_torch import train as train_cli
     from afcm_tpu_torch.config import default_argument_parser
     from afcm_tpu_torch.models import build_eval_model, build_gan_model
@@ -162,9 +164,12 @@ def test_config_knob_reaches_the_generator(monkeypatch):
     monkeypatch.setattr(train_cli, "get_train_loaders", no_loaders)
     with pytest.raises(Stop):
         train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True"])
-    with pytest.raises(NotImplementedError, match="A12c"):
-        train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True",
-                        "tpu.mesh_shape", "[2, 2]"])
+    launched = []
+    monkeypatch.setattr(train_cli.parallel, "spawn",
+                        lambda fn, world, args, **kw: launched.append(world))
+    assert train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True",
+                           "tpu.mesh_shape", "[2, 2]"]) == {}
+    assert launched == [4]
 
 
 def test_remat_train_step_launches_the_operator_once_more_per_layer(case):

@@ -226,24 +226,44 @@ def _tiny_cfg(*opts):
 
 
 @pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["tpu.mesh_shape", "[2, 2]"]])
-def test_serving_refuses_a_mesh_of_more_than_one_device_naming_a12b(argv):
+def test_serving_refuses_a_mesh_of_more_than_one_device_naming_a12b(argv, tmp_path):
     """Since data-parallel serving was ported (ROADMAP item A12b) a mesh of
     several devices on its data axis is taken: ``--num-gpus 2`` serves from
-    two replicas (two CPU devices with ``--device cpu``). What both serving
-    CLIs still refuse, in ``configure_numerics`` before they load a
-    checkpoint or read data, is a model axis (tensor parallelism, item
-    A12c). The default mesh ``[0, 1]`` is accepted."""
+    two replicas (two CPU devices with ``--device cpu``). Since tensor
+    parallelism was ported (item A12c) a model axis is taken too: both
+    serving CLIs serve ``[2, 2]`` over four gloo ranks, and the evaluate
+    CLI's scores and the serve CLI's volume are one process's (rtol 2e-4,
+    atol 2e-5, tests/test_parallel.py:242). A model axis under the CoModGAN
+    generator is refused in ``configure_numerics`` (item A12d). The default
+    mesh ``[0, 1]`` is accepted."""
     from afcm_tpu_torch import serve
     from afcm_tpu_torch.evaluate import configure_numerics, prepare_mesh_state
     from afcm_tpu_torch.evaluate import main as evaluate_main
+    from afcm_tpu_torch.utils.nifti import read_nifti
     cfg = _tiny_cfg(*argv)
     if cfg.tpu.mesh_shape[1] > 1:
-        with pytest.raises(NotImplementedError, match="A12c"):
-            configure_numerics(cfg)
-        for cli in (evaluate_main, serve.main):
-            with pytest.raises(NotImplementedError, match="A12c"):
-                cli(["--config-file", os.path.join(REPO, "configs/demo/cmsr_tiny.yml"),
-                     "--device", "cpu", *argv])
+        pytest.importorskip("h5py")
+        from afcm_tpu_torch.data.demo import write_demo_tree
+        assert configure_numerics(cfg) == "float32"
+        with pytest.raises(NotImplementedError, match="A12d"):
+            configure_numerics(_tiny_cfg(*argv, "model.name", "comodgan",
+                                         "model.G.netG", "comodgan"))
+        write_demo_tree(str(tmp_path / "data"), n_train=0, n_val=0, n_test=1,
+                        depth=8, size=64)
+        base = ["--config-file", os.path.join(REPO, "configs/demo/cmsr_tiny.yml"),
+                "--device", "cpu", "loaders.test.file_paths", f"['{tmp_path}/data/test']",
+                "checkpoints_dir", str(tmp_path / "checkpoints"), "loaders.batch_size", "4"]
+        run_dir = tmp_path / "checkpoints" / "demo_tiny"
+        run_dir.mkdir(parents=True)
+        torch.save(build_eval_model(dict(cfg.model.G), generator=torch.Generator().manual_seed(0))
+                   .generator_ema.state_dict(), run_dir / "latest_net_G_ema.pth")
+        one, mesh = (evaluate_main(base + extra) for extra in ([], argv))
+        for key in ("psnr", "ssim", "psnr_slice", "ssim_slice"):
+            assert mesh[key] == pytest.approx(one[key], rel=2e-4, abs=2e-5), key
+        volumes = [np.asarray(read_nifti(serve.main(base + extra + ["--out", str(
+            tmp_path / name)]) + "/subject_test_0_predictions0.nii.gz")[0])
+                   for name, extra in (("one", []), ("mesh", argv))]
+        np.testing.assert_allclose(volumes[1], volumes[0], rtol=2e-4, atol=2e-5)
     else:
         assert configure_numerics(cfg) == "float32"
         model = build_eval_model(dict(cfg.model.G))

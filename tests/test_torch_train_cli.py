@@ -95,15 +95,24 @@ def _no_loaders(*args, **kwargs):
 def test_train_refuses_remat_naming_a8(monkeypatch):
     """Since rematerialization was ported (ROADMAP item A8) ``tpu.remat True``
     is no longer refused: the run reaches its data loading as the default
-    does. What the train CLI still refuses before any data is read is a
-    model axis (tensor parallelism, item A12c)."""
+    does. Since tensor parallelism was ported (item A12c) a model axis with
+    remat starts one rank per device of the mesh (the launch is recorded
+    here, not run); what the train CLI still refuses before any data is
+    read is a model axis under the CoModGAN generator (item A12d)."""
     monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
     for extra in (["tpu.remat", "True", "tpu.remat_min_size", "32"], []):
         with pytest.raises(_Stop):
             train_cli.main(["--config-file", CONFIG, "--device", "cpu", *extra])
-    with pytest.raises(NotImplementedError, match="A12c"):
-        train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True",
-                        "tpu.mesh_shape", "[1, 2]"])
+    launched = []
+    monkeypatch.setattr(train_cli.parallel, "spawn",
+                        lambda fn, world, args, **kw: launched.append(world))
+    assert train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True",
+                           "tpu.mesh_shape", "[1, 2]"]) == {}
+    assert launched == [2]
+    with pytest.raises(NotImplementedError, match="A12d"):
+        train_cli.main(["--config-file", CONFIG, "--device", "cpu", "model.name", "comodgan",
+                        "model.G.netG", "comodgan", "tpu.mesh_shape", "[1, 2]"])
+    assert launched == [2]
 
 
 @pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["tpu.mesh_shape", "[1, 2]"],
@@ -113,19 +122,17 @@ def test_train_refuses_a_mesh_of_more_than_one_device_naming_a12b(monkeypatch, a
     axis of several devices starts one rank per device: ``--num-gpus 2``
     two, ``[4, 1]`` the largest divisor of the tiny config's batch of 2,
     with a warning (gloo ranks on the CPU; the launch is recorded here, not
-    run). A model axis is refused naming item A12c. ``[1, 1]`` trains in
-    this process."""
+    run). Since tensor parallelism was ported (item A12c) the model axis of
+    ``[1, 2]`` starts one rank per device of the mesh, two, too (the ranks
+    run in tests/test_torch_tensor_parallel.py). ``[1, 1]`` trains in this
+    process."""
     monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
     launched = []
     monkeypatch.setattr(train_cli.parallel, "spawn",
                         lambda fn, world, args, **kw: launched.append((world, kw)))
-    if "[1, 2]" in argv:
-        with pytest.raises(NotImplementedError, match="A12c"):
-            train_cli.main(["--config-file", CONFIG, "--device", "cpu", *argv])
-    else:
-        assert train_cli.main(["--config-file", CONFIG, "--device", "cpu", *argv]) == {}
-        ((world, kw),) = launched
-        assert world == 2 and kw["backend"] == "gloo" and kw["device_type"] == "cpu"
+    assert train_cli.main(["--config-file", CONFIG, "--device", "cpu", *argv]) == {}
+    ((world, kw),) = launched
+    assert world == 2 and kw["backend"] == "gloo" and kw["device_type"] == "cpu"
     with pytest.raises(_Stop):
         train_cli.main(["--config-file", CONFIG, "--device", "cpu",
                         "tpu.mesh_shape", "[1, 1]"])
