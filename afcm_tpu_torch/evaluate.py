@@ -309,32 +309,17 @@ def resolve_device(device=None) -> torch.device:
 
 
 def model_axis(cfg) -> int:
-    """The model axis of the config's mesh (``tpu.mesh_shape [D, M]``)."""
+    """The model axis of the config's mesh (``tpu.mesh_shape [D, M]``).
+    Over more than 1 every GAN (StyleGAN3, CoModGAN, StyleGAN-V) shards
+    its networks (``parallel/tensor.py``) and pix2pix runs its whole state
+    on every rank, as ``afcm_tpu`` runs them (``afcm_tpu/train.py:111-120``,
+    ``afcm_tpu/evaluate.py:148-167``: any state with a G_ema shards)."""
     return max(int(cfg.tpu.mesh_shape[1]), 1)
 
 
-def check_model_axis(cfg) -> int:
-    """The config's model axis. Over more than 1 the StyleGAN3 GAN shards
-    its networks (``parallel/tensor.py``) and pix2pix runs its whole state
-    on every rank, as ``afcm_tpu`` runs them; the CoModGAN and StyleGAN-V
-    generators have no tensor-parallel layers yet and raise, naming ROADMAP
-    item A12d, instead of running replicated."""
-    model = model_axis(cfg)
-    net_g = getattr(cfg.model.G, "netG", "stylegan3")
-    if (model > 1 and getattr(cfg.model, "name", "stylegan3") != "pix2pix"
-            and net_g != "stylegan3"):
-        raise NotImplementedError(
-            f"tpu.mesh_shape {list(cfg.tpu.mesh_shape)} asks for a model axis of "
-            f"{model}; the {net_g} generator has no tensor-parallel layers yet "
-            "(ROADMAP item A12d): set the model axis to 1")
-    return model
-
-
 def check_device_knobs(cfg) -> None:
-    """``check_model_axis``, and one line for a ``tpu.matmul_precision``
-    other than ``default``: the port sets TF32 from ``tpu.compute_dtype``
-    alone."""
-    check_model_axis(cfg)
+    """One line for a ``tpu.matmul_precision`` other than ``default``: the
+    port sets TF32 from ``tpu.compute_dtype`` alone."""
     if cfg.tpu.matmul_precision != "default":
         print(f"tpu.matmul_precision {cfg.tpu.matmul_precision} has no effect: the "
               "port sets TF32 from tpu.compute_dtype alone (off for float32)")
@@ -563,7 +548,7 @@ def main(argv=None):
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""))
     ensure_volumetric(cfg, "afcm_tpu_torch.evaluate")
-    if check_model_axis(cfg) > 1:
+    if model_axis(cfg) > 1:
         return serve_over_model_axis(score, (), cfg, argv, device)
     return score(cfg, device)
 

@@ -21,7 +21,7 @@ from torch import nn
 from ..ops import conv2d_gradfix
 from ..ops.modulated_conv import conv2d
 from .comodgan import EBlock, SynthesisBlock, skip_connects
-from .layers import (CALayer, Conv2dLayer, FullyConnected, dropout,
+from .layers import (CALayer, Conv2dLayer, FullyConnected, TensorParallel, dropout,
                      uniform_parameter)
 
 
@@ -39,7 +39,7 @@ def pixel_shuffle(x, scale_factor):
     return x.reshape(n, c * s * s, oh, ow)
 
 
-class PlainConv(nn.Module):
+class PlainConv(TensorParallel, nn.Module):
     """torch-default Conv2d (k3, padding 1) with bias."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
@@ -52,8 +52,9 @@ class PlainConv(nn.Module):
         self.bias = uniform_parameter((out_channels,), fan_in, generator)
 
     def forward(self, x):
-        return conv2d(x, self.weight, padding=self.padding) + \
-            self.bias[None, :, None, None].to(x.dtype)
+        y = conv2d(self.tp_enter(x), self.weight, padding=self.padding,
+                   out_channels=self.tp_out)
+        return self.tp_gather(y + self.tp_bias(self.bias)[None, :, None, None].to(x.dtype))
 
 
 class ConvNorm(nn.Module):

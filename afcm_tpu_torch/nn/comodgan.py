@@ -30,7 +30,8 @@ from torch import nn
 from .. import parallel
 from ..ops import modulated_conv2d_resample, setup_filter, upsample2d
 from ..ops.bias_act import activation_funcs, bias_act
-from .layers import CALayer, Conv2dLayer, FullyConnected, dropout, normal_parameter
+from .layers import (CALayer, Conv2dLayer, FullyConnected, TensorParallel, dropout,
+                     normal_parameter)
 from .mapping import MappingNetwork
 
 _DEFAULT_FILTER = (1, 3, 3, 1)
@@ -91,8 +92,14 @@ def layer_noise(noise_mode: str, shape, noise_const, strength, device,
     return parallel.randn(shape, generator, device) * strength
 
 
-class SynthesisLayerSG2(nn.Module):
-    """Modulated conv + noise + lrelu (reference: CoModGAN/layers.py:253-305)."""
+class SynthesisLayerSG2(TensorParallel, nn.Module):
+    """Modulated conv + noise + lrelu (reference: CoModGAN/layers.py:253-305).
+    Sharded over a model axis (``parallel/tensor.py``) it computes its
+    slice of output channels from the whole input and styles, and adds the
+    noise, which every rank of a data row draws alike, to that slice: the
+    noise strength's gradient is partial, as the bias's is."""
+
+    tp_partial = ("bias", "noise_strength")
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
                  resolution: int, kernel_size: int = 3, up: int = 1,
@@ -107,6 +114,7 @@ class SynthesisLayerSG2(nn.Module):
         self.resample_filter = setup_filter(list(resample_filter))
         self.affine = FullyConnected(w_dim, in_channels, bias_init=1.0,
                                      generator=generator)
+        self.affine.tp_purpose = "tp_styles"
         self.weight = normal_parameter(
             (out_channels, in_channels, kernel_size, kernel_size), 1.0, generator)
         self.use_noise = use_noise
@@ -126,17 +134,17 @@ class SynthesisLayerSG2(nn.Module):
                                              self.resolution),
                                 self.noise_const, self.noise_strength, x.device,
                                 generator)
-        x = modulated_conv2d_resample(x, self.weight, styles, noise=noise, up=self.up,
-                                      padding=self.padding,
+        x = modulated_conv2d_resample(self.tp_enter(x), self.weight, self.tp_enter(styles),
+                                      noise=noise, up=self.up, padding=self.padding,
                                       resample_filter=self.resample_filter,
-                                      flip_weight=(self.up == 1))
+                                      flip_weight=(self.up == 1), out_channels=self.tp_out)
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
-        return bias_act(x, self.bias.to(x.dtype), act=self.activation, gain=act_gain,
-                        clamp=act_clamp)
+        return self.tp_gather(bias_act(x, self.tp_bias(self.bias).to(x.dtype),
+                                       act=self.activation, gain=act_gain, clamp=act_clamp))
 
 
-class ToRGBLayer(nn.Module):
+class ToRGBLayer(TensorParallel, nn.Module):
     """1x1 modulated conv without demodulation (reference: layers.py:310-325)."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
@@ -148,15 +156,18 @@ class ToRGBLayer(nn.Module):
         self.weight_gain = 1 / np.sqrt(in_channels * kernel_size ** 2)
         self.affine = FullyConnected(w_dim, in_channels, bias_init=1.0,
                                      generator=generator)
+        self.affine.tp_purpose = "tp_styles"
         self.weight = normal_parameter(
             (out_channels, in_channels, kernel_size, kernel_size), 1.0, generator)
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x, w):
         styles = self.affine(w) * self.weight_gain
-        x = modulated_conv2d_resample(x, self.weight, styles, demodulate=False,
-                                      padding=self.padding)
-        return bias_act(x, self.bias.to(x.dtype), clamp=self.conv_clamp)
+        x = modulated_conv2d_resample(self.tp_enter(x), self.weight, self.tp_enter(styles),
+                                      demodulate=False, padding=self.padding,
+                                      out_channels=self.tp_out)
+        return self.tp_gather(bias_act(x, self.tp_bias(self.bias).to(x.dtype),
+                                       clamp=self.conv_clamp))
 
 
 class SynthesisBlock(nn.Module):

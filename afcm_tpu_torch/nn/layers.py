@@ -31,11 +31,14 @@ class TensorParallel:
     needs: ``tp`` (its model group, None while whole) and ``tp_out`` (its
     whole output size). Sharded, the layer enters its full input, computes
     its slice of output channels with its slice of the bias, and gathers
-    them (``parallel/tensor.py``); whole, the three steps are identities."""
+    them (``parallel/tensor.py``); whole, the three steps are identities.
+    ``tp_partial`` names the replicated parameters the layer applies to its
+    slice alone, whose gradients each rank holds a part of."""
 
     tp: Optional["parallel.tensor.ModelGroup"] = None
     tp_out: Optional[int] = None
     tp_purpose = "tp_gather"
+    tp_partial = ("bias",)
 
     def tp_enter(self, x):
         return x if self.tp is None else self.tp.enter(x)
@@ -172,7 +175,7 @@ def uniform_parameter(shape, fan_in: int,
     return nn.Parameter((torch.rand(shape, generator=generator) * 2 - 1) * bound)
 
 
-class Conv1x1(nn.Module):
+class Conv1x1(TensorParallel, nn.Module):
     """A torch-default 1x1 conv, applied to a pooled [N, C] vector."""
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -183,7 +186,8 @@ class Conv1x1(nn.Module):
         self.bias = uniform_parameter((out_channels,), in_channels, generator)
 
     def forward(self, y):
-        return F.linear(y, self.weight[:, :, 0, 0].to(y.dtype), self.bias.to(y.dtype))
+        return self.tp_gather(F.linear(self.tp_enter(y), self.weight[:, :, 0, 0].to(y.dtype),
+                                       self.tp_bias(self.bias).to(y.dtype)))
 
 
 class CALayer(nn.Module):

@@ -33,7 +33,7 @@ from torch import nn
 
 from .comodgan import EBlock, EFromRGB, SynthesisBlock, skip_connects
 from .discriminator import DiscriminatorBlock, DiscriminatorEpilogue, block_kwargs_of
-from .layers import Conv2dLayer, FullyConnected, dropout, normal_parameter
+from .layers import Conv2dLayer, FullyConnected, TensorParallel, dropout, normal_parameter
 from .mapping import MappingNetwork
 
 _DEFAULT_FILTER = (1, 3, 3, 1)
@@ -70,9 +70,14 @@ class FixedTimeEncoder(nn.Module):
         return torch.cat([torch.sin(raw), torch.cos(raw)], dim=1)
 
 
-class _Embedding(nn.Module):
+class _Embedding(TensorParallel, nn.Module):
     """``torch.nn.Embedding``'s lookup with a N(0, 1) ``weight`` drawn from
-    an explicit generator (``const_embed.weight``)."""
+    an explicit generator (``const_embed.weight``). Sharded over a model
+    axis, each rank holds rows of the table, and the lookup gathers the
+    whole table first (``ModelGroup.gather_dim0``, purpose ``tp_table``):
+    a 128 x 256 table is cheaper to gather than to look up by parts."""
+
+    tp_purpose = "tp_table"
 
     def __init__(self, num_embeddings: int, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -80,7 +85,9 @@ class _Embedding(nn.Module):
         self.weight = normal_parameter((num_embeddings, features), 1.0, generator)
 
     def forward(self, idx):
-        return self.weight[idx]
+        table = self.weight if self.tp is None else self.tp.gather_dim0(self.weight,
+                                                                        self.tp_purpose)
+        return table[idx]
 
 
 class TemporalDifferenceEncoder(nn.Module):
@@ -115,7 +122,7 @@ def construct_linspaced_frequencies(num_freqs: int, min_period_len: int,
     return freqs[::-1].copy().astype(np.float32)[None]
 
 
-class EqLRConv1d(nn.Module):
+class EqLRConv1d(TensorParallel, nn.Module):
     """Equalized-LR 1-d conv over [N, C, L] (reference: layers.py:167-209)."""
 
     def __init__(self, in_features: int, out_features: int, kernel_size: int,
@@ -130,13 +137,13 @@ class EqLRConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x):
-        y = F.conv1d(x, (self.weight * self.weight_gain).to(x.dtype),
+        y = F.conv1d(self.tp_enter(x), (self.weight * self.weight_gain).to(x.dtype),
                      padding=self.padding)
-        y = y + (self.bias * self.lr_multiplier)[None, :, None].to(y.dtype)
+        y = y + (self.tp_bias(self.bias) * self.lr_multiplier)[None, :, None].to(y.dtype)
         if self.activation == "lrelu":
             # strict > so d/dy at exactly 0 is the slope, as the JAX package
             y = torch.where(y > 0, y, 0.2 * y)
-        return y
+        return self.tp_gather(y)
 
 
 class AlignedTimeEncoder(nn.Module):

@@ -164,13 +164,17 @@ def modulated_conv2d(x, w, s, demodulate: bool = True, padding=0,
 def modulated_conv2d_resample(x, weight, styles, noise=None, up: int = 1,
                               down: int = 1, padding: int = 0,
                               resample_filter=None, demodulate: bool = True,
-                              flip_weight: bool = True):
+                              flip_weight: bool = True, out_channels=None):
     """StyleGAN2-style modulated conv with fused resampling
     (``afcm_tpu/ops/modulated_conv.py:187-221``; reference:
     CoModGAN/layers.py:19-77): the scale-activations factorization with the
     demodulation coefficients from one [N, I] x [I, O] product, the conv
     through ``conv2d_resample`` (and so ``conv2d`` and its int8 routing),
-    and the noise added after the demodulation."""
+    and the noise added after the demodulation. ``out_channels`` is the
+    whole O where ``weight`` holds a slice of the output channels: the
+    routing decides on the whole conv, the demodulation of a slice needs
+    its own rows of the weight alone, and the noise [N, 1, H, W] broadcasts
+    over the slice's channels."""
     from .conv2d_resample import conv2d_resample
 
     batch, in_channels = x.shape[0], weight.shape[1]
@@ -180,7 +184,7 @@ def modulated_conv2d_resample(x, weight, styles, noise=None, up: int = 1,
 
     x = x * styles.to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight, f=resample_filter, up=up, down=down,
-                        padding=padding, flip_weight=flip_weight)
+                        padding=padding, flip_weight=flip_weight, out_channels=out_channels)
     if demodulate:
         w_sq = torch.sum(torch.square(weight), dim=(2, 3))          # [O, I]
         dcoefs = torch.rsqrt(torch.square(styles) @ w_sq.T + 1e-8)  # [N, O]

@@ -13,14 +13,18 @@ shards as this rank's slice and tells its layer so (``layer.tp``). A
 sharded layer runs the Megatron pattern: it ``enter``s its full input (the
 identity; its backward sums the input's gradient over the model group),
 computes its slice of output channels and the per-channel operations on it
-(bias, activation, ``filtered_lrelu``, the FIR resampling), then
-``gather_channels`` (all ranks' slices in model-rank order; its backward
-takes this rank's slice back). Everything between two sharded layers runs
-whole, and alike, on every rank of the row. A replicated parameter's
-gradient then comes out whole on every rank, but for the biases of sharded
-layers, which each rank applies to its own slice (``partial_parameters``).
-After the backward ``reduce_replicated_`` sums the biases' parts over the
-model group and averages the whole gradients, in one all-reduce: on a card
+(bias, activation, ``filtered_lrelu``, the FIR resampling, the noise of a
+modulated conv), then ``gather_channels`` (all ranks' slices in model-rank
+order; its backward takes this rank's slice back). An embedding table is
+sharded on its rows: its lookup gathers the whole table (``gather_dim0``,
+purpose ``tp_table``; its backward takes this rank's rows). Everything
+between two sharded layers runs whole, and alike, on every rank of the row.
+A replicated parameter's gradient then comes out whole on every rank, but
+for those each rank applies to its own slice alone (``partial_parameters``:
+the biases of sharded layers and the noise strengths of sharded modulated
+convs).
+After the backward ``reduce_replicated_`` sums those parts over the model
+group and averages the whole gradients, in one all-reduce: on a card
 the ranks' whole gradients differ in the last bits (cuDNN's reductions are
 not deterministic; phase 20 of chip_smoke.py saw it at float32), and the
 mean keeps every rank's copy of a replicated parameter equal. Adam and the
@@ -30,8 +34,8 @@ The two collectives and their adjoints are each other's, so the R1
 penalty's double backward crosses them. Every collective is one counted
 ``all_reduce`` (gloo runs only ``all_reduce`` and ``broadcast`` on CUDA
 tensors), by purpose: ``tp_gather``, ``tp_styles`` (the styles of a
-modulated conv, gathered before their normalization), ``tp_enter``,
-``tp_partial_grads`` and ``tp_state`` (``full_state_dict``).
+modulated conv, gathered before their normalization), ``tp_table``,
+``tp_enter``, ``tp_partial_grads`` and ``tp_state`` (``full_state_dict``).
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ class ModelGroup:
     def gather_channels(self, x: torch.Tensor, purpose: str = "tp_gather") -> torch.Tensor:
         """Every rank's slice of dim 1, in model-rank order; its backward
         takes this rank's slice."""
-        return _GatherChannels.apply(x, self, purpose)
+        return _Gather.apply(x, self, purpose, 1)
 
     def sum_(self, tensors: List[torch.Tensor], purpose: str) -> None:
         """Sum equally placed tensors over the group in one flat all-reduce."""
@@ -128,11 +132,9 @@ class ModelGroup:
         self.sum_(shares, "tp_partial_grads")
 
     def gather_dim0(self, x: torch.Tensor, purpose: str = "tp_state") -> torch.Tensor:
-        """The whole tensor of which ``x`` is this rank's dim-0 slice."""
-        with torch.no_grad():
-            out = x.new_zeros((x.shape[0] * self.size, *x.shape[1:]))
-            out[self.channels(out.shape[0])] = x
-            return self._all_reduce(out, purpose)
+        """The whole tensor of which ``x`` is this rank's dim-0 slice; its
+        backward takes this rank's rows."""
+        return _Gather.apply(x, self, purpose, 0)
 
 
 def _contiguous_clone(x: torch.Tensor) -> torch.Tensor:
@@ -166,34 +168,37 @@ class _Reduce(torch.autograd.Function):
         return _Enter.apply(grad, ctx.group), None
 
 
-class _GatherChannels(torch.autograd.Function):
-    """All-gather along dim 1 as an all-reduce of the rank's channels placed
-    in zeros (exact in any dtype); adjoint of ``_SplitChannels``."""
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` (0 or 1) as an all-reduce of the rank's
+    slice placed in zeros (exact in any dtype); adjoint of ``_Split``."""
 
     @staticmethod
-    def forward(ctx, x, group, purpose):
-        ctx.group, ctx.purpose = group, purpose
-        out = x.new_zeros((x.shape[0], x.shape[1] * group.size, *x.shape[2:]))
-        out[:, group.channels(out.shape[1])] = x
+    def forward(ctx, x, group, purpose, dim):
+        ctx.group, ctx.purpose, ctx.dim = group, purpose, dim
+        shape = list(x.shape)
+        shape[dim] *= group.size
+        out = x.new_zeros(shape)
+        out.narrow(dim, group.rank * x.shape[dim], x.shape[dim]).copy_(x)
         return group._all_reduce(out, purpose)
 
     @staticmethod
     def backward(ctx, grad):
-        return _SplitChannels.apply(grad, ctx.group, ctx.purpose), None, None
+        return _Split.apply(grad, ctx.group, ctx.purpose, ctx.dim), None, None, None
 
 
-class _SplitChannels(torch.autograd.Function):
-    """This rank's channels of a tensor whole on every rank; adjoint of
-    ``_GatherChannels``."""
+class _Split(torch.autograd.Function):
+    """This rank's slice along ``dim`` of a tensor whole on every rank;
+    adjoint of ``_Gather``."""
 
     @staticmethod
-    def forward(ctx, x, group, purpose):
-        ctx.group, ctx.purpose = group, purpose
-        return _contiguous_clone(x[:, group.channels(x.shape[1])])
+    def forward(ctx, x, group, purpose, dim):
+        ctx.group, ctx.purpose, ctx.dim = group, purpose, dim
+        n = x.shape[dim] // group.size
+        return _contiguous_clone(x.narrow(dim, group.rank * n, n))
 
     @staticmethod
     def backward(ctx, grad):
-        return _GatherChannels.apply(grad, ctx.group, ctx.purpose), None, None
+        return _Gather.apply(grad, ctx.group, ctx.purpose, ctx.dim), None, None, None
 
 
 # -- the groups of a mesh -----------------------------------------------------------
@@ -231,8 +236,10 @@ def sharded_layers(net: nn.Module) -> Iterable[nn.Module]:
 
 def partial_parameters(net: nn.Module) -> List[nn.Parameter]:
     """The replicated parameters each rank applies to its slice alone, so
-    that its gradient is partial: the biases of sharded layers."""
-    return [m.bias for m in sharded_layers(net) if getattr(m, "bias", None) is not None]
+    that its gradient is partial: those a sharded layer names in
+    ``tp_partial`` (its bias; a modulated conv's noise strength too)."""
+    return [p for m in sharded_layers(net) for p in
+            (getattr(m, name, None) for name in m.tp_partial) if p is not None]
 
 
 def shard_module(net: nn.Module, group: ModelGroup,
@@ -243,17 +250,18 @@ def shard_module(net: nn.Module, group: ModelGroup,
     has any, are sliced alike), and tell each such layer its model group
     (``layer.tp``) and its whole output size (``layer.tp_out``). Buffers
     stay whole. A layer that shards must be one of the tensor-parallel
-    layers (``weight`` and, optionally, ``bias`` of a module with a ``tp``
-    attribute); any other parameter the rule shards raises."""
+    layers (the ``weight`` of a module with a ``tp`` attribute, the
+    ``nn.layers.TensorParallel`` layers); any other parameter the rule
+    shards raises, naming its layer's class."""
     for module_name, module in net.named_modules():
         for name, p in module.named_parameters(recurse=False):
             if infer_param_sharding(name, p.shape, group.size) != SHARD:
                 continue
             if name != "weight" or not hasattr(module, "tp"):
+                kind = type(module).__name__
                 raise NotImplementedError(
-                    f"{type(module).__name__} {module_name}.{name} {tuple(p.shape)}: "
-                    "the placement rule shards it and the layer has no "
-                    "tensor-parallel forward (ROADMAP item A12d)")
+                    f"{kind} {module_name}.{name} {tuple(p.shape)}: the placement "
+                    f"rule shards it and {kind} has no tensor-parallel forward")
             rows = group.channels(p.shape[0])
             module.tp, module.tp_out = group, int(p.shape[0])
             with torch.no_grad():

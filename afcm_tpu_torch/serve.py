@@ -68,7 +68,7 @@ def serve_subjects(forward, loaders, out_dir: str, config=None,
 def main(argv=None):
     # The config layer needs yaml; only the CLIs import it.
     from .config import default_argument_parser, pop_flag
-    from .evaluate import (check_model_axis, ensure_volumetric, resolve_device,
+    from .evaluate import (ensure_volumetric, model_axis, resolve_device,
                            serve_over_model_axis)
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -81,7 +81,7 @@ def main(argv=None):
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                  if device.type == "cuda" else ""))
     # the artifact fixes the data axis it serves over, not the config
-    if artifact is None and check_model_axis(cfg) > 1:
+    if artifact is None and model_axis(cfg) > 1:
         return serve_over_model_axis(serve_run, (artifact, out_dir), cfg, argv, device)
     return serve_run(cfg, device, artifact, out_dir)
 

@@ -35,8 +35,9 @@ Tensor parallel, as ``afcm_tpu/train.py:111-120`` shards its state over
 the mesh's model axis: ``tpu.mesh_shape [D, M]`` with M > 1 starts D·M
 ranks, rank r at data index ``r // M`` and model index ``r % M``
 (``parallel.make_groups``); each data row takes one slice of every global
-batch, and the ranks of a row hold the slices of the StyleGAN3 GAN's
-sharded parameters (``GANModel.distribute``). The generator's forward
+batch, and the ranks of a row hold the slices of the GAN's sharded
+parameters (``GANModel.distribute``; StyleGAN3, CoModGAN and StyleGAN-V
+alike, pix2pix whole on every rank). The generator's forward
 crosses the row, so under a model axis every rank displays and validates
 along with rank 0, which alone prints and writes. Each rank's float32 step
 is under the same cuDNN workspace cap (``bound_conv_workspace``).
@@ -56,8 +57,7 @@ import torch
 
 from . import parallel
 from .data import get_train_loaders
-from .evaluate import (check_device_knobs, check_model_axis, model_axis,
-                       resolve_device, set_matmul_precision)
+from .evaluate import check_device_knobs, model_axis, resolve_device, set_matmul_precision
 from .models import GANModel, build_model
 from .models.schedulers import LRScheduler
 from .utils import checkpoint as ckpt
@@ -360,7 +360,6 @@ def main(argv=None):
     device = resolve_device(pop_flag(argv, "--device"))
     cfg = default_argument_parser(argv)
     print(cfg.dump())
-    check_model_axis(cfg)
     # before this process's first conv; the ranks it starts inherit it,
     # so the cap applies to each rank
     bound_conv_workspace(device, cfg.tpu.compute_dtype)

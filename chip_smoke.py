@@ -213,7 +213,18 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    1e-4 and the whole gradients within 1e-4 in relative L2 or 10x the
    rounding floor (bf16's own floor at b4 is percents: its errors are
    printed), every rank holding the same whole gradients, the census per
-   purpose and each rank's peak; (c) the times at bf16.
+   purpose and each rank's peak; (c) the times at bf16. The same two ranks
+   then run the shipped CCSR CoModGAN (configs/adni/comodgan/ccsr.yml at
+   full width, its G sharded in SynthesisLayerSG2 and the encoder's and
+   mapper's layers), b4: (d) the sharded G_ema forward at fp32 within
+   1e-3 * max of one process's; (e) one fp32 train step with R1 against
+   one process's at the same inputs, noise and co-modulation dropout,
+   held as (b); (f) the sharded forward under tpu.conv_int8: K3 and both
+   quantizers once per routed conv on each rank (9 each), every K3 call's
+   output on the rank's 256-channel slice bit-equal to K3's plain version,
+   the output within 8d's 1e-2 * max of one process's int8 forward or 10x
+   the floor of a 2^-24 nudge (the sliced convs' last bits move single
+   quantization steps).
 
 Then prints the total seconds, the kernels' JSON line (per kernel: launches on its main paths,
 error, time, plain version's time, the bound from the bytes and operations
@@ -2922,10 +2933,57 @@ def tensor_parallel_forward(model, device, timed=0):
     return out.float().cpu(), launches, times
 
 
+def ccsr_tp_step(device, group=None, model_group=None, nudge_seed=None):
+    """One fp32 b4 train step of the CCSR CoModGAN config with R1
+    (``train_step_check``) on phase 20's batch, over the groups when given:
+    the synthesis noise and the co-modulation dropout come from the step's
+    generator, which every rank of a data row seeds alike."""
+    cfg = ccsr_config("tpu.compute_dtype", "float32", "loaders.batch_size", str(TP_BATCH))
+    return train_step_check(cfg, tensor_parallel_batch(), device, seed=SEED,
+                            draw_seed=SEED + 20, group=group, model_group=model_group,
+                            nudge_seed=nudge_seed)
+
+
+def ccsr_tp_forwards(model, device, nudge_seed=None):
+    """The CCSR G_ema's forward on phase 6's seeded b4 inputs at fp32, then
+    under the int8 conv: that forward's K3 and quantizer launches, the
+    routed weights' shapes and, over every K3 call, the elements unequal to
+    K3's plain version on the same inputs. With ``nudge_seed`` the
+    conditioning image is first nudged by a relative 2^-24 (the floor)."""
+    cond, c, z = forward_inputs(TP_BATCH, device)
+    if nudge_seed is not None:
+        gen = torch.Generator(device=device).manual_seed(nudge_seed)
+        cond = cond * (1 + 2.0 ** -24 * torch.randn(cond.shape, generator=gen, device=device))
+    with torch.no_grad():
+        out = model.eval_step(cond, c, z=z).float().cpu()
+    calls = []
+    real = k3.conv3x3_int8_cuda
+
+    def record(x, w, padding=1, extra_scale=None):
+        y = real(x, w, padding, extra_scale)
+        calls.append((x, w, padding, y))
+        return y
+
+    before = (k3.launches, k3.quantize_launches, k3.weight_quantize_launches)
+    k3.conv3x3_int8_cuda = record
+    try:
+        with conv_impl("int8"), torch.no_grad():
+            int8_out = model.eval_step(cond, c, z=z).float().cpu()
+    finally:
+        k3.conv3x3_int8_cuda = real
+    launches = [a - b for a, b in zip((k3.launches, k3.quantize_launches,
+                                       k3.weight_quantize_launches), before)]
+    unequal = sum(int((k3.conv3x3_int8_plain(x, w, p) != y).sum()) for x, w, p, y in calls)
+    return {"out": out, "int8_out": int8_out, "int8_launches": launches,
+            "k3_unequal_vs_plain": unequal,
+            "k3_weights": sorted({tuple(w.shape) for _, w, _, _ in calls})}
+
+
 def tensor_parallel_rank(rank, world, out_dir, device):
     """A rank of phase 20 (started by ``parallel.spawn``): at each dtype the
     shipped G_ema sharded over the model group and its forward (timed at
-    bf16), then at each dtype one train step."""
+    bf16), then at each dtype one train step; then the CCSR CoModGAN's
+    sharded G_ema forward (fp32 and int8) and one fp32 step."""
     group, model_group = parallel.make_groups(world)
     result = {}
     for dtype in TP_DTYPES:
@@ -2942,6 +3000,16 @@ def tensor_parallel_rank(rank, world, out_dir, device):
         torch.cuda.empty_cache()
     for dtype in TP_DTYPES:
         result[dtype]["step"] = tensor_parallel_step(device, dtype, group, model_group)
+    set_matmul_precision("float32")
+    model = build_eval_model(dict(ccsr_config().model.G), compute_dtype="bfloat16",
+                             generator=torch.Generator().manual_seed(SEED))
+    model.generator_ema.to(device)
+    parallel.shard_module(model.generator_ema, model_group)
+    result["ccsr"] = ccsr_tp_forwards(model, device)
+    result["ccsr"]["forward_census"] = model_group.take_census()
+    del model
+    torch.cuda.empty_cache()
+    result["ccsr"]["step"] = ccsr_tp_step(device, group, model_group)
     torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
@@ -2959,8 +3027,20 @@ def check_tensor_parallel(device):
     and each rank's peak; (c) the times at bf16. bf16 is the timed leg: its
     own floor at b4 moves the losses by percents and the gradients by ~10%
     in L2 (this phase's first chip runs: 0.55-9.6% and 9.0-12.1%), so its
-    errors are printed beside one process's, not held. Returns each rank's
-    K1/K2 launches."""
+    errors are printed beside one process's, not held. Then the CCSR
+    CoModGAN on the same ranks (``ccsr_tp_forwards``, ``ccsr_tp_step``):
+    (d) its sharded fp32 forward within 1e-3 * max of one process's and
+    (f) its sharded int8 forward, with 9 K3 and quantizer launches per rank
+    and K3 bit-equal to its plain version on every slice; (e) its
+    fp32 step held as (b), against its own floor. The int8 forward is held
+    to 8d's 1e-2 * max, or 10x the floor of one process's int8 forward with
+    its input nudged by 2^-24 where that is larger, not to 1e-3: the
+    sharded convs' float results differ from the whole convs' in the last
+    bits (another cuDNN plan per shape), which moves single quantization
+    steps (this phase's first chip run: 6.7e-2 of a max of 7.63, the fp32
+    forward 1.8e-5 apart).
+    Returns each rank's K1/K2 launches and each rank's CCSR int8 launches
+    (K3, quantizers)."""
     started = time.perf_counter()
     want = {}
     set_matmul_precision("float32")
@@ -2969,6 +3049,14 @@ def check_tensor_parallel(device):
     loss_floor = max(abs(nudged["metrics"][k] - v) / max(abs(v), 1e-30)
                      for k, v in one["metrics"].items())
     grad_floor = grad_errors(nudged["grads"], one["grads"])
+    ccsr_one = ccsr_tp_step(device)
+    ccsr_nudged = ccsr_tp_step(device, nudge_seed=SEED + 21)
+    ccsr_loss_floor = max(abs(ccsr_nudged["metrics"][k] - v) / max(abs(v), 1e-30)
+                          for k, v in ccsr_one["metrics"].items())
+    ccsr_grad_floor = grad_errors(ccsr_nudged["grads"], ccsr_one["grads"])
+    del ccsr_nudged
+    ccsr_want = ccsr_tp_forwards(comodgan_model(), device)
+    ccsr_nudged = ccsr_tp_forwards(comodgan_model(), device, nudge_seed=SEED + 22)
     for dtype in TP_DTYPES:
         set_matmul_precision(dtype)
         if dtype != "float32":
@@ -3030,12 +3118,69 @@ def check_tensor_parallel(device):
                             f"{[g['step']['launches'] for g in got]}")
         if not step["census"].get("tp_gather", {}).get("count"):
             failures.append(f"20b {dtype}: no channel gather in {step['census']}")
+    got = [r["ccsr"] for r in ranks]
+    step = got[0]["step"]
+    ccsr = dict(config=os.path.relpath(CCSR_CONFIG, REPO), batch=TP_BATCH,
+                compute_dtype="float32")
+    # under int8 a last-bit difference upstream (the sliced convs' cuDNN
+    # plans) moves single quantization steps: 8d's 1e-2 * max, or 10x the
+    # floor (one process's int8 forward with its input nudged by 2^-24)
+    for leg, key, rel in (("forward", "out", 1e-3), ("int8_forward", "int8_out", 1e-2)):
+        floor = float((ccsr_nudged[key] - ccsr_want[key]).abs().max())
+        bound = rel * float(ccsr_want[key].abs().max())
+        if leg == "int8_forward":
+            bound = max(bound, 10 * floor)
+        err = max(float((g[key] - ccsr_want[key]).abs().max()) for g in got)
+        ccsr[leg] = dict(max_abs_err=err, bound=bound, max=float(ccsr_want[key].abs().max()),
+                         floor=floor, finite=all(bool(torch.isfinite(g[key]).all())
+                                                 for g in got))
+        if not (ccsr[leg]["finite"] and err <= bound):
+            failures.append(f"20{'d' if leg == 'forward' else 'f'} CCSR {leg}: {err} from one "
+                            f"process's (bound {bound})")
+    loss_rel = {k: abs(step["metrics"][k] - v) / max(abs(v), 1e-30)
+                for k, v in ccsr_one["metrics"].items()}
+    err = grad_errors(step["grads"], ccsr_one["grads"])
+    allowed = {net: max(1e-4, 10 * ccsr_grad_floor[net]) for net in err}
+    agree = all(torch.equal(got[1]["step"]["grads"][k], g) for k, g in step["grads"].items())
+    ccsr.update(
+        loss_rel_err=loss_rel, loss_rel_floor=ccsr_loss_floor, loss_bound=1e-4,
+        grad_rel_l2_err=err, grad_rel_l2_floor=ccsr_grad_floor, grad_allowed=allowed,
+        ranks_hold_equal_gradients=agree, census_per_step=step["census"],
+        forward_census=got[0]["forward_census"],
+        peak_gib_per_rank=[g["step"]["peak_bytes"] / 2 ** 30 for g in got],
+        one_process_peak_gib=ccsr_one["peak_bytes"] / 2 ** 30,
+        step_ms_per_rank=[g["step"]["ms"] for g in got], one_process_step_ms=ccsr_one["ms"],
+        step_k1_k2_launches_per_rank=[list(g["step"]["launches"]) for g in got],
+        int8_launches_per_rank=[g["int8_launches"] for g in got],
+        one_process_int8_launches=ccsr_want["int8_launches"],
+        k3_weights_per_rank=[g["k3_weights"] for g in got],
+        one_process_k3_weights=ccsr_want["k3_weights"],
+        k3_unequal_vs_plain_per_rank=[g["k3_unequal_vs_plain"] for g in got])
+    if max(loss_rel.values()) > 1e-4 or any(err[n] > allowed[n] for n in err) or not agree:
+        failures.append(f"20e CCSR step: losses {loss_rel} (bound 1e-4), gradients {err} "
+                        f"(allowed {allowed}), ranks agree {agree}")
+    if not all(np.isfinite(v) for v in step["metrics"].values()):
+        failures.append(f"20e CCSR step: losses {step['metrics']}")
+    sliced = [(o // TP_WORLD, *rest) for o, *rest in ccsr_want["k3_weights"]]
+    if any(g["int8_launches"] != [COMOD_INT8_ROUTED] * 3 or g["k3_unequal_vs_plain"]
+           or g["k3_weights"] != sliced for g in got) \
+            or ccsr_want["int8_launches"] != [COMOD_INT8_ROUTED] * 3:
+        failures.append(f"20f CCSR int8: launches {ccsr['int8_launches_per_rank']} (want "
+                        f"{COMOD_INT8_ROUTED} of K3 and each quantizer), K3 weights "
+                        f"{ccsr['k3_weights_per_rank']} (want {sliced}), unequal to plain "
+                        f"{ccsr['k3_unequal_vs_plain_per_rank']}")
+    if any(tuple(g["step"]["launches"]) != (0, 0) for g in got) \
+            or not step["census"].get("tp_styles", {}).get("count"):
+        failures.append(f"20e CCSR step: K1/K2 {ccsr['step_k1_k2_launches_per_rank']}, "
+                        f"census {step['census']}")
     phase("20 the model axis on one card", backend="gloo", mesh=[1, TP_WORLD],
-          batch=TP_BATCH, spawn_s=spawn_s, seconds=time.perf_counter() - started, **rows)
+          batch=TP_BATCH, spawn_s=spawn_s, seconds=time.perf_counter() - started,
+          **rows, ccsr=ccsr)
     if failures:
         raise AssertionError("; ".join(failures))
-    return [[sum(r[d]["k1_launches"] + r[d]["step"]["launches"][0] for d in TP_DTYPES),
-             sum(r[d]["step"]["launches"][1] for d in TP_DTYPES)] for r in ranks]
+    return ([[sum(r[d]["k1_launches"] + r[d]["step"]["launches"][0] for d in TP_DTYPES),
+              sum(r[d]["step"]["launches"][1] for d in TP_DTYPES)] for r in ranks],
+            [g["int8_launches"] for g in got])
 
 
 # -- phase 19: reference checkpoints -----------------------------------------------
@@ -3295,7 +3440,7 @@ def main(argv=None):
     mix_launches = check_style_mixing(device)
     int8_train_launches = check_int8_train(device)
     reference_launches = check_reference_checkpoints(device)
-    tp_launches = check_tensor_parallel(device)
+    tp_launches, tp_int8_launches = check_tensor_parallel(device)
     phase("launches by path", serve={"filtered_lrelu": serve_launches[0],
                                      "filtered_lrelu_bwd": serve_launches[1],
                                      "conv_int8": serve_launches[2]},
@@ -3317,7 +3462,10 @@ def main(argv=None):
           train_style_mixing=mix_launches, train_int8=int8_train_launches,
           serve_reference_checkpoint={"filtered_lrelu": reference_launches},
           model_axis_two_ranks={f"rank{r}": {"filtered_lrelu": k, "filtered_lrelu_bwd": b}
-                                for r, (k, b) in enumerate(tp_launches)})
+                                for r, (k, b) in enumerate(tp_launches)},
+          model_axis_ccsr_int8={f"rank{r}": {"conv_int8": k, "quantize_int8": q,
+                                             "quantize_weights_int8": w}
+                                for r, (k, q, w) in enumerate(tp_int8_launches)})
     if not train_launches["filtered_lrelu_bwd"]:
         raise AssertionError("the training path launched no K2")
     if not all(int8_launches[1:]):
@@ -3358,7 +3506,8 @@ def main(argv=None):
         {"name": "conv_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/conv_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:129",
-         "launches": int8_launches[1] + comodgan_int8[1] + int8_train_launches["conv_int8"],
+         "launches": int8_launches[1] + comodgan_int8[1] + int8_train_launches["conv_int8"]
+         + sum(k for k, _, _ in tp_int8_launches),
          "max_abs_err": int8_worst, "unequal_elements": unequal,
          "ms": int8_sums["ms"], "plain_ms": int8_sums["plain_ms"],
          "bound_ms": int8_sums["bound"][0], "bound_by": int8_sums["bound"][1],
@@ -3377,7 +3526,7 @@ def main(argv=None):
          "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:258-262",
          "launches": int8_launches[2] + comodgan_int8[2]
-         + int8_train_launches["quantize_int8"],
+         + int8_train_launches["quantize_int8"] + sum(q for _, q, _ in tp_int8_launches),
          "max_abs_err": quantizer_worst["activations"],
          "unequal_elements": quantizer_unequal["activations"],
          "ms": int8_sums["qx_ms"], "plain_ms": int8_sums["qx_plain_ms"],
@@ -3392,7 +3541,8 @@ def main(argv=None):
          "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:276-280",
          "launches": int8_launches[3] + comodgan_int8[3]
-         + int8_train_launches["quantize_weights_int8"],
+         + int8_train_launches["quantize_weights_int8"]
+         + sum(w for _, _, w in tp_int8_launches),
          "max_abs_err": quantizer_worst["weights"],
          "unequal_elements": quantizer_unequal["weights"],
          "ms": int8_sums["qw_ms"], "plain_ms": int8_sums["qw_plain_ms"],

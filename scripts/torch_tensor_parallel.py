@@ -2,14 +2,18 @@
 """Tensor parallelism of the PyTorch port across the cards of one node.
 
     python scripts/torch_tensor_parallel.py [--mesh 1,2 2,2 1,4]
+    python scripts/torch_tensor_parallel.py --config configs/adni/comodgan/ccsr.yml
     python scripts/torch_tensor_parallel.py --device cpu --tiny --mesh 1,2 2,2  # gloo, CPU
 
 Drives the port's model axis (``afcm_tpu_torch.parallel.tensor``) over
 meshes of D x M ranks joined by NCCL (gloo with ``--device cpu``), rank r
-at data index r // M and model index r % M, on the shipped CMSR training
-config (configs/adni/stylegan3/cmsr.yml; ``--tiny``: the demo config at
-64^2), and prints the card's name and power limit, then one JSON line per
-check:
+at data index r // M and model index r % M, on a shipped training config
+(``--config``, by default the CMSR one, configs/adni/stylegan3/cmsr.yml;
+the CCSR CoModGAN's, configs/adni/comodgan/ccsr.yml, shards alike;
+``--tiny``: the demo config at 64^2; ``--opts KEY VALUE ...`` overrides
+config keys, e.g. ``model.name comodgan model.G.netG comodgan`` with
+``--tiny``), and prints the card's name and power limit, then one JSON
+line per check:
 
 1. ``step`` (per mesh): one fp32 train step (TF32 off) on the phantom's
    first global batch of 16, each data row on its slice, against one
@@ -70,8 +74,9 @@ def argv_of(args, dtype, batch, mesh, out_dir=None):
     """The training config's arguments with its periodic display, printing
     and saving off, at ``dtype``, a global ``batch`` and ``mesh``."""
     never = str(10 ** 9)
-    path = "configs/demo/cmsr_tiny.yml" if args.tiny else "configs/adni/stylegan3/cmsr.yml"
-    return ["--config-file", os.path.join(REPO, path), "tpu.compute_dtype", dtype,
+    path = args.config or ("configs/demo/cmsr_tiny.yml" if args.tiny
+                           else "configs/adni/stylegan3/cmsr.yml")
+    return ["--config-file", os.path.join(REPO, path), *args.opts, "tpu.compute_dtype", dtype,
             "loaders.batch_size", str(batch),
             "checkpoints_dir", out_dir or tempfile.gettempdir(), "name", "tensor_parallel",
             "trainer.display_freq", never, "trainer.print_freq", never,
@@ -197,6 +202,8 @@ def main(argv=None):
                     help="meshes D,M to train over")
     ap.add_argument("--serve-mesh", default="1,4", help="the mesh D,M to serve over ('' skips)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--config", help="the training config (default: the shipped CMSR one)")
+    ap.add_argument("--opts", nargs="*", default=[], help="config overrides, KEY VALUE ...")
     ap.add_argument("--tiny", action="store_true", help="the demo config at 64^2")
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--batch", type=int, default=16, help="the loop's global batch")
@@ -219,6 +226,8 @@ def main(argv=None):
     else:
         torch.set_num_threads(1)
 
+    config = " ".join([os.path.relpath(argv_of(args, "float32", STEP_BATCH, (1, 1))[1], REPO),
+                       *args.opts])
     for dtype in args.dtypes:
         # the train CLI's policy, which spawned ranks inherit: the cap at
         # float32 on a card, the default planning otherwise
@@ -236,7 +245,8 @@ def main(argv=None):
                             for k, v in one["metrics"].items()}
                 grad_rel = grad_errors(got["grads"], one["grads"])
                 print(json.dumps({
-                    "check": "step", "mesh": list(mesh), "global_batch": STEP_BATCH,
+                    "check": "step", "config": config,
+                    "mesh": list(mesh), "global_batch": STEP_BATCH,
                     "compute_dtype": "float32", "tf32": False, "backend": args.backend,
                     "loss_rel_err": loss_rel, "grad_rel_l2_err": grad_rel,
                     "census_per_step": got["census"],
@@ -247,7 +257,8 @@ def main(argv=None):
                 if max(loss_rel.values()) > 1e-3 or max(grad_rel.values()) > 1e-3:
                     raise SystemExit(f"mesh {mesh}'s step is off one process's: "
                                      f"{loss_rel} {grad_rel}")
-            print(json.dumps({"check": "loop", "mesh": list(mesh), "compute_dtype": dtype,
+            print(json.dumps({"check": "loop", "config": config, "mesh": list(mesh),
+                              "compute_dtype": dtype,
                               "global_batch": args.batch,
                               "workspace_cap": os.environ.get("CUDNN_CONV_WSCAP_DBG"),
                               "ms_per_step": ranks[0]["loop"]["ms_per_step"],

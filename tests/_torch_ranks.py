@@ -200,12 +200,15 @@ def _whole(model, model_group):
          for key, net in (("opt_G", model.generator), ("opt_D", model.discriminator))}))
 
 
-def tp_steps(rank, world, model_path, runs, out_dir):
+def tp_steps(rank, world, model_path, runs, out_dir, replace_noise=False):
     """For each (model_size, steps) of ``runs``: ``GANModel.train_step``
     from the pickled model over a mesh of world / model_size data rows of
-    model_size ranks, on this row's slice of each global batch; writes
-    (metrics, whole nets, whole optimizer states, census) after each step
-    as ``r{rank}_m{model_size}_s{step}.pt``."""
+    model_size ranks, on this row's slice of each global batch (with
+    ``replace_noise``, every ``torch.randn`` gives ``noise`` of its shape);
+    writes (metrics, whole nets, whole optimizer states, census) after each
+    step as ``r{rank}_m{model_size}_s{step}.pt``."""
+    if replace_noise:
+        torch.randn = lambda shape, **kw: torch.from_numpy(noise(shape))
     for model_size, steps in runs:
         model = torch.load(model_path, weights_only=False)
         group, model_group = parallel.make_groups(model_size)
@@ -344,3 +347,48 @@ def tp_step_check(rank, world, argv, batch, out_dir):
     result = train_step_check(default_argument_parser(list(argv)), batch, "cpu", seed=3,
                               draw_seed=4, group=group, model_group=model_group)
     torch.save(result, os.path.join(out_dir, f"r{rank}_check.pt"))
+
+
+def _torch_args(values):
+    return [torch.from_numpy(v) if isinstance(v, np.ndarray) else v for v in values]
+
+
+def tp_forwards(rank, world, cases, out_dir):
+    """Over a (1, world) mesh, for each (name, module path, args, kwargs,
+    grads, conv impl) of ``cases``: the pickled module sharded
+    (``shard_module``) and its forward on ``args`` and ``kwargs`` (numpy
+    arrays become tensors) under that conv implementation, the int8 conv's
+    calls counted (the weight slice's shape); with ``grads``, every
+    parameter's whole gradient of the output's sum, the replicated ones
+    reduced as the train step reduces them (``reduce_replicated_``) and the
+    sharded ones gathered. Writes {name: (output, grads, int8 calls,
+    census)} as ``r{rank}_forwards.pt``."""
+    from afcm_tpu_torch.ops import modulated_conv
+    _, model_group = parallel.make_groups(world)
+    results = {}
+    real = modulated_conv.conv3x3_int8_ste
+    for name, path, args, kwargs, grads, impl in cases:
+        module = torch.load(path, weights_only=False)
+        parallel.shard_module(module, model_group)
+        routed = []
+        modulated_conv.conv3x3_int8_ste = lambda x, w, p: routed.append(tuple(w.shape)) or \
+            real(x, w, p)
+        modulated_conv.set_conv_impl(impl)
+        try:
+            with torch.set_grad_enabled(grads):
+                out = module(*_torch_args(args), **dict(zip(kwargs, _torch_args(
+                    kwargs.values()))))
+        finally:
+            modulated_conv.conv3x3_int8_ste = real
+            modulated_conv.set_conv_impl("xla")
+        whole = {}
+        if grads:
+            params = list(module.parameters())
+            got = list(torch.autograd.grad(out.sum(), params, allow_unused=True))
+            got = [torch.zeros_like(p) if g is None else g for p, g in zip(params, got)]
+            model_group.reduce_replicated_(module, params, got)
+            sharded = {id(m.weight) for m in parallel.tensor.sharded_layers(module)}
+            whole = {k: model_group.gather_dim0(g) if id(p) in sharded else g
+                     for (k, p), g in zip(module.named_parameters(), got)}
+        results[name] = (out.detach(), whole, routed, model_group.take_census())
+    torch.save(results, os.path.join(out_dir, f"r{rank}_forwards.pt"))

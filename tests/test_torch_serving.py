@@ -233,9 +233,10 @@ def test_serving_refuses_a_mesh_of_more_than_one_device_naming_a12b(argv, tmp_pa
     parallelism was ported (item A12c) a model axis is taken too: both
     serving CLIs serve ``[2, 2]`` over four gloo ranks, and the evaluate
     CLI's scores and the serve CLI's volume are one process's (rtol 2e-4,
-    atol 2e-5, tests/test_parallel.py:242). A model axis under the CoModGAN
-    generator is refused in ``configure_numerics`` (item A12d). The default
-    mesh ``[0, 1]`` is accepted."""
+    atol 2e-5, tests/test_parallel.py:242). Since the CoModGAN family's
+    layers were made tensor-parallel (item A12d) ``configure_numerics``
+    takes a model axis under the CoModGAN generator too. The default mesh
+    ``[0, 1]`` is accepted."""
     from afcm_tpu_torch import serve
     from afcm_tpu_torch.evaluate import configure_numerics, prepare_mesh_state
     from afcm_tpu_torch.evaluate import main as evaluate_main
@@ -245,9 +246,8 @@ def test_serving_refuses_a_mesh_of_more_than_one_device_naming_a12b(argv, tmp_pa
         pytest.importorskip("h5py")
         from afcm_tpu_torch.data.demo import write_demo_tree
         assert configure_numerics(cfg) == "float32"
-        with pytest.raises(NotImplementedError, match="A12d"):
-            configure_numerics(_tiny_cfg(*argv, "model.name", "comodgan",
-                                         "model.G.netG", "comodgan"))
+        assert configure_numerics(_tiny_cfg("tpu.mesh_shape", "[1, 2]", "model.name",
+                                            "comodgan", "model.G.netG", "comodgan")) == "float32"
         write_demo_tree(str(tmp_path / "data"), n_train=0, n_val=0, n_test=1,
                         depth=8, size=64)
         base = ["--config-file", os.path.join(REPO, "configs/demo/cmsr_tiny.yml"),

@@ -369,6 +369,34 @@ def _adam_mu_nu(opt_state):
     return _named(adam.mu), _named(adam.nu)
 
 
+def v_bound(g, beta2):
+    """How far Adam's second moment after a first step from v = 0,
+    (1 - beta2)·g², may lie from the reference's when the gradient is held
+    to the gradient check's own tolerance, delta = 1e-3·|g| + 1e-3·max|g|
+    (rtol and atol of ``_compare_step``): |g'² - g²| <= delta·(2|g| + delta).
+    Per entry of ``g`` (the reference's gradient), in float64."""
+    g = np.abs(np.asarray(g, dtype=np.float64))
+    delta = 1e-3 * g + 1e-3 * g.max()
+    return (1 - beta2) * delta * (2 * g + delta)
+
+
+def assert_v_close(got, want, bound, where):
+    """Second moments ``got`` against ``want``: each entry within the
+    check's own rtol 2e-3 / atol 1e-5, or within ``bound``, what the
+    gradient check vouches for v (``v_bound``). A gradient that passes its
+    check may still move v = (1 - beta2)·g² by more than 2e-3 of it: the
+    port's own step with every input nudged by 2^-24 does (PERF.md §6,
+    ROADMAP C14)."""
+    gap = np.abs(got.astype(np.float64) - want)
+    ok = (gap <= 1e-5 + 2e-3 * np.abs(want)) | (gap <= bound)
+    if not ok.all():
+        i = int(np.argmax(np.where(ok, -np.inf, gap - bound)))
+        raise AssertionError(
+            f"{where} (exp_avg_sq): {int((~ok).sum())} of {ok.size} entries beyond both "
+            f"rtol 2e-3 / atol 1e-5 and the gradient check's bound; the worst is "
+            f"{float(gap[i])} apart (v {float(want[i])}) against {float(bound[i])}")
+
+
 def _compare_step(port, state, metrics, jax_metrics, label, sensitive):
     """Losses at rtol 1e-4; gradients per tensor at rtol 1e-3 and atol
     1e-3·max|g|; parameters, EMA and second moments after the step at 1e-5
@@ -638,13 +666,17 @@ def test_full_size_train_step_matches_jax_cpu():
 
 
 def _compare_full_size_step(port, case, metrics, start):
-    """_compare_step's losses and gradients as they are; its parameter,
-    second-moment and EMA checks at 1e-5 on the entries whose gradient the
-    gradient check vouches for, |g| > 1e-3·max|g| of its tensor (that
-    check's own atol). Under that threshold the gradient's sign is not
-    vouched for, and Adam's first step, lr·g/(|g| + eps), turns a flipped
-    sign into a move of up to 2·lr: the port's own step with every input
-    nudged by 2^-24 misses the 1e-5 check there too (PERF.md §6, C14). Those
+    """_compare_step's losses and gradients as they are; its parameter and
+    EMA checks at 1e-5 on the entries whose gradient the gradient check
+    vouches for, |g| > 1e-3·max|g| of its tensor (that check's own atol),
+    and its second-moment check there as ``assert_v_close`` (rtol 2e-3 /
+    atol 1e-5, or the bound the gradient check implies: the port's own
+    nudged step moves one v of ``e_16x16.bias`` by 1.6%, as far as
+    afcm_tpu's is from the port's; ROADMAP C14). Under that threshold the
+    gradient's sign is not vouched for, and Adam's first step,
+    lr·g/(|g| + eps), turns a flipped sign into a move of up to 2·lr: the
+    port's own step with every input nudged by 2^-24 misses the 1e-5 check
+    there too (PERF.md §6, C14). Those
     entries are held to what Adam's arithmetic guarantees: a move of at
     most lr·(1 + 1e-6), and p == p_start - lr·m̂/(√v̂ + eps) within 1e-6
     from the port's own moments, each plus half the float32 spacing at the
@@ -684,8 +716,8 @@ def _compare_full_size_step(port, case, metrics, start):
                   atol=1e-3 * scale, err_msg=where)
             got = p.detach().numpy()
             vouched = np.abs(g_want) > 1e-3 * scale
-            check(np.testing.assert_allclose, adam["exp_avg_sq"].numpy()[vouched],
-                  nu[key][vouched], rtol=2e-3, atol=1e-5, err_msg=f"{where} (exp_avg_sq)")
+            check(assert_v_close, adam["exp_avg_sq"].numpy()[vouched], nu[key][vouched],
+                  v_bound(g_want, beta2)[vouched], where)
             check(np.testing.assert_allclose, got[vouched], want_params[key][vouched],
                   atol=1e-5, err_msg=where)
             if key in ema:

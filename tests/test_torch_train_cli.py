@@ -97,8 +97,9 @@ def test_train_refuses_remat_naming_a8(monkeypatch):
     is no longer refused: the run reaches its data loading as the default
     does. Since tensor parallelism was ported (item A12c) a model axis with
     remat starts one rank per device of the mesh (the launch is recorded
-    here, not run); what the train CLI still refuses before any data is
-    read is a model axis under the CoModGAN generator (item A12d)."""
+    here, not run). Since the CoModGAN family's layers were made
+    tensor-parallel (item A12d) the CoModGAN train CLI under a model axis
+    starts D·M ranks too."""
     monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
     for extra in (["tpu.remat", "True", "tpu.remat_min_size", "32"], []):
         with pytest.raises(_Stop):
@@ -109,10 +110,10 @@ def test_train_refuses_remat_naming_a8(monkeypatch):
     assert train_cli.main(["--config-file", CONFIG, "--device", "cpu", "tpu.remat", "True",
                            "tpu.mesh_shape", "[1, 2]"]) == {}
     assert launched == [2]
-    with pytest.raises(NotImplementedError, match="A12d"):
-        train_cli.main(["--config-file", CONFIG, "--device", "cpu", "model.name", "comodgan",
-                        "model.G.netG", "comodgan", "tpu.mesh_shape", "[1, 2]"])
-    assert launched == [2]
+    assert train_cli.main(["--config-file", CONFIG, "--device", "cpu", "model.name",
+                           "comodgan", "model.G.netG", "comodgan",
+                           "tpu.mesh_shape", "[2, 2]"]) == {}
+    assert launched == [2, 4]
 
 
 @pytest.mark.parametrize("argv", [["--num-gpus", "2"], ["tpu.mesh_shape", "[1, 2]"],
