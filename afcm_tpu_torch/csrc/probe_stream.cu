@@ -7,12 +7,12 @@
 //   scripts/probe_element_windows.py  the four pl.Element calls :41-104
 // They exist to measure what hand-written loads and stores reach at the
 // FIR layers' shapes, beside the fused filtered_lrelu kernel's time:
-//   copy  : y = x                                   (read 1x, write 1x)
+//   copy  : y = x, flat (build_copy), or a block of cb planes / br rows per
+//           CTA (copy3d, copy2d)                    (read 1x, write 1x)
 //   wr4x  : y[c][k] = x[c] * 2^-k, k = 0..3         (read 1x, write 4x)
 //   rd4x  : y[c] = (x[c][0] + x[c][1]) + (x[c][2] + x[c][3])  (4x, 1x)
 //   chain : x -> four scaled copies in shared memory -> leaky ReLU 0.2
 //           -> pairwise sum -> y; device memory sees x in, y out
-//   copy_rows : y = x, row by row, a block of rows per CTA
 //   windows : out[ty][tx][c] = scale * (zero-padded x)[c, ty*sh - lo_h + (0..win_h),
 //             tx*sw - lo_w + (0..win_w)]: overlapping, unaligned,
 //             zero-filled input windows, channels zero-padded to c_out
@@ -23,18 +23,33 @@
 // two is exact, and no product is contracted with a sum into an FMA. The
 // results equal the plain versions bit for bit.
 //
-// What bounds them: bytes. Design: 16-byte loads and stores wherever the
-// address allows. A plane of h * w bf16 is a multiple of 16 bytes at every
-// layer size of the generator (276^2, 148^2, 84^2, 52^2, 256^2), so the flat
-// kernels use 16-byte accesses throughout and fall back to 2-byte accesses
-// for other plane sizes; `copy_rows` keeps the row structure (rows of 276
-// bf16 are 552 bytes: a head and a tail around the 16-byte body of every
-// other row) so that its cost shows. Flat kernels are persistent: 8 CTAs of
-// 256 threads per SM walk the items with a grid stride. `chain` gives each
-// CTA a tile of `tile` 16-byte items of x, 4 * tile * 16 bytes of shared
-// memory (512 items, 32 KB by default, seven CTAs per SM; up to 3584 items
-// fill the 227 KB one CTA can have), and every thread reads back items
-// another thread wrote, so the shared round trip is real.
+// What bounds them: bytes. The copies (copy_kernel, behind build_copy,
+// copy3d and copy2d) keep nothing of the TPU kernels' rows: a span is
+// copied as bytes, 2-byte accesses for the head up to the first 16-byte
+// boundary and for the tail under 16 bytes, and the 16-byte body in pieces
+// through a ring of stages in dynamic shared memory that one thread drives
+// with bulk asynchronous copies (cp.async.bulk, the TMA without a tensor
+// map): device memory -> stage on an mbarrier, stage -> device memory in a
+// bulk group, and a stage is loaded again once cp.async.bulk.wait_group.read
+// says the store out of it has read it. No thread spends a register or an
+// instruction on the body, and rows of 276 bf16 (552 bytes, every other one
+// 8 bytes off a 16-byte boundary) cost what aligned ones cost. copy3d and
+// copy2d keep the TPU grid's meaning, one CTA per block of cb planes or br
+// rows, whose pieces it takes in order (a ring of 6 x 32 KB: five loads in
+// flight and one CTA an SM, which beat three CTAs of 4 x 16 KB an SM). The
+// flat copy is a persistent grid of one CTA an SM (4 x 16 KB) whose CTAs
+// claim the span's pieces from a counter in turn: a fixed share per CTA
+// lost to Tensor.copy_, since the copy then lasts as long as its slowest
+// SM. x and y share their offset modulo 16 (the wrapper allocates y so).
+// The other flat kernels use 16-byte loads and stores wherever the address
+// allows: a plane of h * w bf16 is a multiple of 16 bytes at every layer
+// size of the generator (276^2, 148^2, 84^2, 52^2, 256^2), and other plane
+// sizes take 2-byte accesses; they are persistent: 8 CTAs of 256 threads
+// per SM walk the items with a grid stride. `chain` gives each CTA a tile
+// of `tile` 16-byte items of x, 4 * tile * 16 bytes of shared memory (512
+// items, 32 KB by default, seven CTAs per SM; up to 3584 items fill the 227
+// KB one CTA can have), and every thread reads back items another thread
+// wrote, so the shared round trip is real.
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream
 // and returns cudaGetLastError().
@@ -47,6 +62,8 @@
 
 #define AFCM_PS_THREADS 256
 #define AFCM_PS_MAX_BLOCKS (132 * 8)
+#define AFCM_PS_RING_MAX 8          // stages of the bulk copy's ring (barriers held)
+#define AFCM_PS_SMEM_MAX 232448     // dynamic shared memory one CTA can have
 
 namespace {
 
@@ -101,15 +118,6 @@ template <> struct Ops<unsigned short> {
         return static_cast<unsigned short>(lrelu_w(v));
     }
 };
-
-template <typename V>
-__global__ void __launch_bounds__(THREADS)
-copy_kernel(const V* __restrict__ x, V* __restrict__ y, long long items) {
-    const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-    for (long long i = blockIdx.x * static_cast<long long>(THREADS) + threadIdx.x; i < items;
-         i += stride)
-        y[i] = x[i];
-}
 
 // x [c][pv], y [c][4][pv] in items.
 template <typename V>
@@ -175,28 +183,152 @@ chain_kernel(const V* __restrict__ x, V* __restrict__ y, long long items, int ti
     }
 }
 
-// y = x for [rows][row_elems] bf16, rows_per_cta rows per CTA, a warp per
-// row: 2-byte accesses up to the first 16-byte boundary, 16-byte accesses,
-// 2-byte accesses for the rest. x and y share their alignment.
-__global__ void __launch_bounds__(THREADS)
-copy_rows_kernel(const unsigned short* __restrict__ x, unsigned short* __restrict__ y,
-                 long long rows, int row_elems, int rows_per_cta) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_cta;
-    for (int r = warp; r < rows_per_cta; r += THREADS / 32) {
-        const long long row = row0 + r;
-        if (row >= rows) break;
-        const unsigned short* src = x + row * row_elems;
-        unsigned short* dst = y + row * row_elems;
-        int head = static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / 2);
-        if (head > row_elems) head = row_elems;
-        const int body = (row_elems - head) / 8, tail = row_elems - head - 8 * body;
-        if (lane < head) dst[lane] = src[lane];
-        const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
-        uint4* d4 = reinterpret_cast<uint4*>(dst + head);
-        for (int v = lane; v < body; v += 32) d4[v] = s4[v];
-        if (lane < tail) dst[head + 8 * body + lane] = src[head + 8 * body + lane];
+// Bulk asynchronous copies (sm_90; PTX ISA, cp.async.bulk and mbarrier): a
+// load from device memory completes on an mbarrier with the bytes it moved,
+// a store to device memory joins the issuing thread's bulk groups. Both run
+// in the async proxy.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];" :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+                 : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// y = x over the pieces of a span of `bytes` (a multiple of 16) between
+// 16-byte aligned addresses, driven by one thread: next() gives the offset
+// of the next piece of stage_bytes (the last may be shorter; negative: none
+// left), and the piece goes device memory -> stage -> device memory, the
+// stages taken in turn. A stage's barrier completes once a round, so the
+// i-th piece waits for parity (i / stages) & 1. A stage is loaded again
+// only after the store out of it has read it (wait_group.read 1 after the
+// next store is issued): the load and the store of a stage are both in the
+// async proxy, ordered by the barrier and by wait_group.read, so no proxy
+// fence stands between them. The caller waits for the last stores.
+template <typename Next>
+__device__ void copy_pieces(const unsigned char* x, unsigned char* y, long long bytes,
+                            uint32_t ring, uint32_t bars, int stages, int stage_bytes,
+                            Next next) {
+    long long at[AFCM_PS_RING_MAX];
+    auto size = [&](long long off) {
+        const long long left = bytes - off;
+        return static_cast<uint32_t>(left < stage_bytes ? left : stage_bytes);
+    };
+    auto load = [&](int s, long long off) {
+        at[s] = off;
+        bulk_load(ring + s * stage_bytes, x + off, size(off), bars + 8 * s);
+    };
+    int loaded = 0;
+    bool more = true;
+    for (int s = 0; s < stages && more; ++s) {
+        const long long off = next();
+        if (off < 0) more = false;
+        else { load(s, off); ++loaded; }
     }
+    for (long long i = 0; loaded > 0; ++i) {
+        const int s = static_cast<int>(i % stages);
+        bar_wait(bars + 8 * s, static_cast<uint32_t>((i / stages) & 1));
+        bulk_store(y + at[s], ring + s * stage_bytes, size(at[s]));
+        --loaded;
+        if (i >= 1 && more) {               // refill the stage of piece i - 1
+            const long long off = next();
+            if (off < 0) more = false;
+            else {
+                asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+                load(static_cast<int>((i - 1) % stages), off);
+                ++loaded;
+            }
+        }
+    }
+}
+
+// y = x over `nbytes` of bf16. Without a counter, CTA b copies the block of
+// bytes [b * block_bytes, (b + 1) * block_bytes), the last CTA what is
+// left, its pieces in order. With one (two words, zero at launch;
+// block_bytes == nbytes), the CTAs share the whole span and claim its
+// pieces from the counter in turn, so an SM that runs ahead takes more of
+// them, and the last CTA to finish zeroes the counter again. One warp a
+// CTA: lanes 0-6 copy the span's head up to the first 16-byte boundary,
+// lanes 8-14 its tail under 16 bytes (2-byte accesses; CTA 0 for a shared
+// span), and lane 0 the body through the ring of `stages` x `stage_bytes`
+// in dynamic shared memory. x and y share their offset modulo 16.
+__global__ void __launch_bounds__(32)
+copy_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ y,
+            long long nbytes, long long block_bytes, int stages, int stage_bytes,
+            unsigned long long* counter) {
+    extern __shared__ __align__(128) unsigned char ring[];
+    __shared__ __align__(8) unsigned long long bars[AFCM_PS_RING_MAX];
+    const long long lo = counter ? 0 : static_cast<long long>(blockIdx.x) * block_bytes;
+    const long long len = block_bytes < nbytes - lo ? block_bytes : nbytes - lo;
+    const unsigned char* src = x + lo;
+    unsigned char* dst = y + lo;
+    long long head = (16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15;
+    if (head > len) head = len;
+    const long long body = (len - head) & ~15LL, tail = len - head - body;
+    const int lane = threadIdx.x;
+    if (!counter || blockIdx.x == 0) {
+        if (2 * lane < head)
+            reinterpret_cast<unsigned short*>(dst)[lane] =
+                reinterpret_cast<const unsigned short*>(src)[lane];
+        if (lane >= 8 && 2 * (lane - 8) < tail) {
+            const long long at = head + body + 2 * (lane - 8);
+            *reinterpret_cast<unsigned short*>(dst + at) =
+                *reinterpret_cast<const unsigned short*>(src + at);
+        }
+    }
+    if (lane != 0 || body == 0) return;
+    const uint32_t r = smem_u32(ring), b = smem_u32(bars);
+    for (int s = 0; s < stages; ++s) bar_init(b + 8 * s);
+    // the barriers, initialised in the generic proxy, are used by the
+    // async proxy's complete_tx
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    const long long pieces = (body + stage_bytes - 1) / stage_bytes;
+    if (counter) {
+        copy_pieces(src + head, dst + head, body, r, b, stages, stage_bytes, [&] {
+            const long long p = static_cast<long long>(atomicAdd(counter, 1ULL));
+            return p < pieces ? p * stage_bytes : -1LL;
+        });
+        // counter[1] counts the CTAs whose claims are over; the last one
+        // zeroes both for the next launch on this stream
+        __threadfence();
+        if (atomicAdd(counter + 1, 1ULL) == gridDim.x - 1) {
+            atomicExch(counter, 0ULL);
+            atomicExch(counter + 1, 0ULL);
+        }
+    } else {
+        long long k = 0;
+        copy_pieces(src + head, dst + head, body, r, b, stages, stage_bytes, [&] {
+            return k < pieces ? stage_bytes * k++ : -1LL;
+        });
+    }
+    // the CTA (and its shared memory) lasts until every store has landed
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // out [n_th][n_tw][c_out][win_h][win_w] fp32; a warp per output row, lanes
@@ -238,16 +370,27 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 extern "C" {
 
-// y = x, `elems` bf16, flat.
-int afcm_probe_copy(const void* x, void* y, long long elems, void* stream) {
-    if (elems < 1) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (elems % 8 == 0 && aligned16(x) && aligned16(y))
-        copy_kernel<uint4><<<blocks_for(elems / 8), THREADS, 0, st>>>(
-            static_cast<const uint4*>(x), static_cast<uint4*>(y), elems / 8);
-    else
-        copy_kernel<unsigned short><<<blocks_for(elems), THREADS, 0, st>>>(
-            static_cast<const unsigned short*>(x), static_cast<unsigned short*>(y), elems);
+// y = x, `nbytes` bytes of bf16, through rings of `stages` x `stage_bytes`
+// of shared memory: with counter NULL one CTA per `block_bytes` (the last
+// takes what is left; ctas must be their number), else `ctas` CTAs share
+// the span (block_bytes == nbytes) and claim its pieces from counter[0]
+// (two words, zero at launch, zero again after it; one counter per stream). x and y must share their offset modulo 16.
+int afcm_probe_copy(const void* x, void* y, long long nbytes, long long block_bytes,
+                    int ctas, int stages, int stage_bytes, void* counter, void* stream) {
+    if (nbytes < 2 || nbytes % 2 || block_bytes < 2 || block_bytes % 2 || ctas < 1 ||
+        stages < 2 || stages > AFCM_PS_RING_MAX || stage_bytes < 16 || stage_bytes % 16 ||
+        static_cast<long long>(stages) * stage_bytes > AFCM_PS_SMEM_MAX ||
+        (reinterpret_cast<uintptr_t>(x) & 15) != (reinterpret_cast<uintptr_t>(y) & 15) ||
+        (counter ? block_bytes != nbytes
+                 : (nbytes + block_bytes - 1) / block_bytes != ctas))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = stages * stage_bytes;
+    const cudaError_t err = cudaFuncSetAttribute(
+        copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    copy_kernel<<<ctas, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned char*>(x), static_cast<unsigned char*>(y), nbytes,
+        block_bytes, stages, stage_bytes, static_cast<unsigned long long*>(counter));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,20 +443,6 @@ int afcm_probe_chain(const void* x, void* y, long long elems, int tile, void* st
     else
         chain_kernel<unsigned short><<<blocks, THREADS, smem, st>>>(
             static_cast<const unsigned short*>(x), static_cast<unsigned short*>(y), items, tile);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// y = x for bf16 [rows][row_elems], rows_per_cta rows per CTA.
-int afcm_probe_copy_rows(const void* x, void* y, long long rows, int row_elems,
-                         int rows_per_cta, void* stream) {
-    if (rows < 1 || row_elems < 1 || rows_per_cta < 1 ||
-        (reinterpret_cast<uintptr_t>(x) & 15) != (reinterpret_cast<uintptr_t>(y) & 15))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const long long blocks = (rows + rows_per_cta - 1) / rows_per_cta;
-    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-    copy_rows_kernel<<<static_cast<int>(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned short*>(x), static_cast<unsigned short*>(y), rows, row_elems,
-        rows_per_cta);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,9 +9,16 @@ math):
   ``:81``), ``stream_wr4x`` (``build_wr4x`` ``:94``), ``stream_rd4x``
   (``build_rd4x`` ``:112``), ``stream_chain`` (``build_chain`` ``:130``);
 * K6 ``scripts/probe_stream_diag.py``: ``copy3d`` (``:39``) and ``copy2d``
-  (``:49``), one kernel with the rows per CTA as an argument;
+  (``:49``);
 * K7 ``scripts/probe_element_windows.py``: ``element_windows`` (the four
   ``pl.Element`` calls, ``:41-104``).
+
+K5a and K6 are one kernel, a bulk copy (``csrc/probe_stream.cu``): each CTA
+moves pieces of the span through a ring of stages in shared memory with
+``cp.async.bulk``. ``plan_copy`` gives K6 one CTA per block of the TPU
+grid, and K5a a persistent grid of one CTA an SM whose CTAs claim the
+span's pieces from a counter. The wrapper allocates y at x's offset modulo
+16, so both move the same 16-byte body.
 
 The TPU kernels fold the 4x factor of ``wr4x`` / ``rd4x`` into channel
 *blocks* whose size follows that machine's fast memory (``_blocks``,
@@ -26,6 +33,7 @@ raises. ``launches`` counts the launches by kernel name.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -38,6 +46,16 @@ launches = {"copy": 0, "wr4x": 0, "rd4x": 0, "chain": 0, "copy3d": 0,
 
 CHAIN_TILE = 512            # 16-byte items of x per CTA step: 32 KB shared
 CHAIN_TILE_MAX = 3584       # 4 * 3584 * 16 bytes = 224 KB of the 227 KB
+
+
+# The bulk copy's rings (stages, bytes a stage). K6's blocks: six stages of
+# 32 KB, five loads in flight a CTA and one CTA an SM (192 KB). K5a's
+# shared span: four stages of 16 KB, one CTA an SM claiming pieces.
+# RING_STAGES_MAX is the kernel's AFCM_PS_RING_MAX.
+BLOCK_RING = (6, 32 << 10)
+FLAT_RING = (4, 16 << 10)
+RING_STAGES_MAX = 8
+CTA_SHARED_MAX = 232448     # dynamic shared memory one CTA can have (AFCM_PS_SMEM_MAX)
 
 
 def reset_launches() -> None:
@@ -94,13 +112,12 @@ def _lib():
     from ._build import load_library
     lib = load_library("probe_stream")[0]
     i, p, ll, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    lib.afcm_probe_copy.argtypes = [p, p, ll, p]
+    lib.afcm_probe_copy.argtypes = [p, p, ll, ll, i, i, i, p, p]
     lib.afcm_probe_x4.argtypes = [p, p, ll, i, i, p]
     lib.afcm_probe_chain.argtypes = [p, p, ll, i, p]
-    lib.afcm_probe_copy_rows.argtypes = [p, p, ll, i, i, p]
     lib.afcm_probe_windows.argtypes = [p, p] + [i] * 12 + [f, p]
     for fn in (lib.afcm_probe_copy, lib.afcm_probe_x4, lib.afcm_probe_chain,
-               lib.afcm_probe_copy_rows, lib.afcm_probe_windows):
+               lib.afcm_probe_windows):
         fn.restype = ctypes.c_int
     return lib
 
@@ -121,13 +138,10 @@ def _launch(name, fn, x, *args):
 
 
 def stream_copy(x):
-    """K5a: ``y = x`` for a bf16 tensor of any shape (read 1x, write 1x)."""
+    """K5a: ``y = x`` for a bf16 tensor of any shape (read 1x, write 1x), by
+    the bulk copy over a persistent grid."""
     _check("stream_copy", x, x.ndim)
-    if x.device.type == "cpu":
-        return stream_copy_plain(x)
-    y = torch.empty_like(x)
-    _launch("copy", _lib().afcm_probe_copy, x, x.data_ptr(), y.data_ptr(), x.numel())
-    return y
+    return bulk_copy(x)
 
 
 def stream_wr4x(x):
@@ -171,32 +185,112 @@ def stream_chain(x, tile: int = CHAIN_TILE):
     return y
 
 
-def _copy_rows(name, x, row_elems, rows_per_cta):
-    rows = x.numel() // row_elems
-    if rows_per_cta < 1:
-        raise ValueError(f"{name}: {rows_per_cta} rows per CTA")
-    if x.device.type == "cpu":
+@dataclasses.dataclass(frozen=True)
+class CopyPlan:
+    """How the bulk copy cuts ``nbytes``. A block plan (K6): CTA b copies
+    the bytes from ``b * block_bytes`` (the last CTA what is left), its
+    pieces in order. A shared plan (K5a; ``block_bytes == nbytes``): the
+    ``ctas`` CTAs claim the span's pieces from a counter in turn. A piece is
+    ``stage_bytes`` (the last of a block or span shorter), and each CTA has
+    a ring of ``stages`` of them; the kernel copies the head before a
+    block's first 16-byte boundary and the tail after its last one with
+    2-byte accesses."""
+    nbytes: int
+    block_bytes: int
+    ctas: int
+    stages: int
+    stage_bytes: int
+    shared: bool = False
+
+
+def plan_copy(nbytes: int, block_bytes=None, sms: int = 132, ring=None) -> CopyPlan:
+    """One CTA per ``block_bytes`` (K6: the TPU grid's block) through
+    ``BLOCK_RING``, or, with None, the flat copy (K5a): a persistent grid of
+    one CTA an SM, fewer for a span of fewer pieces, sharing the span
+    through ``FLAT_RING``. ``ring`` (stages, bytes a stage) overrides the
+    ring."""
+    stages, stage_bytes = ring or (FLAT_RING if block_bytes is None else BLOCK_RING)
+    if nbytes < 2 or nbytes % 2:
+        raise ValueError(f"bulk copy of {nbytes} bytes: bf16 spans only")
+    if not (2 <= stages <= RING_STAGES_MAX and stage_bytes >= 16 and stage_bytes % 16 == 0
+            and stages * stage_bytes <= CTA_SHARED_MAX):
+        raise ValueError(f"bulk copy ring of {stages} x {stage_bytes} bytes")
+    if block_bytes is None:
+        ctas = max(1, min(sms, -(-nbytes // stage_bytes)))
+        return CopyPlan(nbytes, nbytes, ctas, stages, stage_bytes, shared=True)
+    if block_bytes < 2 or block_bytes % 2:
+        raise ValueError(f"bulk copy blocks of {block_bytes} bytes")
+    return CopyPlan(nbytes, block_bytes, -(-nbytes // block_bytes), stages, stage_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def empty_like_aligned(x):
+    """An empty contiguous tensor like x whose data starts at x's offset
+    modulo 16 bytes, so that the bulk copy moves the same 16-byte body of
+    both (a view of a buffer 16 bytes longer where the allocator's own
+    alignment differs from x's)."""
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if (y.data_ptr() - x.data_ptr()) % 16 == 0:
+        return y
+    size = x.element_size()
+    buf = torch.empty(x.numel() + 16 // size, dtype=x.dtype, device=x.device)
+    shift = (x.data_ptr() - buf.data_ptr()) % 16 // size
+    return buf[shift:shift + x.numel()].view(x.shape)
+
+
+def bulk_copy(x, block_bytes=None, ring=None, counter: str = "copy"):
+    """y = x by the bulk copy kernel: one CTA per ``block_bytes``, or with
+    None the flat copy's persistent grid, through ``ring`` (stages, bytes a
+    stage; default ``BLOCK_RING`` or ``FLAT_RING``); the launch counts under
+    ``counter``. ``stream_copy``, ``copy3d`` and ``copy2d`` call it with the
+    default rings."""
+    _check(counter, x, x.ndim)
+    on_card = x.device.type != "cpu"
+    plan = plan_copy(x.numel() * x.element_size(), block_bytes,
+                     _sm_count(x.device.index) if on_card else 132, ring)
+    if not on_card:
         return stream_copy_plain(x)
-    y = torch.empty_like(x)
-    _launch(name, _lib().afcm_probe_copy_rows, x, x.data_ptr(), y.data_ptr(), rows,
-            row_elems, rows_per_cta)
+    claims = _claims(x.device) if plan.shared else None
+    y = empty_like_aligned(x)
+    _launch(counter, _lib().afcm_probe_copy, x, x.data_ptr(), y.data_ptr(), plan.nbytes,
+            plan.block_bytes, plan.ctas, plan.stages, plan.stage_bytes,
+            None if claims is None else claims.data_ptr())
     return y
 
 
+_claim_counters = {}
+
+
+def _claims(device):
+    """The shared span's claim counter of the current stream on ``device``:
+    two int64 words, zero between launches (the kernel's last CTA zeroes
+    them), so launches on one stream, which run in turn, can share it."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _claim_counters:
+        _claim_counters[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _claim_counters[key]
+
+
 def copy3d(x, cb: int):
-    """K6a: ``y = x`` for bf16 ``[C, H, W]``, ``cb`` planes per CTA, copied
-    row by row (rows of W elements keep their own alignment)."""
+    """K6a: ``y = x`` for bf16 ``[C, H, W]``, one CTA per block of ``cb``
+    planes (copied as one span of bytes)."""
     _check("copy3d", x, 3)
     if cb < 1 or x.shape[0] % cb:
         raise ValueError(f"copy3d: {x.shape[0]} planes do not divide into blocks of {cb}")
-    return _copy_rows("copy3d", x, x.shape[2], cb * x.shape[1])
+    return bulk_copy(x, cb * x.shape[1] * x.shape[2] * x.element_size(), counter="copy3d")
 
 
 def copy2d(x, br: int):
-    """K6b: ``y = x`` for a flat bf16 ``[rows, cols]``, ``br`` rows per CTA
-    (the last CTA takes the rows that are left)."""
+    """K6b: ``y = x`` for a flat bf16 ``[rows, cols]``, one CTA per block of
+    ``br`` rows (the last CTA takes the rows that are left)."""
     _check("copy2d", x, 2)
-    return _copy_rows("copy2d", x, x.shape[1], br)
+    if br < 1:
+        raise ValueError(f"copy2d: {br} rows per CTA")
+    return bulk_copy(x, br * x.shape[1] * x.element_size(), counter="copy2d")
 
 
 def element_windows(x, win_w, n_tw, stride_w, lo_w=0, c_out=None, win_h=None,

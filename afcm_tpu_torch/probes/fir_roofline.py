@@ -13,7 +13,9 @@ no tap math:
           once with 32 KB of shared memory per CTA (seven CTAs per SM) and
           once with the 224 KB one CTA can have (`chainX`)
 
-and beside them ``Tensor.copy_`` (the library's copy) and, at the same shape,
+and beside them ``Tensor.copy_`` (the library's copy), ``x.unsqueeze(1) *
+s`` (one broadcasting multiply: wr4x as a library call; copy and wr4x are
+timed with these in turns, median of ``WINDOWS`` windows) and, at the same shape,
 the fused ``filtered_lrelu`` kernel (separable 12-tap up2 -> lrelu -> down2)
 and its plain composition with the same least-traffic accounting (x read, y
 written): how far the real kernel is from the stream rate of its own
@@ -34,7 +36,7 @@ import torch
 from ..ops import design_lowpass_filter, filtered_lrelu
 from ..ops.cuda import filtered_lrelu as k1
 from ..ops.cuda import probe_stream as ps
-from ..utils.profiling import time_ms
+from ..utils.profiling import time_ms, time_windows
 from . import (HBM_BYTES_PER_S, L2_BYTES, banner, device_generator, free,
                probe_args, randn_bf16)
 
@@ -49,6 +51,7 @@ SHAPES = [
 ]
 SMALL_SHAPES = [("C2@20x12", 2, 12, 20, 1), ("C1@7x9", 1, 7, 9, 1)]
 BATCH = 16
+WINDOWS = 5
 
 
 def fir_case(h: int):
@@ -59,17 +62,30 @@ def fir_case(h: int):
                 gain=float(np.sqrt(2)), slope=0.2, clamp=256.0)
 
 
-def measure(name, c0, h, w, rep, device, gen, batch=BATCH, iters=10):
+def library_wr4x(x):
+    """K5b's function as one library call: a broadcasting multiply by
+    (1, 1/2, 1/4, 1/8), exact in bf16 and so bit-equal to the plain
+    version."""
+    s = torch.tensor([1.0, 0.5, 0.25, 0.125], dtype=x.dtype, device=x.device)
+    return x.unsqueeze(1) * s.view(1, 4, 1, 1)
+
+
+def measure(name, c0, h, w, rep, device, gen, batch=BATCH, iters=10, windows=WINDOWS):
     c = batch * c0 * rep
     x = randn_bf16((c, h, w), device, gen)
     nb = x.numel() * 2
     row = dict(shape=name, planes=c, h=h, w=w, rep=rep, x_mbytes=nb / 1e6,
                l2_multiple=nb / L2_BYTES)
+    # the copy and wr4x beside the library call that computes the same
+    # function, in turns: median and spread over the windows
     y = torch.empty_like(x)
-    row["library_copy_ms"] = time_ms(lambda: y.copy_(x), device, iters)
+    t = time_windows({"copy": lambda: ps.stream_copy(x), "library_copy": lambda: y.copy_(x),
+                      "wr4x": lambda: ps.stream_wr4x(x),
+                      "library_wr4x": lambda: library_wr4x(x)},
+                     device, windows, iters)
+    for key, r in t.items():
+        row[f"{key}_ms"], row[f"{key}_ms_spread"] = r["ms"], [r["lo"], r["hi"]]
     del y
-    row["copy_ms"] = time_ms(lambda: ps.stream_copy(x), device, iters)
-    row["wr4x_ms"] = time_ms(lambda: ps.stream_wr4x(x), device, iters)
     row["chain_ms"] = time_ms(lambda: ps.stream_chain(x), device, iters)
     row["chain_max_tile_ms"] = time_ms(
         lambda: ps.stream_chain(x, tile=ps.CHAIN_TILE_MAX), device, iters)
@@ -110,27 +126,34 @@ def main(argv=None):
           f"({4 * ps.CHAIN_TILE * 16 // 1024} KB shared per CTA); "
           f"HBM peak {HBM_BYTES_PER_S / 1e9:.0f} GB/s")
     print(f"{'shape':10s} {'rep':>3s} {'x MB':>7s} | {'copy':>6s} {'wr4x':>6s} {'rd4x':>6s} "
-          f"{'chain':>6s} {'chainX':>6s} {'copy_':>6s} | {'fused ms':>9s} {'GB/s':>6s} {'plain ms':>9s} "
+          f"{'chain':>6s} {'chainX':>6s} {'copy_':>6s} {'x*s':>6s} | {'fused ms':>9s} {'GB/s':>6s} {'plain ms':>9s} "
           f"{'GB/s':>6s}", flush=True)
     rows = []
     for name, c0, h, w, rep in shapes:
         row = measure(name, c0, h, w, rep, device, gen, batch=batch,
-                      iters=2 if args.small else 10)
+                      iters=2 if args.small else 10, windows=2 if args.small else WINDOWS)
         nb = row["bytes"]
         for key in ("copy", "wr4x", "rd4x", "chain"):
             row[f"{key}_gbps"] = gbps(nb[key], row[f"{key}_ms"])
         row["chain_max_tile_gbps"] = gbps(nb["chain"], row["chain_max_tile_ms"])
         row["library_copy_gbps"] = gbps(nb["copy"], row["library_copy_ms"])
+        row["library_wr4x_gbps"] = gbps(nb["wr4x"], row["library_wr4x_ms"])
         row["fused_gbps"] = gbps(row["fused_bytes"], row["fused_ms"])
         row["fused_plain_gbps"] = gbps(row["fused_bytes"], row["fused_plain_ms"])
         print(f"{name:10s} {rep:3d} {row['x_mbytes']:7.1f} | {row['copy_gbps']:6.0f} "
               f"{row['wr4x_gbps']:6.0f} {row['rd4x_gbps']:6.0f} {row['chain_gbps']:6.0f} "
-              f"{row['chain_max_tile_gbps']:6.0f} {row['library_copy_gbps']:6.0f} | {row['fused_ms']:9.3f} "
+              f"{row['chain_max_tile_gbps']:6.0f} {row['library_copy_gbps']:6.0f} "
+              f"{row['library_wr4x_gbps']:6.0f} | {row['fused_ms']:9.3f} "
               f"{row['fused_gbps']:6.0f} {row['fused_plain_ms']:9.3f} "
               f"{row['fused_plain_gbps']:6.0f}", flush=True)
+        print("           ms [fastest, slowest window]: " + "; ".join(
+            f"{key} {row[f'{key}_ms']:.4f} [{row[f'{key}_ms_spread'][0]:.4f}, "
+            f"{row[f'{key}_ms_spread'][1]:.4f}]"
+            for key in ("copy", "library_copy", "wr4x", "library_wr4x")), flush=True)
         rows.append(row)
     print("\nGB/s of logical bytes (read + written). copy/wr4x/rd4x/chain: the "
-          "hand-written stream kernels, no tap math; copy_: Tensor.copy_.\nchain "
+          "hand-written stream kernels, no tap math; copy_: Tensor.copy_; x*s: "
+          "x.unsqueeze(1) * s, wr4x's function in one library call.\nchain "
           f"(chainX: with {4 * ps.CHAIN_TILE_MAX * 16 // 1024} KB shared per CTA) "
           "bounds a fused up -> act -> down kernel's device-memory rate; fused: the "
           "filtered_lrelu kernel at the same shape, x read + y written;\nplain: its "

@@ -4,9 +4,10 @@
 record_function`` span around a call, ``trace`` captures a chrome trace of a
 block, ``host_sync`` / ``StepTimer`` / ``bench_rates`` time on the host clock
 around a device synchronize (the same median-of-windows rule as the JAX
-package), and ``cuda_ms`` / ``cuda_median_ms`` time a kernel on the card with
-CUDA events. ``hlo_dump`` of the JAX package has no counterpart: PyTorch
-runs eagerly and has no compiled program to print.
+package), ``cuda_ms`` / ``cuda_median_ms`` time a kernel on the card with
+CUDA events and ``time_windows`` several in turns (median and spread).
+``hlo_dump`` of the JAX package has no counterpart: PyTorch runs eagerly and
+has no compiled program to print.
 """
 
 from __future__ import annotations
@@ -147,6 +148,43 @@ def time_ms(fn, device, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         fn()
     return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def time_windows(fns, device, windows: int = 5, iters: int = 10, warmup: int = 2):
+    """Median and spread of each of ``fns`` (name -> callable) in ms: every
+    fn is warmed, then timed over ``windows`` windows of ``iters`` calls,
+    the fns taking turns in alternating order (a b c, c b a, ...) so that a
+    drifting clock falls on all of them. On the card a window is CUDA
+    events around its calls, recorded behind a short device sleep during
+    which the host enqueues the first calls: the window times the device,
+    not the first call's dispatch (a wrapper in Python takes tens of
+    microseconds a call to enqueue). Returns {name: {"ms": median, "lo": fastest window,
+    "hi": slowest window}}."""
+    on_card = torch.device(device).type == "cuda"
+
+    def window(fn):
+        if not on_card:
+            return time_ms(fn, device, iters, warmup=0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000)          # ~0.1 ms at the card's clock
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    names, got = list(fns), {name: [] for name in fns}
+    for w in range(windows):
+        for name in (names if w % 2 == 0 else names[::-1]):
+            got[name].append(window(fns[name]))
+    return {name: {"ms": float(np.median(t)), "lo": min(t), "hi": max(t)}
+            for name, t in got.items()}
 
 
 def device_banner(device) -> str:

@@ -97,11 +97,15 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    batch; then the knob off and no K3 launch in the next forward;
 9. the probes: (a) each of the nine probe kernels (copy, wr4x, rd4x, chain,
    copy3d, copy2d, windows, stacked_matmul, nine_tap in its four modes) at
-   a small shape and at a full one against its plain version: every one is
-   exact, the count of unequal elements is printed and must be 0; (b) the
+   a small shape and at a full one against its plain version (copy3d and
+   copy2d at every cb and br of stream_diag, the small ones also from a view
+   2 bytes off a 16-byte boundary): every one is exact, the count of
+   unequal elements is printed and must be 0, and wr4x's library call
+   (x.unsqueeze(1) * s) is held to its plain version the same way; (b) the
    five entry points (afcm_tpu_torch.probes.*.main) at full size, their
    tables printed, each kernel launched at least once; (c) per kernel its
-   time, rate, bound and the library call's time;
+   time, rate, bound and the library call's time (Tensor.copy_ for the
+   three copies, with the spread of both over the probes' windows);
 10. the serve entry point's loop (afcm_tpu_torch.serve.serve_subjects) over
    the phantom at full width in float32, with the float32 fetch and with
    tpu.fetch_dtype bfloat16: 28 K1 launches per batch, the bf16-fetched
@@ -1454,20 +1458,37 @@ def check_probe_kernels(device):
         x = probes.randn_bf16(shape, device, gen)
         hold("copy", size, ps.stream_copy, ps.stream_copy_plain, x)
         hold("wr4x", size, ps.stream_wr4x, ps.stream_wr4x_plain, x)
+        lib = unequal_elements(fir_roofline.library_wr4x(x), ps.stream_wr4x_plain(x))
+        phase("9a library call vs plain", kernel="wr4x", size=size,
+              library="x.unsqueeze(1) * s", unequal_elements=lib[0], max_abs_err=lib[1])
+        if lib[0]:
+            raise AssertionError(f"wr4x's library call differs from the plain version in "
+                                 f"{lib[0]} elements")
         hold("chain", size, ps.stream_chain, ps.stream_chain_plain, x)
         del x
         x4 = probes.randn_bf16((shape[0], 4) + shape[1:], device, gen)
         hold("rd4x", size, ps.stream_rd4x, ps.stream_rd4x_plain, x4)
         del x4
-    for size, shape, cb, cols, br in (("small", (8, 9, 276), 2, 72, 5),
-                                      ("full", stream_diag.SHAPES[0][1:], 8,
-                                       stream_diag.FLAT_COLS, 4096)):
+    # the copies at every cb and br of stream_diag, and a view 2 bytes off a
+    # 16-byte boundary (small: the bulk copy's head, body and tail)
+    for size, shape, cbs, cols, brs in (
+            ("small", (8, 9, 276), (2,), 72, (5,)),
+            ("small", (5, 7, 9), (1,), 3, (2,)),
+            ("full", stream_diag.SHAPES[0][1:], stream_diag.CBS, stream_diag.FLAT_COLS,
+             stream_diag.BRS)):
         x = probes.randn_bf16(shape, device, gen)
-        hold("copy3d", size, lambda t: ps.copy3d(t, cb), ps.stream_copy_plain, x,
-             note=f"cb={cb}")
-        flat = x.reshape(-1, cols)
-        hold("copy2d", size, lambda t: ps.copy2d(t, br), ps.stream_copy_plain, flat,
-             note=f"br={br}, {flat.shape[0]} rows")
+        for off2 in (False, True) if size == "small" else (False,):
+            if off2:
+                buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=device)
+                x = buf[1:1 + x.numel()].view(x.shape).copy_(x)
+            label = ", 2 bytes off 16" if off2 else ""
+            for cb in cbs:
+                hold("copy3d", size, lambda t: ps.copy3d(t, cb), ps.stream_copy_plain, x,
+                     note=f"cb={cb}{label}")
+            flat = x.view(-1, cols)
+            for br in brs:
+                hold("copy2d", size, lambda t: ps.copy2d(t, br), ps.stream_copy_plain, flat,
+                     note=f"br={br}, {flat.shape[0]} rows{label}")
         del x, flat
     xw = torch.randn((element_windows.C, element_windows.H, element_windows.W),
                      generator=gen, device=device)
@@ -1552,19 +1573,23 @@ def run_probes(checked):
 
     for kernel, line in (("copy", 81), ("wr4x", 94), ("rd4x", 112), ("chain", 130)):
         nb = fir["bytes"][kernel]
+        library = {"copy": "Tensor.copy_", "wr4x": "x.unsqueeze(1) * s"}.get(kernel)
+        spreads = {} if library is None else dict(
+            ms_spread=fir[f"{kernel}_ms_spread"],
+            library_ms_spread=fir[f"library_{kernel}_ms_spread"])
         entry(f"probe_stream_{kernel}", kernel, src, f"scripts/probe_fir_roofline.py:{line}",
               fir[f"{kernel}_ms"], 1e3 * nb / hbm, "bytes",
-              fir["library_copy_ms"] if kernel == "copy" else None,
-              "Tensor.copy_" if kernel == "copy" else None, shape,
-              gbps=fir[f"{kernel}_gbps"])
+              fir[f"library_{kernel}_ms"] if library else None, library, shape,
+              gbps=fir[f"{kernel}_gbps"], **spreads)
     first = stream_diag.SHAPES[0][0]
     for kernel, key, line in (("copy3d", (first, "copy3d", "cb=8"), 39),
                               ("copy2d", ("flat", "copy2d", "br=4096"), 49)):
-        row, lib = diag[key], diag[(key[0], "library-mult", "")]
+        row, lib = diag[key], diag[(key[0], "library-copy_", "")]
         entry(f"probe_stream_{kernel}", kernel, src, f"scripts/probe_stream_diag.py:{line}",
-              row["ms"], 1e3 * row["bytes"] / hbm, "bytes", lib["ms"],
-              "x * 1.0009765625 (torch elementwise)",
-              f"{key[0]} {key[2]}, {row['bytes'] / 2e6:.0f} MB bf16", gbps=row["gbps"])
+              row["ms"], 1e3 * row["bytes"] / hbm, "bytes", lib["ms"], "Tensor.copy_",
+              f"{key[0]} {key[2]}, {row['bytes'] / 2e6:.0f} MB bf16", gbps=row["gbps"],
+              ms_spread=[row["ms_lo"], row["ms_hi"]],
+              library_ms_spread=[lib["ms_lo"], lib["ms_hi"]])
     entry("probe_stream_windows", "windows", src, "scripts/probe_element_windows.py:41",
           win["ms"], 1e3 * win["moved_bytes"] / hbm, "bytes", None, None,
           f"the fused kernel's windows at {win['variant']}: {win['tiles']} windows of "
@@ -1593,7 +1618,8 @@ def run_probes(checked):
         phase("9c probe kernel", kernel=e["name"], **{k: e[k] for k in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "timed_at")}, rate=e.get("gbps", e.get("tops")),
-            rate_unit="GB/s" if "gbps" in e else "TOP/s")
+            rate_unit="GB/s" if "gbps" in e else "TOP/s",
+            **{k: e[k] for k in ("ms_spread", "library_ms_spread") if k in e})
     return entries
 
 

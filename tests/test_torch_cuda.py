@@ -693,7 +693,22 @@ def _probe_bf16(cuda, shape, seed=0):
     return torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
 
 
-STREAM_SHAPES = {"small": (8, 16, 24), "w276": (6, 10, 276), "odd_plane": (5, 7, 9)}
+def _off2(x):
+    """The same values as a contiguous view that starts 2 bytes past a
+    16-byte boundary (the allocator's blocks are 512-byte aligned)."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 2
+    return view
+
+
+# "short": a span under 16 bytes; "fir_full": fir_roofline's C128@276 x16
+# (312 MB; the flat copy's CTAs each take 0.79 MB, beyond their 64 KB ring);
+# "_off2": a view 2 bytes off a 16-byte boundary.
+STREAM_SHAPES = {"small": (8, 16, 24), "w276": (6, 10, 276), "odd_plane": (5, 7, 9),
+                 "w276_off2": (6, 10, 276), "short": (1, 1, 5), "short_off2": (1, 1, 5),
+                 "fir_full": (2048, 276, 276)}
 
 
 @pytest.mark.parametrize("shape", sorted(STREAM_SHAPES))
@@ -702,6 +717,8 @@ def test_probe_stream_kernel_equals_plain_bitwise(cuda, kernel, shape):
     from afcm_tpu_torch.ops.cuda import probe_stream as ps
     c, h, w = STREAM_SHAPES[shape]
     x = _probe_bf16(cuda, (c, 4, h, w) if kernel == "rd4x" else (c, h, w))
+    if shape.endswith("_off2"):
+        x = _off2(x)
     fn, plain, name = {
         "copy": (ps.stream_copy, ps.stream_copy_plain, "copy"),
         "wr4x": (ps.stream_wr4x, ps.stream_wr4x_plain, "wr4x"),
@@ -718,18 +735,54 @@ def test_probe_stream_kernel_equals_plain_bitwise(cuda, kernel, shape):
     assert int((_bits(got) != _bits(want)).sum()) == 0
 
 
-@pytest.mark.parametrize("case", ["copy3d_w276_cb2", "copy3d_w20_cb4", "copy2d_br3",
-                                  "copy2d_ragged"])
+# (kernel, shape, cb or br, view 2 bytes off alignment): small and ragged
+# blocks, a block of 141 KB in one CTA (beyond the 64 KB ring), spans under
+# 16 bytes a CTA, and every cb and br of probes/stream_diag.py at full size.
+COPY_ROWS_CASES = {
+    "copy3d_w276_cb2": ("copy3d", (8, 9, 276), 2, False),
+    "copy3d_w20_cb4": ("copy3d", (8, 6, 20), 4, False),
+    "copy2d_br3": ("copy2d", (30, 64), 3, False),
+    "copy2d_ragged": ("copy2d", (31, 72), 8, False),
+    "copy3d_w276_cb2_off2": ("copy3d", (8, 9, 276), 2, True),
+    "copy2d_ragged_off2": ("copy2d", (31, 72), 8, True),
+    "copy3d_cb1_off2": ("copy3d", (5, 7, 9), 1, True),
+    "copy3d_one_cta_beyond_ring": ("copy3d", (4, 64, 276), 4, False),
+    "copy3d_one_cta_beyond_ring_off2": ("copy3d", (4, 64, 276), 4, True),
+    "copy2d_short": ("copy2d", (9, 3), 2, False),
+    "copy2d_short_off2": ("copy2d", (9, 3), 2, True),
+    **{f"copy3d_full_cb{cb}": ("copy3d", (8192, 276, 276), cb, False) for cb in (4, 8, 16)},
+    **{f"copy2d_full_br{br}": ("copy2d", (1218816, 512), br, False)
+       for br in (2048, 4096, 8192)},
+}
+
+
+@pytest.mark.parametrize("case", list(COPY_ROWS_CASES))
 def test_probe_copy_rows_equals_input(cuda, case):
     from afcm_tpu_torch.ops.cuda import probe_stream as ps
-    if case.startswith("copy3d"):
-        x = _probe_bf16(cuda, (8, 9, 276) if "w276" in case else (8, 6, 20))
-        got = ps.copy3d(x, 2 if "cb2" in case else 4)
-    else:
-        x = _probe_bf16(cuda, (30, 64) if case == "copy2d_br3" else (31, 72))
-        got = ps.copy2d(x, 3 if case == "copy2d_br3" else 8)
+    kernel, shape, block, off2 = COPY_ROWS_CASES[case]
+    x = _probe_bf16(cuda, shape)
+    if off2:
+        x = _off2(x)
+    before = ps.launches[kernel]
+    got = getattr(ps, kernel)(x, block)
     torch.cuda.synchronize()
-    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
+    assert ps.launches[kernel] == before + 1
+    assert got.shape == x.shape and got.data_ptr() != x.data_ptr()
+    assert int((_bits(got) != _bits(x)).sum()) == 0
+    del got, x
+    torch.cuda.empty_cache()
+
+
+def test_probe_flat_copy_leaves_its_claim_counter_at_zero(cuda):
+    """The flat copy's CTAs claim pieces from a counter that the last CTA
+    zeroes, so back-to-back launches on one stream each copy everything."""
+    from afcm_tpu_torch.ops.cuda import probe_stream as ps
+    x = _probe_bf16(cuda, (64, 276, 276))
+    outs = [ps.stream_copy(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    for got in outs:
+        assert int((_bits(got) != _bits(x)).sum()) == 0
+    assert int(ps._claims(x.device).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("case", ["stride_64", "stride_48", "zero_pad_below_0_and_past_w",

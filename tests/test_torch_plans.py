@@ -1,6 +1,8 @@
-"""What surrounds the redesigned kernels K1, K2 and K3 and runs on the CPU:
-K1's and K2's tile planners, K3's tile choice, and the plain versions of the
-quantizer kernels against the JAX package's quantization.
+"""What surrounds the redesigned kernels K1, K2, K3 and the probes' bulk copy
+(K5a, K6) and runs on the CPU: K1's and K2's tile planners, K3's tile
+choice, the plain versions of the quantizer kernels against the JAX
+package's quantization, and the bulk copy's planner (its grid, ring and
+tiling of the span) and its aligned output.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py); the
 planner decides which instantiation takes a call and how much shared memory
@@ -24,6 +26,7 @@ from afcm_tpu_torch.models import CMSR_ADNI_G, build_generator  # noqa: E402
 from afcm_tpu_torch.ops import design_lowpass_filter  # noqa: E402
 from afcm_tpu_torch.ops.cuda import conv_int8 as k3  # noqa: E402
 from afcm_tpu_torch.ops.cuda import filtered_lrelu as k1  # noqa: E402
+from afcm_tpu_torch.ops.cuda import probe_stream as ps  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -400,3 +403,122 @@ def test_quantizer_dispatch_takes_the_plain_version_on_the_cpu(monkeypatch):
         k3.quantize_pack_activations_cuda(x, 1)
     with pytest.raises(ValueError, match="CUDA"):
         k3.quantize_pack_weights_cuda(w)
+
+
+# The bulk copy (K5a, K6a, K6b; ops/cuda/probe_stream.py:plan_copy). A case:
+# bytes, block bytes (None: the flat copy, whose CTAs share the span), x's
+# offset past a 16-byte boundary.
+COPY_PLAN_CASES = {
+    "copy3d_cb8_full": (8192 * 276 * 276 * 2, 8 * 276 * 276 * 2, 0),
+    "copy3d_cb1_odd_offset": (5 * 7 * 9 * 2, 7 * 9 * 2, 2),
+    "copy3d_rows_of_552_bytes_offset_6": (8 * 9 * 276 * 2, 2 * 9 * 276 * 2, 6),
+    "copy2d_ragged_last_cta": (31 * 72 * 2, 8 * 72 * 2, 0),
+    "copy2d_ragged_last_cta_offset_14": (31 * 72 * 2, 8 * 72 * 2, 14),
+    "copy2d_br8192_full": (1218816 * 512 * 2, 8192 * 512 * 2, 0),
+    "span_under_16_bytes": (10, 10, 4),
+    "spans_under_16_bytes_a_cta": (9 * 3 * 2, 2 * 3 * 2, 8),
+    "span_not_a_multiple_of_a_stage": (3 * ps.FLAT_RING[1] + 1234, None, 2),
+    "block_not_a_multiple_of_a_stage": (5 * ps.BLOCK_RING[1] + 98, 2 * ps.BLOCK_RING[1] + 34, 6),
+    "block_beyond_the_ring": (4 * 64 * 276 * 2, 4 * 64 * 276 * 2, 10),
+    "flat_fir_full": (2048 * 276 * 276 * 2, None, 0),
+    "flat_odd_offset": (2048 * 276 * 276 * 2 + 6, None, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(COPY_PLAN_CASES))
+def test_copy_plan_tiles_the_span(case):
+    """A block plan's CTAs tile the span in order, every one but the last a
+    whole block; a shared plan is one span of pieces for up to one CTA an
+    SM. Each CTA's head and tail beside its 16-byte body follow from its
+    bytes and x's offset, as the kernel cuts them (the card's tests hold the
+    copies bit-equal at such offsets)."""
+    nbytes, block, offset = COPY_PLAN_CASES[case]
+    plan = ps.plan_copy(nbytes, block)
+    assert plan.shared == (block is None) and plan.nbytes == nbytes
+    if plan.shared:
+        assert plan.block_bytes == nbytes
+        assert plan.ctas == max(1, min(132, -(-nbytes // plan.stage_bytes)))
+        starts = [0]
+    else:
+        assert plan.block_bytes == block and plan.ctas == -(-nbytes // block)
+        assert 0 < nbytes - (plan.ctas - 1) * block <= block
+        starts = sorted({0, block, (plan.ctas - 1) * block} & set(range(0, nbytes, block)))
+    for start in starts:
+        length = min(plan.block_bytes, nbytes - start)
+        head = min(-(offset + start) % 16, length)
+        body = (length - head) // 16 * 16
+        assert head < 16 and length - head - body < 16 and head % 2 == 0
+        assert body == 0 or (offset + start + head) % 16 == 0
+
+
+@pytest.mark.parametrize("kernel,blocks,want_ctas", [
+    ("copy3d", {4: 4 * 276 * 276 * 2, 8: 8 * 276 * 276 * 2, 16: 16 * 276 * 276 * 2},
+     {4: 2048, 8: 1024, 16: 512}),
+    ("copy2d", {br: br * 512 * 2 for br in (2048, 4096, 8192)}, {2048: 596, 4096: 298, 8192: 149}),
+])
+def test_copy_plan_keeps_the_tpu_grid(kernel, blocks, want_ctas):
+    """copy3d and copy2d at the probe's full size ([8192, 276, 276] bf16 and
+    its [1218816, 512] view): one CTA per block of cb planes or br rows."""
+    nbytes = 8192 * 276 * 276 * 2
+    for key, block in blocks.items():
+        plan = ps.plan_copy(nbytes, block)
+        assert plan.ctas == want_ctas[key] and plan.block_bytes == block and not plan.shared
+        assert (plan.stages, plan.stage_bytes) == ps.BLOCK_RING
+
+
+def test_flat_copy_plan_is_a_persistent_grid():
+    """K5a: one CTA on each SM sharing the span, fewer for a span of fewer
+    pieces than SMs, through the flat ring."""
+    nbytes = 2048 * 276 * 276 * 2
+    plan = ps.plan_copy(nbytes, None, sms=132)
+    assert (plan.ctas, plan.block_bytes, plan.shared) == (132, nbytes, True)
+    assert (plan.stages, plan.stage_bytes) == ps.FLAT_RING
+    assert ps.plan_copy(nbytes, None, sms=114).ctas == 114
+    assert ps.plan_copy(5 * ps.FLAT_RING[1] + 2, None, sms=132).ctas == 6
+    assert ps.plan_copy(10, None).ctas == 1
+
+
+def test_copy_rings_fit_the_sm_and_fill_the_card():
+    """K6's ring (6 x 32 KB) holds one CTA an SM with five 32 KB loads in
+    flight, so even 30 CTAs keep 4.9 MB in flight; K5a's (4 x 16 KB) would
+    fit three CTAs an SM, and its 132 keep 6.5 MB in flight. The card moves
+    3.35 MB a microsecond. An H100 SM has 228 KB of shared memory, of which
+    each CTA reserves 1 KB beside its ring and the kernel's 8 barriers."""
+    def ctas_per_sm(ring):
+        return 233472 // (ring[0] * ring[1] + 8 * ps.RING_STAGES_MAX + 1024)
+
+    assert ps.BLOCK_RING == (6, 32768) and ps.FLAT_RING == (4, 16384)
+    assert ctas_per_sm(ps.BLOCK_RING) == 1 and ctas_per_sm(ps.FLAT_RING) == 3
+    assert ps.BLOCK_RING[0] * ps.BLOCK_RING[1] <= ps.CTA_SHARED_MAX
+    assert 30 * (ps.BLOCK_RING[0] - 1) * ps.BLOCK_RING[1] >= 3.35e12 * 1e-6
+    assert 132 * (ps.FLAT_RING[0] - 1) * ps.FLAT_RING[1] >= 3.35e12 * 1e-6
+
+
+def test_copy_ring_limits_match_the_kernel_source():
+    src = open(os.path.join(os.path.dirname(ps.__file__), "..", "..", "csrc",
+                            "probe_stream.cu")).read()
+    assert int(re.search(r"#define AFCM_PS_RING_MAX (\d+)", src).group(1)) == ps.RING_STAGES_MAX
+    assert int(re.search(r"#define AFCM_PS_SMEM_MAX (\d+)", src).group(1)) == ps.CTA_SHARED_MAX
+
+
+@pytest.mark.parametrize("args", [dict(nbytes=9), dict(nbytes=0), dict(nbytes=64, block_bytes=3),
+                                  dict(nbytes=64, ring=(1, 1024)), dict(nbytes=64, ring=(9, 1024)),
+                                  dict(nbytes=64, ring=(4, 24)),
+                                  dict(nbytes=64, ring=(8, 32768))])
+def test_copy_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError, match="bulk copy"):
+        ps.plan_copy(**args)
+
+
+@pytest.mark.parametrize("elems_off", range(8))
+def test_aligned_output_shares_the_inputs_offset(elems_off):
+    """y starts where x starts modulo 16 bytes, for every bf16 offset, and
+    is a contiguous tensor of x's shape that does not overlap x."""
+    buf = torch.zeros(200, dtype=torch.bfloat16)
+    x = buf[elems_off:elems_off + 96].view(4, 24)
+    x.copy_(torch.arange(96, dtype=torch.bfloat16).view(4, 24))
+    y = ps.empty_like_aligned(x)
+    assert (y.data_ptr() - x.data_ptr()) % 16 == 0
+    assert y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous()
+    assert y.untyped_storage().data_ptr() != buf.untyped_storage().data_ptr()
+    assert torch.equal(ps.stream_copy(x), x) and torch.equal(ps.copy2d(x, 3), x)
