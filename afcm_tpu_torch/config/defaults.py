@@ -167,8 +167,9 @@ def get_default_cfg() -> CfgNode:
     # fresh-dropout-per-phase semantics.
     c.tpu.shared_g_fwd = True
     # xla | auto | pallas: the JAX package's choice between its plain
-    # composition and its Pallas kernel. The port does not read it: a CUDA
-    # tensor always takes the CUDA kernel (ops/cuda/filtered_lrelu.py).
+    # composition and its Pallas kernel. The port only checks it
+    # (evaluate.check_device_knobs): a CUDA tensor always takes the CUDA
+    # kernel (ops/cuda/filtered_lrelu.py).
     c.tpu.filtered_lrelu_impl = "xla"
     # Serving input transfer: "uint8" ships test patches host->device in the
     # volume's stored byte dtype and moves the Normalize->[-1,1] chain into

@@ -69,7 +69,6 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "mma_s8.cuh"
 #include "wgmma_s8.cuh"
 
 #define AFCM_C8_BM 64         // output channels per CTA: one warpgroup's M

@@ -49,7 +49,19 @@
 // of `tile` 16-byte items of x, 4 * tile * 16 bytes of shared memory (512
 // items, 32 KB by default, seven CTAs per SM; up to 3584 items fill the 227
 // KB one CTA can have), and every thread reads back items another thread
-// wrote, so the shared round trip is real.
+// wrote, so the shared round trip is real. `windows` (windows_kernel) is
+// bound by its output, 2x the input at K1's windows: x (40 MB at variant
+// A) fits in L2, so its overlapping window rows are read with plain loads
+// and zero fill, and the output goes out in 16-byte bulk stores. Each CTA
+// takes one window position and a group of channels (a multiple of 4), an
+// output span of group * win_h * win_w values that it assembles in shared
+// memory, scaled, and stores with bulk_store, the bulk copy's store; only a
+// head and a tail under 16 bytes take plain stores (c_out not a multiple of
+// 4). The kernel it replaces gave each output row to one warp: rows of 39
+// floats kept 39 of 64 lanes busy, every store was a 4-byte store at an
+// unaligned address, and each row paid a 64-bit division chain; a TMA
+// tensor map cannot describe x (rows of 278 fp32 are 1,112 bytes, not a
+// multiple of 16).
 //
 // Interface: plain C, loaded with ctypes; launches on the caller's stream
 // and returns cudaGetLastError().
@@ -331,31 +343,83 @@ copy_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ y,
     asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-// out [n_th][n_tw][c_out][win_h][win_w] fp32; a warp per output row, lanes
-// along the window; loads are predicated, outside x the value is zero.
+// out [n_th][n_tw][c_out][win_h][win_w] fp32. One CTA per window position
+// and group of `group` channels (a multiple of 4): its output is one
+// contiguous span of group * win_h * win_w values. The body of the span
+// (from its first 16-byte boundary to its last) goes in chunks of `chunk`
+// values (a multiple of 4) through shared memory: the threads load the
+// windows' values with zero fill (plain loads from x, which L2 holds at the
+// probe's sizes), scale them and write them in the span's order, and one
+// thread stores the chunk with a bulk asynchronous copy (bulk_store). The
+// head and tail of the span, under 16 bytes each (c_out not a multiple of
+// 4), take plain stores. A thread walks its values of a chunk with counters
+// (channel, row, column) advanced by THREADS values at a time: no division
+// per value.
 __global__ void __launch_bounds__(THREADS)
 windows_kernel(const float* __restrict__ x, float* __restrict__ out, int C, int H, int W,
-               int c_out, int win_h, int win_w, int n_tw, long long rows, int sh, int sw,
-               int lo_h, int lo_w, float scale) {
-    const int lane = threadIdx.x & 31;
-    const long long warps = static_cast<long long>(gridDim.x) * (THREADS / 32);
-    for (long long row = blockIdx.x * static_cast<long long>(THREADS / 32) + (threadIdx.x >> 5);
-         row < rows; row += warps) {
-        const int r = static_cast<int>(row % win_h);
-        const long long rest = row / win_h;
-        const int c = static_cast<int>(rest % c_out);
-        const int tile = static_cast<int>(rest / c_out);
-        const int ty = tile / n_tw, tx = tile - ty * n_tw;
-        const int gy = ty * sh - lo_h + r, gx0 = tx * sw - lo_w;
-        const bool row_in = c < C && gy >= 0 && gy < H;
-        const float* src = x + (static_cast<size_t>(c) * H + gy) * W;
-        float* dst = out + row * win_w;
-        for (int q = lane; q < win_w; q += 32) {
-            const int gx = gx0 + q;
-            float v = 0.f;
-            if (row_in && gx >= 0 && gx < W) v = src[gx];
-            dst[q] = scale * v;
+               int c_out, int win_h, int win_w, int n_tw, int groups, int group, int chunk,
+               int sh, int sw, int lo_h, int lo_w, float scale) {
+    extern __shared__ __align__(128) unsigned char win_smem[];
+    float* buf = reinterpret_cast<float*>(win_smem);
+    const int tid = threadIdx.x;
+    const int area = win_h * win_w;
+    const int tile = blockIdx.x / groups, cg = blockIdx.x - tile * groups;
+    const int ty = tile / n_tw, tx = tile - ty * n_tw;
+    const int c0 = cg * group, c1 = c0 + group < c_out ? c0 + group : c_out;
+    const int y0 = ty * sh - lo_h, x0 = tx * sw - lo_w;
+    const long long base = (static_cast<long long>(tile) * c_out + c0) * area;
+    const long long len = static_cast<long long>(c1 - c0) * area;
+    float* dst = out + base;
+
+    // scale * xpad at (channel c0 + cl, window row r, column q)
+    auto value = [&](int cl, int r, int q) {
+        const int c = c0 + cl, gy = y0 + r, gx = x0 + q;
+        float v = 0.f;
+        if (c < C && gy >= 0 && gy < H && gx >= 0 && gx < W)
+            v = x[(static_cast<size_t>(c) * H + gy) * W + gx];
+        return scale * v;
+    };
+    auto value_at = [&](long long e) {          // e: a value's place in the span
+        const int cl = static_cast<int>(e / area);
+        const int rem = static_cast<int>(e - static_cast<long long>(cl) * area);
+        return value(cl, rem / win_w, rem % win_w);
+    };
+
+    long long head = (4 - (base & 3)) & 3;      // out is 16-byte aligned
+    if (head > len) head = len;
+    const long long body = (len - head) & ~3LL, tail = len - head - body;
+    if (tid < head) dst[tid] = value_at(tid);
+    if (tid >= 32 && tid - 32 < tail) {
+        const long long e = head + body + (tid - 32);
+        dst[e] = value_at(e);
+    }
+
+    const int dq = THREADS % win_w, dr = (THREADS / win_w) % win_h, dc = THREADS / area;
+    const uint32_t sbuf = smem_u32(buf);
+    for (long long at = head; at < head + body; at += chunk) {
+        const int n = static_cast<int>(head + body - at < chunk ? head + body - at : chunk);
+        const long long e = at + tid;
+        int cl = static_cast<int>(e / area);
+        int rem = static_cast<int>(e - cl * static_cast<long long>(area));
+        int r = rem / win_w, q = rem - r * win_w;
+#pragma unroll 4
+        for (int k = tid; k < n; k += THREADS) {
+            buf[k] = value(cl, r, q);
+            q += dq;
+            const int cq = q >= win_w;
+            q -= cq ? win_w : 0;
+            r += dr + cq;
+            const int cr = r >= win_h;
+            r -= cr ? win_h : 0;
+            cl += dc + cr;
         }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // visible to the bulk copy
+        __syncthreads();
+        if (tid == 0) {
+            bulk_store(dst + at, sbuf, static_cast<uint32_t>(n) * 4u);
+            asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");   // buf is free
+        }
+        __syncthreads();
     }
 }
 
@@ -446,18 +510,28 @@ int afcm_probe_chain(const void* x, void* y, long long elems, int tile, void* st
     return static_cast<int>(cudaGetLastError());
 }
 
-// out fp32 [n_th][n_tw][c_out][win_h][win_w] of x fp32 [c][h][w].
+// out fp32 [n_th][n_tw][c_out][win_h][win_w] of x fp32 [c][h][w], 16-byte
+// aligned; one CTA per window position and `group` channels (a multiple of
+// 4), chunks of `chunk` values (a multiple of 4) through shared memory.
 int afcm_probe_windows(const void* x, void* out, int c, int h, int w, int c_out, int win_h,
                        int win_w, int n_th, int n_tw, int sh, int sw, int lo_h, int lo_w,
-                       float scale, void* stream) {
-    if (c < 1 || h < 1 || w < 1 || c_out < c || win_h < 1 || win_w < 1 || n_th < 1 || n_tw < 1)
+                       float scale, int group, int chunk, void* stream) {
+    if (c < 1 || h < 1 || w < 1 || c_out < c || win_h < 1 || win_w < 1 || n_th < 1 || n_tw < 1 ||
+        group < 4 || group % 4 || chunk < 4 || chunk % 4 ||
+        static_cast<long long>(chunk) * 4 > AFCM_PS_SMEM_MAX || !aligned16(out) ||
+        static_cast<long long>(win_h) * win_w > (1LL << 30))
         return static_cast<int>(cudaErrorInvalidValue);
-    const long long rows = static_cast<long long>(n_th) * n_tw * c_out * win_h;
-    const long long want = (rows + THREADS / 32 - 1) / (THREADS / 32);
-    const int blocks = static_cast<int>(want < AFCM_PS_MAX_BLOCKS ? want : AFCM_PS_MAX_BLOCKS);
-    windows_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int groups = (c_out + group - 1) / group;
+    const long long ctas = static_cast<long long>(n_th) * n_tw * groups;
+    if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = chunk * 4;
+    const cudaError_t err = cudaFuncSetAttribute(
+        windows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    windows_kernel<<<static_cast<unsigned>(ctas), THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<float*>(out), c, h, w, c_out, win_h, win_w,
-        n_tw, rows, sh, sw, lo_h, lo_w, scale);
+        n_tw, groups, group, chunk, sh, sw, lo_h, lo_w, scale);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
-// Warpgroup int8 tensor-core building blocks for sm_90a (conv_int8.cu):
-// wgmma.mma_async m64nNk32 s8 x s8 -> s32 with both operands in shared
-// memory, the shared-memory matrix descriptor of the layout without swizzle,
-// the fences around a batch of products, and cp.async with zero fill.
+// Warpgroup int8 tensor-core building blocks for sm_90a (conv_int8.cu,
+// probe_int8.cu): wgmma.mma_async m64nNk32 s8 x s8 -> s32 with both operands
+// in shared memory, the shared-memory matrix descriptor of the layout without
+// swizzle, the fences around a batch of products, cp.async (with zero fill)
+// and the mbarrier that hands a stage from its loads to its products.
 //
 // Operands without swizzle, K-major (the only order 8-bit wgmma takes): a
 // core matrix is 8 rows (M of A, N of B) of 16 bytes of K, 128 contiguous
@@ -13,8 +14,7 @@
 //
 // Accumulator fragment of m64nN (thread t of the warpgroup, warp = t / 32,
 // lane = 4 g + q): register d[4 j + 2 h + e] holds
-//   D[16 warp + g + 8 h][8 j + 2 q + e],  j < N / 8, h < 2, e < 2,
-// the m16n8 fragment of mma.sync repeated along N.
+//   D[16 warp + g + 8 h][8 j + 2 q + e],  j < N / 8, h < 2, e < 2.
 
 #pragma once
 
@@ -41,6 +41,15 @@ __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
+// Pins the accumulators in place around a batch of products (before its
+// fence, after its wait): the compiler may not move their reads or writes
+// into the batch, where it would have to serialize the products.
+template <int R>
+__device__ __forceinline__ void wgmma_fence_operands(int (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 __device__ __forceinline__ void wgmma_commit() {
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -58,14 +67,60 @@ __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// 16-byte cp.async that copies `src_bytes` (0 or 16) and fills the rest
-// with zeros; gmem must be a valid address either way.
+// 16-byte (8-byte) cp.async that copies `src_bytes` (0 or 16, 0 or 8) and
+// fills the rest with zeros; gmem must be a valid address either way.
 __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                                                  uint32_t src_bytes) {
     const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
                  "r"(src_bytes)
                  : "memory");
+}
+
+__device__ __forceinline__ void cp_async8_zfill(void* smem, const void* gmem,
+                                                uint32_t src_bytes) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem),
+                 "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `Pending` of the committed groups are still in flight.
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+                 "r"(arrivals));
+}
+
+// One arrival (release: this thread's earlier shared-memory writes are
+// visible to a thread whose wait sees the phase complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "MBAR_WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra MBAR_WAIT;\n"
+        "}\n" ::"r"(smem_addr(bar)),
+        "r"(parity)
+        : "memory");
 }
 
 // D (64 x N, s32, in registers) += A (64 x 32 s8) * B (32 x N s8), both from
@@ -140,6 +195,56 @@ template <> __device__ __forceinline__ void wgmma_s8<160>(int (&d)[80], uint64_t
           "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
           "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
           "+r"(d[78]), "+r"(d[79])
+        : "l"(desc_a), "l"(desc_b), "r"(1));   // 1: accumulate into d
+}
+
+template <> __device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t desc_a,
+                                                       uint64_t desc_b) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63, "
+        " %64, %65, %66, %67, %68, %69, %70, %71, "
+        " %72, %73, %74, %75, %76, %77, %78, %79, "
+        " %80, %81, %82, %83, %84, %85, %86, %87, "
+        " %88, %89, %90, %91, %92, %93, %94, %95, "
+        " %96, %97, %98, %99, %100, %101, %102, %103, "
+        " %104, %105, %106, %107, %108, %109, %110, %111, "
+        " %112, %113, %114, %115, %116, %117, %118, %119, "
+        " %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+          "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+          "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+          "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+          "+r"(d[126]), "+r"(d[127])
         : "l"(desc_a), "l"(desc_b), "r"(1));   // 1: accumulate into d
 }
 

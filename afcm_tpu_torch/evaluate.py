@@ -317,12 +317,26 @@ def model_axis(cfg) -> int:
     return max(int(cfg.tpu.mesh_shape[1]), 1)
 
 
+FILTERED_LRELU_IMPLS = ("xla", "pallas", "auto")
+
+
 def check_device_knobs(cfg) -> None:
     """One line for a ``tpu.matmul_precision`` other than ``default``: the
-    port sets TF32 from ``tpu.compute_dtype`` alone."""
+    port sets TF32 from ``tpu.compute_dtype`` alone. ``tpu.filtered_lrelu_impl``
+    must be one of ``FILTERED_LRELU_IMPLS``, as ``afcm_tpu``'s
+    ``set_default_impl`` asserts; ``pallas`` and ``auto`` get one line,
+    since a CUDA tensor always takes the CUDA kernel and the TPU's routing
+    is not ported."""
     if cfg.tpu.matmul_precision != "default":
         print(f"tpu.matmul_precision {cfg.tpu.matmul_precision} has no effect: the "
               "port sets TF32 from tpu.compute_dtype alone (off for float32)")
+    impl = getattr(cfg.tpu, "filtered_lrelu_impl", "xla")
+    if impl not in FILTERED_LRELU_IMPLS:
+        raise ValueError(f"tpu.filtered_lrelu_impl {impl!r}: one of "
+                         f"{', '.join(FILTERED_LRELU_IMPLS)}")
+    if impl != "xla":
+        print(f"tpu.filtered_lrelu_impl {impl} has no effect: a CUDA tensor always "
+              "takes the CUDA filtered_lrelu kernel; the TPU's routing is not ported")
 
 
 def configure_numerics(cfg) -> str:

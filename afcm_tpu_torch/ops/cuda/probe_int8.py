@@ -16,16 +16,21 @@
   shifted slices cast to int32 and summed, rows from I to O zero, no
   product).
 
-Both kernels share the tile loop and the ``mma.sync.m16n8k32`` product of
-the int8 conv (``csrc/mma_s8.cuh``). Integer sums have no rounding: each
-kernel equals its plain version bit for bit. A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. ``launches`` counts
-the launches by kernel name.
+Both run ``taps_matmul_kernel``: ``wgmma.mma_async`` m64n256k32 products
+from shared memory (``csrc/wgmma_s8.cuh``, as the int8 conv has them); a
+loader warp brings the weights and x by tensor-map copies, x once per K
+step for all taps, and three warps transpose it in shared memory when it
+comes n-contiguous, through a ring of stages on mbarriers that
+``plan_taps`` sizes; ``sliceonly`` runs ``slice_sum_kernel``.
+Integer sums have no rounding: each kernel equals its plain version bit for
+bit. A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises. ``launches`` counts the launches by kernel name.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -35,8 +40,16 @@ import torch
 launches = {"stacked_matmul": 0, "nine_tap": 0}
 
 MODES = ("dot1", "aligned", "slices", "sliceonly")
-_M_ALIGN = 128      # AFCM_P8_BM, AFCM_P8_BN in csrc/probe_int8.cu
-_K_ALIGN = 64       # AFCM_P8_KC
+_M_ALIGN = 128      # O and n: AFCM_P8_BM in csrc/probe_int8.cu, half of AFCM_P8_BN
+_K_ALIGN = 64       # I: two of the kernel's K steps (AFCM_P8_KC)
+
+# csrc/probe_int8.cu's tile and limits (AFCM_P8_*)
+TILE_N = 256
+MAX_TAPS = 9
+MAX_STAGES = 8
+BOX_MAX = 256                                   # bytes (raw x) or rows (K-major) of a box
+SMEM_BUDGET = 232448 - 4 * 8 * MAX_STAGES       # 227 KB less the static barriers
+ALIGN = 1024                                    # the ring's start in shared memory
 
 
 def reset_launches() -> None:
@@ -53,6 +66,107 @@ def tap_offsets(mode: str, wp: int):
     if mode == "aligned":
         return [0] * 9
     return [dy * wp + dx for dy in range(3) for dx in range(3)]
+
+
+@dataclasses.dataclass(frozen=True)
+class TapsPlan:
+    """How ``taps_matmul_kernel`` stages a call (``csrc/probe_int8.cu``:
+    ``make_plan``, which this mirrors; ``afcm_taps_plan`` exports the C
+    side's). Taps go in ``groups``, each group's taps in one step: one
+    group holding every tap where a ring of two stages fits, else one per
+    tap. ``tap`` lists w's taps by offset, ``off`` each one's offset from
+    its group's ``base``. A step covers ``ksub`` slices of 32 bytes of K;
+    a slice (``slice_bytes``) holds the group's weights (``a_bytes``) and
+    ``span`` rows of x (the tile's 256 columns plus the group's spread).
+    Raw x comes by tensor-map boxes (``x_tma``: ``xboxes`` of 32 ``ksub``
+    rows of ``xw`` bytes) or by cp.async (one box of ``xw`` bytes a row),
+    into ``raws`` buffers beside the ring's ``stages`` (as many where they
+    fit, else 2);
+    K-major x by
+    ``xboxes`` boxes of ``xw`` rows per slice, of 32 bytes in the 32-byte
+    swizzle where every offset is a multiple of 8 rows (``b_sw32``), else
+    of 16 bytes per half. An int32
+    output is staged for its bulk stores in ``epi_bytes``, one consumer
+    warpgroup's tile at a time (a bf16 one goes out from the registers: 0);
+    ``smem`` counts 1 KB for aligning the ring."""
+    groups: int
+    span: int
+    ksub: int
+    a_bytes: int
+    slice_bytes: int
+    stage_bytes: int
+    xboxes: int
+    xw: int
+    x_tma: int
+    b_sw32: int
+    stages: int
+    raws: int
+    epi_bytes: int
+    smem: int
+    tap: tuple
+    off: tuple
+    base: tuple
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def plan_taps(offsets, i: int, raw: bool, out_bytes: int, tma_ok: bool = True) -> TapsPlan:
+    """The kernel's plan for tap ``offsets``, ``i`` bytes of K (a multiple
+    of 64), x n-contiguous if ``raw`` (raw x may come by tensor map if
+    ``tma_ok``: P a multiple of 16 and x 16-byte aligned) and an output of
+    ``out_bytes`` a value (4 int32, 2 bf16)."""
+    taps = len(offsets)
+    if not 1 <= taps <= MAX_TAPS or min(offsets) < 0 or i < 64 or i % 64:
+        raise ValueError(f"taps_matmul plan: offsets {list(offsets)}, i {i}")
+    order = sorted(range(taps), key=lambda t: offsets[t])
+    for per_tap in (False, True):
+        for ksub in (4, 2, 1):
+            if i % (32 * ksub):
+                continue
+            groups = [[t] for t in order] if per_tap else [order]
+            base = tuple(offsets[g[0]] for g in groups)
+            off = tuple(offsets[t] - b for g, b in zip(groups, base) for t in g)
+            span = _round_up(TILE_N + max(off), 8)
+            x_tma = int(raw and tma_ok and all(b % 16 == 0 for b in base))
+            b_sw32 = int(not raw and all(o % 8 == 0 for o in off))
+            if x_tma:
+                xboxes = -(-span // BOX_MAX)
+                xw = _round_up(-(-span // xboxes), 16)
+            elif raw:
+                xboxes, xw = 1, _round_up(span + 32, 16)
+            else:
+                xboxes = -(-span // BOX_MAX)
+                xw = _round_up(-(-span // xboxes), 8)
+                span = xboxes * xw
+            a_bytes = 128 * 32 * max(len(g) for g in groups)
+            slice_bytes = a_bytes + 2 * 16 * span
+            stage_bytes = ksub * slice_bytes
+            epi_bytes = 64 * (TILE_N * out_bytes + 16) if out_bytes == 4 else 0
+            raw_bytes = xboxes * 32 * ksub * xw if raw else 0
+            for two in (False, True) if raw else (False,):
+                for stages in range(MAX_STAGES, 2 if ksub > 1 else 1, -1):
+                    raws = (2 if two else stages) if raw else 0
+                    smem = stages * stage_bytes + raws * raw_bytes + epi_bytes + ALIGN
+                    if smem <= SMEM_BUDGET:
+                        return TapsPlan(len(groups), span, ksub, a_bytes, slice_bytes,
+                                        stage_bytes, xboxes, xw, x_tma, b_sw32, stages, raws,
+                                        epi_bytes, smem, tuple(order), off, base)
+    raise ValueError(f"taps_matmul plan: no ring fits for offsets {list(offsets)}")
+
+
+def kernel_plan(offsets, i: int, raw: bool, out_bytes: int, tma_ok: bool = True) -> TapsPlan:
+    """The C side's plan (``afcm_taps_plan``), to hold ``plan_taps`` to."""
+    taps = len(offsets)
+    info = (ctypes.c_int * (14 + 3 * taps))()
+    err = _lib().afcm_taps_plan((ctypes.c_int * taps)(*offsets), taps, i, int(raw),
+                                int(tma_ok), int(out_bytes == 2), info)
+    if err != 0:
+        raise RuntimeError(f"afcm_taps_plan: CUDA error {err}")
+    head, rest = list(info[:14]), list(info[14:])
+    return TapsPlan(*head, tuple(rest[:taps]), tuple(rest[taps:2 * taps]),
+                    tuple(rest[2 * taps:2 * taps + head[0]]))
 
 
 # ---------------------------------------------------------------- plain
@@ -74,6 +188,16 @@ def to_bf16(acc):
     """int32 -> float32 -> bf16, both rounded to nearest even: what a cast
     of an int32 tensor to bfloat16 does."""
     return acc.to(torch.float32).to(torch.bfloat16)
+
+
+def taps_matmul_int8_plain(w, x, offsets, cols: int, raw: bool = True,
+                           out_dtype=torch.int32):
+    """The plain version of ``taps_matmul_int8``."""
+    acc = torch.zeros((x.shape[0], w.shape[1], cols), dtype=torch.int32, device=x.device)
+    for tap, off in enumerate(offsets):
+        rhs = x[:, :, off:off + cols] if raw else x[:, off:off + cols].transpose(1, 2)
+        acc += _int_matmul(w[tap][None], rhs)
+    return acc if out_dtype == torch.int32 else to_bf16(acc)
 
 
 def nine_tap_int8_plain(w9, x, mode: str, cols: int, wp: int):
@@ -99,7 +223,9 @@ def _lib():
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.afcm_taps_matmul_int8.argtypes = [p, p, p, i, i, i, i, i, i, p, i, i, p]
     lib.afcm_slice_sum_int8.argtypes = [p, p, i, i, i, i, i, i, p, p]
-    lib.afcm_taps_matmul_int8.restype = lib.afcm_slice_sum_int8.restype = ctypes.c_int
+    lib.afcm_taps_plan.argtypes = [p, i, i, i, i, i, p]
+    for fn in (lib.afcm_taps_matmul_int8, lib.afcm_slice_sum_int8, lib.afcm_taps_plan):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -119,6 +245,48 @@ def _launch(name, fn, x, *args):
     if err != 0:
         raise RuntimeError(f"probe_int8 kernel {name} launch failed: CUDA error {err}")
     launches[name] += 1
+
+
+def taps_matmul_int8(w, x, offsets, cols: int, raw: bool = True, out_dtype=torch.int32,
+                     counter: str = "nine_tap"):
+    """K8's and K9's product, ``taps_matmul_kernel``: for every s,
+
+        out[s] = sum_tap w[tap] @ X_s,   X_s = x[s, :, off : off + cols]  (raw)
+                                          or x[s, off : off + cols, :]^T
+
+    exact in int32, returned as int32 or rounded to bf16 (``out_dtype``).
+
+    Args:
+      w: int8 ``[T, O, I]``, T at least ``len(offsets)`` (tap k uses w[k]).
+      x: int8 ``[S, I, P]`` (``raw``, n contiguous) or ``[S, P, I]``.
+      offsets: the taps' column offsets, each with ``off + cols <= P``.
+    Returns ``[S, O, cols]``. On the card O and cols must be multiples of
+    128, I of 64 and P of 8; anything else raises. The launch counts under
+    ``counter``."""
+    _check_int8("taps_matmul_int8", w=w, x=x)
+    offsets = [int(o) for o in offsets]
+    if out_dtype not in (torch.int32, torch.bfloat16):
+        raise ValueError(f"taps_matmul_int8: out_dtype {out_dtype}; int32 or bfloat16")
+    if w.ndim != 3 or x.ndim != 3:
+        raise ValueError(f"taps_matmul_int8: w {tuple(w.shape)}, x {tuple(x.shape)}")
+    _, o, i = w.shape
+    s, xi, p = x.shape if raw else (x.shape[0], x.shape[2], x.shape[1])
+    if xi != i or not 1 <= len(offsets) <= min(MAX_TAPS, w.shape[0]) or cols < 1 \
+            or min(offsets) < 0 or max(offsets) + cols > p:
+        raise ValueError(f"taps_matmul_int8: w {tuple(w.shape)}, x {tuple(x.shape)} "
+                         f"({'raw' if raw else 'K-major'}), offsets {offsets}, cols {cols}")
+    if x.device.type == "cpu":
+        return taps_matmul_int8_plain(w, x, offsets, cols, raw, out_dtype)
+    if o % _M_ALIGN or cols % _M_ALIGN or i % _K_ALIGN or p % 8:
+        raise ValueError(f"taps_matmul_int8 on the card takes O and cols in multiples of "
+                         f"{_M_ALIGN}, I of {_K_ALIGN} and P of 8, got O {o}, I {i}, "
+                         f"cols {cols}, P {p}")
+    out = torch.empty((s, o, cols), dtype=out_dtype, device=x.device)
+    offs = (ctypes.c_int * len(offsets))(*offsets)
+    _launch(counter, _lib().afcm_taps_matmul_int8, x, w.data_ptr(), x.data_ptr(),
+            out.data_ptr(), s, o, i, p, cols, len(offsets), offs, int(raw),
+            int(out_dtype == torch.bfloat16))
+    return out
 
 
 def stacked_matmul_int8(a, b, b_layout: str = "kil"):
@@ -145,11 +313,7 @@ def stacked_matmul_int8(a, b, b_layout: str = "kil"):
     if o % _M_ALIGN or l % _M_ALIGN or i % _K_ALIGN:
         raise ValueError(f"stacked_matmul_int8 on the card takes O and L in multiples of "
                          f"{_M_ALIGN} and I of {_K_ALIGN}, got O {o}, I {i}, L {l}")
-    out = torch.empty((k, o, l), dtype=torch.int32, device=a.device)
-    offs = (ctypes.c_int * 1)(0)
-    _launch("stacked_matmul", _lib().afcm_taps_matmul_int8, a, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), k, o, i, l, l, 1, offs, int(b_layout == "kil"), 0)
-    return out
+    return taps_matmul_int8(a[None], b, [0], l, raw=b_layout == "kil", counter="stacked_matmul")
 
 
 def nine_tap_int8(w9, x, mode: str, cols: int, wp: int):
@@ -177,12 +341,11 @@ def nine_tap_int8(w9, x, mode: str, cols: int, wp: int):
         raise ValueError(f"nine_tap_int8 on the card takes O and cols in multiples of "
                          f"{_M_ALIGN}, I of {_K_ALIGN} and P of 8, got O {o}, I {i}, "
                          f"cols {cols}, P {p}")
+    if mode != "sliceonly":
+        return taps_matmul_int8(w9, x, offsets, cols, out_dtype=torch.bfloat16,
+                                counter="nine_tap")
     out = torch.empty((s, o, cols), dtype=torch.bfloat16, device=x.device)
     offs = (ctypes.c_int * len(offsets))(*offsets)
-    if mode == "sliceonly":
-        _launch("nine_tap", _lib().afcm_slice_sum_int8, x, x.data_ptr(), out.data_ptr(),
-                s, o, i, p, cols, len(offsets), offs)
-    else:
-        _launch("nine_tap", _lib().afcm_taps_matmul_int8, x, w9.data_ptr(), x.data_ptr(),
-                out.data_ptr(), s, o, i, p, cols, len(offsets), offs, 1, 1)
+    _launch("nine_tap", _lib().afcm_slice_sum_int8, x, x.data_ptr(), out.data_ptr(),
+            s, o, i, p, cols, len(offsets), offs)
     return out

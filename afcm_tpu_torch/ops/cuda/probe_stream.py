@@ -13,6 +13,10 @@ math):
 * K7 ``scripts/probe_element_windows.py``: ``element_windows`` (the four
   ``pl.Element`` calls, ``:41-104``).
 
+K7 assembles each CTA's output span (one window position, a group of
+channels, ``plan_windows``) in shared memory and stores it with the bulk
+copy's store.
+
 K5a and K6 are one kernel, a bulk copy (``csrc/probe_stream.cu``): each CTA
 moves pieces of the span through a ring of stages in shared memory with
 ``cp.async.bulk``. ``plan_copy`` gives K6 one CTA per block of the TPU
@@ -56,6 +60,7 @@ BLOCK_RING = (6, 32 << 10)
 FLAT_RING = (4, 16 << 10)
 RING_STAGES_MAX = 8
 CTA_SHARED_MAX = 232448     # dynamic shared memory one CTA can have (AFCM_PS_SMEM_MAX)
+WINDOW_CHUNK = 12288        # K7: values of a CTA's output a chunk, 48 KB of shared memory
 
 
 def reset_launches() -> None:
@@ -115,7 +120,7 @@ def _lib():
     lib.afcm_probe_copy.argtypes = [p, p, ll, ll, i, i, i, p, p]
     lib.afcm_probe_x4.argtypes = [p, p, ll, i, i, p]
     lib.afcm_probe_chain.argtypes = [p, p, ll, i, p]
-    lib.afcm_probe_windows.argtypes = [p, p] + [i] * 12 + [f, p]
+    lib.afcm_probe_windows.argtypes = [p, p] + [i] * 12 + [f, i, i, p]
     for fn in (lib.afcm_probe_copy, lib.afcm_probe_x4, lib.afcm_probe_chain,
                lib.afcm_probe_windows):
         fn.restype = ctypes.c_int
@@ -293,6 +298,18 @@ def copy2d(x, br: int):
     return bulk_copy(x, br * x.shape[1] * x.element_size(), counter="copy2d")
 
 
+def plan_windows(c_out: int, win_h: int, win_w: int, chunk: int = WINDOW_CHUNK):
+    """K7's CTA work: (channels a CTA, values a chunk). A CTA takes one
+    window position and the most channels, a multiple of 4 and at least 4,
+    whose output (win_h * win_w values each) fits one ``chunk``, no more
+    than ``c_out`` rounded up to 4; its span goes through shared memory in
+    chunks of at most ``chunk`` values (a multiple of 4), 4 bytes each."""
+    area = win_h * win_w
+    group = max(4, chunk // area // 4 * 4)
+    group = min(group, -(-c_out // 4) * 4)
+    return group, min(chunk, -(-group * area // 4) * 4)
+
+
 def element_windows(x, win_w, n_tw, stride_w, lo_w=0, c_out=None, win_h=None,
                     n_th=1, stride_h=0, lo_h=0, scale=2.0):
     """K7: overlapping, unaligned, zero-filled input windows of fp32
@@ -316,7 +333,8 @@ def element_windows(x, win_w, n_tw, stride_w, lo_w=0, c_out=None, win_h=None,
         return element_windows_plain(x, win_w, n_tw, stride_w, lo_w, c_out, win_h,
                                      n_th, stride_h, lo_h, scale)
     out = torch.empty((n_th, n_tw, c_out, win_h, win_w), dtype=x.dtype, device=x.device)
+    group, chunk = plan_windows(c_out, win_h, win_w)
     _launch("windows", _lib().afcm_probe_windows, x, x.data_ptr(), out.data_ptr(),
             c, h, w, c_out, win_h, win_w, n_th, n_tw, stride_h, stride_w, lo_h, lo_w,
-            float(scale))
+            float(scale), group, chunk)
     return out

@@ -8,7 +8,9 @@ each held bit for bit against the script's own numpy expression. That is
 the halo load the fused ``filtered_lrelu`` kernel does per output tile, so
 the same kernel is then timed at that kernel's own geometry, the square
 input windows of its tiles at the generator's four filter variants, as GB/s
-of window bytes read, beside the flat copy of the same input.
+of window bytes read, beside the flat copy of the same input (the two
+timed together in ``WINDOWS`` windows, taking turns: median, fastest and
+slowest window).
 
     python -m afcm_tpu_torch.probes.element_windows [--device cpu] [--small]
 """
@@ -21,7 +23,7 @@ import torch
 from ..models import CMSR_ADNI_G
 from ..nn.stylegan3 import _design_layer_filters, compute_synthesis_layout
 from ..ops.cuda import probe_stream as ps
-from ..utils.profiling import time_ms
+from ..utils.profiling import time_windows
 from . import banner, device_generator, probe_args
 
 C, H, W, WIN = 8, 64, 512, 128
@@ -37,6 +39,7 @@ VARIANTS = {"A up2/down2 (L12_276_64)": ("decoder", 12),
             "C up4/down2 (L10_276_128)": ("decoder", 10),
             "D crop (L13_256_64)": ("decoder", 13)}
 _FUSED_SMEM = 48 * 1024 - 2 * 64 * 4     # csrc/filtered_lrelu.cu: launch()
+WINDOWS = 5
 
 
 def numpy_reference(xn, n_t, stride, lo, c_out):
@@ -102,25 +105,28 @@ def main(argv=None):
           "the window kernel;\nGB/s of window bytes read | of the input once + the "
           "windows written; the flat copy of the input beside it", flush=True)
     gen = device_generator(device, args.seed)
-    iters = 2 if args.small else 10
+    iters, windows = (2, 2) if args.small else (10, WINDOWS)
     for label, planes, in_size, out_size, (t, win, stride, lo, tiles) in \
             variant_geometry(args.small):
         xv = torch.randn((planes, in_size, in_size), generator=gen, device=device)
         call = dict(win_w=win, n_tw=tiles, stride_w=stride, lo_w=lo, win_h=win,
                     n_th=tiles, stride_h=stride, lo_h=lo)
-        ms = time_ms(lambda: ps.element_windows(xv, **call), device, iters)
         xb = xv.to(torch.bfloat16)
-        copy_ms = time_ms(lambda: ps.stream_copy(xb), device, iters)
+        timed = time_windows({"windows": lambda: ps.element_windows(xv, **call),
+                              "copy": lambda: ps.stream_copy(xb)}, device, windows, iters)
+        ms, copy_ms = timed["windows"]["ms"], timed["copy"]["ms"]
         window_bytes = tiles * tiles * planes * win * win * 4
         moved = xv.numel() * 4 + window_bytes
         rows.append(dict(variant=label, planes=planes, in_size=in_size, tile=t, window=win,
                          stride=stride, lo=lo, tiles=tiles * tiles, ms=ms,
                          window_bytes=window_bytes, moved_bytes=moved,
                          read_gbps=window_bytes / ms / 1e6, moved_gbps=moved / ms / 1e6,
+                         ms_spread=[timed["windows"]["lo"], timed["windows"]["hi"]],
                          copy_ms=copy_ms, copy_gbps=2 * xb.numel() * 2 / copy_ms / 1e6))
         r = rows[-1]
         print(f"{label:26s} in {in_size:3d}^2 x{planes:4d}  tile {t:2d} window {win:3d}^2 "
-              f"stride {stride:2d} lo {lo:3d} x{tiles * tiles:3d}: {ms:7.3f} ms  "
+              f"stride {stride:2d} lo {lo:3d} x{tiles * tiles:3d}: {ms:7.4f} ms "
+              f"[{r['ms_spread'][0]:.4f}, {r['ms_spread'][1]:.4f}]  "
               f"{r['read_gbps']:6.0f} | {r['moved_gbps']:6.0f} GB/s; copy "
               f"{r['copy_gbps']:6.0f} GB/s", flush=True)
         del xv, xb

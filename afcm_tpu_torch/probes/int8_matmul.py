@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.cuda import probe_int8 as p8
-from ..utils.profiling import time_ms
+from ..utils.profiling import time_windows
 from . import (HBM_BYTES_PER_S, INT8_OP_PER_S, banner, device_generator, free,
                probe_args, randint8)
 
@@ -25,6 +25,7 @@ from . import (HBM_BYTES_PER_S, INT8_OP_PER_S, banner, device_generator, free,
 SHAPES = [(512, 512, 2816, 64), (512, 512, 11264, 16), (256, 256, 5632, 64),
           (128, 128, 22528, 64)]
 SMALL_SHAPES = [(128, 64, 256, 3), (16, 32, 24, 2)]
+WINDOWS = 5
 
 
 def library_int_mm(a, b):
@@ -45,9 +46,10 @@ def main(argv=None):
     banner(device)
     gen = device_generator(device, args.seed)
     on_card = device.type == "cuda"
-    iters = 2 if args.small else 10
+    iters, windows = (2, 2) if args.small else (10, WINDOWS)
     print(f"int8 peak {INT8_OP_PER_S / 1e12:.0f} TOP/s, HBM {HBM_BYTES_PER_S / 1e9:.0f} GB/s; "
-          "TOP/s = 2 * O * I * L * K / time", flush=True)
+          f"TOP/s = 2 * O * I * L * K / time; ms: median of {windows} windows of {iters} "
+          "calls [fastest, slowest]", flush=True)
     rows = []
     for o, i, l, k in (SMALL_SHAPES if args.small else SHAPES):
         if on_card and (o % 128 or l % 128 or i % 64):
@@ -62,25 +64,30 @@ def main(argv=None):
                    bound_ms=max(1e3 * ops / INT8_OP_PER_S, 1e3 * moved / HBM_BYTES_PER_S),
                    bound_by="operations" if ops / INT8_OP_PER_S >= moved / HBM_BYTES_PER_S
                    else "bytes")
-        row["kernel_ms"] = time_ms(lambda: p8.stacked_matmul_int8(a, b), device, iters)
-        row["kernel_kli_ms"] = time_ms(lambda: p8.stacked_matmul_int8(a, bt, "kli"), device,
-                                       iters)
-        int_mm = library_int_mm(a, b)
-        row["int_mm_ms"] = None if int_mm is None else time_ms(int_mm, device, iters)
         abf, bbf = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        row["bf16_ms"] = time_ms(lambda: torch.matmul(abf[None], bbf), device, iters)
+        calls = {"kernel": lambda: p8.stacked_matmul_int8(a, b),
+                 "kernel_kli": lambda: p8.stacked_matmul_int8(a, bt, "kli"),
+                 "bf16": lambda: torch.matmul(abf[None], bbf)}
+        int_mm = library_int_mm(a, b)
+        if int_mm is not None:
+            calls["int_mm"] = int_mm
+        t = time_windows(calls, device, windows, iters)
         del abf, bbf
         for key in ("kernel", "kernel_kli", "int_mm", "bf16"):
-            ms = row[f"{key}_ms"]
-            row[f"{key}_tops"] = None if ms is None else ops / ms / 1e9
-        imm = "      n/a" if row["int_mm_ms"] is None else \
-            f"{row['int_mm_ms']:7.2f} ms {row['int_mm_tops']:6.1f} TOP/s"
-        print(f"[{o:4d},{i:4d}]@[{i:4d},{l:6d}] x{k:3d}  "
-              f"bf16 {row['bf16_ms']:7.2f} ms {row['bf16_tops']:6.1f} TF/s | "
-              f"_int_mm {imm} | "
-              f"kernel {row['kernel_ms']:7.2f} ms {row['kernel_tops']:6.1f} TOP/s | "
-              f"kernel [K,L,I] {row['kernel_kli_ms']:7.2f} ms {row['kernel_kli_tops']:6.1f} TOP/s | "
-              f"bound {row['bound_ms']:.3f} ms ({row['bound_by']})", flush=True)
+            r = t.get(key)
+            row[f"{key}_ms"] = None if r is None else r["ms"]
+            row[f"{key}_ms_spread"] = None if r is None else [r["lo"], r["hi"]]
+            row[f"{key}_tops"] = None if r is None else ops / r["ms"] / 1e9
+        def cell(key, unit="TOP/s"):
+            if row[f"{key}_ms"] is None:
+                return "n/a"
+            lo, hi = row[f"{key}_ms_spread"]
+            return (f"{row[f'{key}_ms']:.4f} ms [{lo:.4f}, {hi:.4f}] "
+                    f"{row[f'{key}_tops']:6.1f} {unit}")
+        print(f"[{o:4d},{i:4d}]@[{i:4d},{l:6d}] x{k:3d}  bf16 {cell('bf16', 'TF/s')} | "
+              f"_int_mm {cell('int_mm')} | kernel {cell('kernel')} | "
+              f"kernel [K,L,I] {cell('kernel_kli')} | "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
         rows.append(row)
         del a, b, bt
         free(device)

@@ -1594,14 +1594,17 @@ def run_probes(checked):
           win["ms"], 1e3 * win["moved_bytes"] / hbm, "bytes", None, None,
           f"the fused kernel's windows at {win['variant']}: {win['tiles']} windows of "
           f"{win['window']}^2 per plane, {win['planes']} planes of {win['in_size']}^2 fp32",
-          gbps=win["moved_gbps"], window_read_gbps=win["read_gbps"])
+          gbps=win["moved_gbps"], window_read_gbps=win["read_gbps"], ms_spread=win["ms_spread"])
     entry("probe_int8_stacked_matmul", "stacked_matmul", "afcm_tpu_torch/csrc/probe_int8.cu",
           "scripts/bench_int8_matmul.py:37", mm["kernel_ms"], mm["bound_ms"], mm["bound_by"],
           mm["int_mm_ms"] if mm["int_mm_ms"] is not None else mm["bf16_ms"],
           "torch._int_mm per k" if mm["int_mm_ms"] is not None else
           "torch.matmul in bf16 (this torch has no _int_mm for the shape)",
           f"[{mm['o']},{mm['i']}] @ [{mm['k']},{mm['i']},{mm['l']}] int8 -> int32",
-          tops=mm["kernel_tops"], kli_ms=mm["kernel_kli_ms"], bf16_matmul_ms=mm["bf16_ms"])
+          tops=mm["kernel_tops"], kli_ms=mm["kernel_kli_ms"], bf16_matmul_ms=mm["bf16_ms"],
+          ms_spread=mm["kernel_ms_spread"],
+          library_ms_spread=mm["int_mm_ms_spread"] if mm["int_mm_ms"] is not None
+          else mm["bf16_ms_spread"])
     sl = taps["slices"]
     nbytes = 9 * int8_kernel.O * int8_kernel.I + int8_kernel.STEPS * (
         int8_kernel.I * int8_kernel.window(int8_kernel.COLS, int8_kernel.WP)
@@ -1613,7 +1616,7 @@ def run_probes(checked):
           f"mode slices: w9 [9,{int8_kernel.O},{int8_kernel.I}], x [{int8_kernel.STEPS},"
           f"{int8_kernel.I},{int8_kernel.window(int8_kernel.COLS, int8_kernel.WP)}] int8 "
           "-> bf16", tops=sl["tops"],
-          modes_ms={mode: row["ms"] for mode, row in taps.items()})
+          modes_ms={mode: row["ms"] for mode, row in taps.items()}, ms_spread=sl["ms_spread"])
     for e in entries:
         phase("9c probe kernel", kernel=e["name"], **{k: e[k] for k in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,0 +1,208 @@
+"""Time the window and int8 probe kernels (K7, K8, K9) of this tree against
+those of another tree, in turns in one process, at the probes' full shapes.
+
+    python scripts/torch_probe_turns.py --other DIR [--out FILE]
+
+DIR is the root of another checkout of the repository, e.g. the parent
+commit's ``git archive`` unpacked under an ignored directory. Its
+``afcm_tpu_torch/csrc/probe_int8.cu`` and ``probe_stream.cu`` are built with
+this tree's nvcc flags and called through their C entry points, whose
+interfaces are the ones before K7's redesign: ``afcm_taps_matmul_int8`` as
+now, ``afcm_probe_windows`` without the group and chunk arguments. This
+tree's kernels are called through their wrappers. Each case holds the two
+outputs equal bit for bit, then times the other tree's kernel, this tree's
+and, for K8, ``torch._int_mm`` per k together by
+``utils/profiling.time_windows`` (median of 5 windows of 10 calls, the calls
+taking turns; the spread is the fastest and the slowest window). Prints the
+card's name and power limit first and a table; ``--out`` also writes the rows
+as JSON. Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from afcm_tpu_torch import probes  # noqa: E402
+from afcm_tpu_torch.ops.cuda import _build  # noqa: E402
+from afcm_tpu_torch.ops.cuda import probe_int8 as p8  # noqa: E402
+from afcm_tpu_torch.ops.cuda import probe_stream as ps  # noqa: E402
+from afcm_tpu_torch.probes import element_windows, int8_kernel, int8_matmul  # noqa: E402
+from afcm_tpu_torch.utils.profiling import device_banner, time_windows  # noqa: E402
+
+WINDOWS, ITERS = 5, 10
+
+
+def build_other(root: str):
+    """The other tree's probe libraries, built into ``<root>/_build_turns``."""
+    csrc = os.path.join(root, "afcm_tpu_torch", "csrc")
+    out = os.path.join(root, "_build_turns")
+    os.makedirs(out, exist_ok=True)
+    libs, procs = {}, {}
+    for name in ("probe_int8", "probe_stream"):
+        so = os.path.join(out, f"lib{name}.so")
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", so,
+             os.path.join(csrc, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the other tree's {name}.cu:\n{log}")
+        libs[name] = ctypes.CDLL(so)
+    i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    libs["probe_int8"].afcm_taps_matmul_int8.argtypes = [p, p, p, i, i, i, i, i, i, p, i, i, p]
+    libs["probe_stream"].afcm_probe_windows.argtypes = [p, p] + [i] * 12 + [f, p]
+    for fn in (libs["probe_int8"].afcm_taps_matmul_int8, libs["probe_stream"].afcm_probe_windows):
+        fn.restype = ctypes.c_int
+    return libs
+
+
+def _check(err, name):
+    if err != 0:
+        raise RuntimeError(f"the other tree's {name} failed: CUDA error {err}")
+
+
+def other_taps(lib, w, x, offsets, cols, raw, out_dtype):
+    """The other tree's afcm_taps_matmul_int8 (this tree's arguments)."""
+    s = x.shape[0]
+    i = w.shape[2]
+    p = x.shape[2] if raw else x.shape[1]
+    out = torch.empty((s, w.shape[1], cols), dtype=out_dtype, device=x.device)
+    offs = (ctypes.c_int * len(offsets))(*offsets)
+    _check(lib.afcm_taps_matmul_int8(
+        w.data_ptr(), x.data_ptr(), out.data_ptr(), s, w.shape[1], i, p, cols, len(offsets),
+        offs, int(raw), int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream), "afcm_taps_matmul_int8")
+    return out
+
+
+def other_windows(lib, x, call):
+    """The other tree's afcm_probe_windows (before K7's redesign)."""
+    c, h, w = x.shape
+    out = torch.empty((call["n_th"], call["n_tw"], c, call["win_h"], call["win_w"]),
+                      dtype=x.dtype, device=x.device)
+    _check(lib.afcm_probe_windows(
+        x.data_ptr(), out.data_ptr(), c, h, w, c, call["win_h"], call["win_w"], call["n_th"],
+        call["n_tw"], call["stride_h"], call["stride_w"], call["lo_h"], call["lo_w"], 2.0,
+        torch.cuda.current_stream().cuda_stream), "afcm_probe_windows")
+    return out
+
+
+def unequal(a, b):
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    elif a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def measure(rows, kernel, case, bound_ms, bound_by, calls, device):
+    """Holds 'other' and 'this' equal, times every call in turns."""
+    got = {name: fn() for name, fn in calls.items() if name in ("other", "this")}
+    torch.cuda.synchronize()
+    diff = unequal(got["other"], got["this"])
+    del got
+    t = time_windows(calls, device, WINDOWS, ITERS)
+    row = dict(kernel=kernel, case=case, bound_ms=bound_ms, bound_by=bound_by,
+               unequal_elements=diff)
+    for name, r in t.items():
+        row[f"{name}_ms"], row[f"{name}_ms_spread"] = r["ms"], [r["lo"], r["hi"]]
+    rows.append(row)
+    lib = f" | library {row['library_ms']:.4f}" if "library_ms" in row else ""
+    print(f"{kernel:4s} {case:34s} other {row['other_ms']:.4f} "
+          f"[{row['other_ms_spread'][0]:.4f}, {row['other_ms_spread'][1]:.4f}] | this "
+          f"{row['this_ms']:.4f} [{row['this_ms_spread'][0]:.4f}, "
+          f"{row['this_ms_spread'][1]:.4f}]{lib} | bound {bound_ms:.4f} ({bound_by}) | "
+          f"unequal {diff}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
+    parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--out", default=None, help="write the rows here as JSON")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    device = torch.device("cuda")
+    print(device_banner(device), flush=True)
+    other = build_other(os.path.abspath(args.other))
+    gen = probes.device_generator(device, 0)
+    hbm, peak = probes.HBM_BYTES_PER_S, probes.INT8_OP_PER_S
+    rows = []
+
+    # K7 at K1's windows, variants A-D
+    for label, planes, in_size, _, (_, win, stride, lo, tiles) in \
+            element_windows.variant_geometry(small=False):
+        xv = torch.randn((planes, in_size, in_size), generator=gen, device=device)
+        call = dict(win_w=win, n_tw=tiles, stride_w=stride, lo_w=lo, win_h=win, n_th=tiles,
+                    stride_h=stride, lo_h=lo)
+        moved = xv.numel() * 4 + tiles * tiles * planes * win * win * 4
+        measure(rows, "K7", label, 1e3 * moved / hbm, "bytes",
+                {"other": lambda: other_windows(other["probe_stream"], xv, call),
+                 "this": lambda: ps.element_windows(xv, **call)}, device)
+        del xv
+
+    # K8 at bench_int8_matmul's first shape, b as [K, I, L] and [K, L, I]
+    o, i, l, k = int8_matmul.SHAPES[0]
+    a, b = probes.randint8((o, i), device, gen), probes.randint8((k, i, l), device, gen)
+    ops, moved = 2 * o * i * l * k, a.numel() + b.numel() + 4 * k * o * l
+    bound = (max(1e3 * ops / peak, 1e3 * moved / hbm),
+             "operations" if ops / peak >= moved / hbm else "bytes")
+    int_mm = int8_matmul.library_int_mm(a, b)
+    for layout in ("kil", "kli"):
+        bb = b if layout == "kil" else b.transpose(1, 2).contiguous()
+        calls = {"other": lambda: other_taps(other["probe_int8"], a[None], bb, [0], l,
+                                             layout == "kil", torch.int32),
+                 "this": lambda: p8.stacked_matmul_int8(a, bb, layout)}
+        if int_mm is not None:
+            calls["library"] = int_mm
+        measure(rows, "K8", f"[{o},{i}]@[{k},{i},{l}] b {layout}", *bound, calls, device)
+        del bb
+    del a, b
+
+    # K9 at diag_int8_kernel's shape, every mode
+    O, I, COLS, WP, STEPS = (int8_kernel.O, int8_kernel.I, int8_kernel.COLS, int8_kernel.WP,
+                             int8_kernel.STEPS)
+    w9 = probes.randint8((9, O, I), device, gen)
+    x = probes.randint8((STEPS, I, int8_kernel.window(COLS, WP)), device, gen)
+    for mode in p8.MODES:
+        offsets = p8.tap_offsets(mode, WP)
+        ops = 2 * O * I * COLS * len(offsets) * STEPS
+        moved = (len(offsets) if mode != "sliceonly" else 0) * O * I + x.numel() \
+            + 2 * STEPS * O * COLS
+        by_ops = 0.0 if mode == "sliceonly" else 1e3 * ops / peak
+        bound = (max(by_ops, 1e3 * moved / hbm), "operations" if by_ops >= 1e3 * moved / hbm
+                 else "bytes")
+        if mode == "sliceonly":   # the same slice_sum_kernel in both trees
+            this = lambda: p8.nine_tap_int8(w9, x, mode, COLS, WP)
+            calls = {"other": this, "this": this}
+        else:
+            calls = {"other": lambda: other_taps(other["probe_int8"], w9, x, offsets, COLS, True,
+                                                 torch.bfloat16),
+                     "this": lambda: p8.nine_tap_int8(w9, x, mode, COLS, WP)}
+        measure(rows, "K9", f"mode {mode}" + (" (one kernel in both)" if mode == "sliceonly"
+                                             else ""), *bound, calls, device)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump({"device": device_banner(device), "rows": rows}, fh, indent=1)
+    bad = [r for r in rows if r["unequal_elements"] != 0]
+    if bad:
+        raise SystemExit(f"outputs differ between the trees: {[r['case'] for r in bad]}")
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -785,23 +785,43 @@ def test_probe_flat_copy_leaves_its_claim_counter_at_zero(cuda):
     assert int(ps._claims(x.device).abs().sum()) == 0
 
 
-@pytest.mark.parametrize("case", ["stride_64", "stride_48", "zero_pad_below_0_and_past_w",
-                                  "channel_pad", "two_dims_negative_start", "crop"])
+# (x's shape, element_windows' arguments): the TPU probe's four cases on
+# [8, 64, 512] (spans of 3 chunks), K1's windows (two dimensions, starting
+# below 0, crop), windows past H and W with odd sizes and c_out 7 (spans
+# that start and end off 16 bytes: plain head and tail), variant A's
+# geometry on a single plane of 278^2 (c_out 1), and 6 channels of wide
+# windows (head, three chunks, tail).
+WINDOW_CASES = {
+    "stride_64": ((8, 64, 512), dict(win_w=128, n_tw=4, stride_w=64)),
+    "stride_48": ((8, 64, 512), dict(win_w=128, n_tw=4, stride_w=48)),
+    "zero_pad_below_0_and_past_w": ((8, 64, 512),
+                                    dict(win_w=128, n_tw=5, stride_w=112, lo_w=16)),
+    "channel_pad": ((8, 64, 512), dict(win_w=128, n_tw=2, stride_w=128, c_out=16)),
+    "two_dims_negative_start": ((8, 64, 512), dict(win_w=39, n_tw=5, stride_w=28, lo_w=5,
+                                                   win_h=39, n_th=3, stride_h=28, lo_h=5)),
+    "crop": ((8, 64, 512), dict(win_w=43, n_tw=3, stride_w=32, lo_w=-5, win_h=43, n_th=2,
+                                stride_h=32, lo_h=-5)),
+    "odd_past_h_and_w_c_out_7": ((5, 30, 40), dict(win_w=7, n_tw=8, stride_w=6, lo_w=3,
+                                                   win_h=9, n_th=5, stride_h=7, lo_h=4,
+                                                   c_out=7)),
+    "w278_single_plane": ((1, 278, 278), dict(win_w=39, n_tw=10, stride_w=28, lo_w=5,
+                                              win_h=39, n_th=10, stride_h=28, lo_h=5)),
+    "wide_c_out_6_chunks": ((6, 50, 300), dict(win_w=150, n_tw=3, stride_w=75, lo_w=20,
+                                               win_h=50, n_th=1, stride_h=0, lo_h=0)),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
 def test_probe_windows_equal_plain_bitwise(cuda, case):
     from afcm_tpu_torch.ops.cuda import probe_stream as ps
     gen = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn((8, 64, 512), generator=gen, device=cuda)
-    kw = {"stride_64": dict(win_w=128, n_tw=4, stride_w=64),
-          "stride_48": dict(win_w=128, n_tw=4, stride_w=48),
-          "zero_pad_below_0_and_past_w": dict(win_w=128, n_tw=5, stride_w=112, lo_w=16),
-          "channel_pad": dict(win_w=128, n_tw=2, stride_w=128, c_out=16),
-          "two_dims_negative_start": dict(win_w=39, n_tw=5, stride_w=28, lo_w=5, win_h=39,
-                                          n_th=3, stride_h=28, lo_h=5),
-          "crop": dict(win_w=43, n_tw=3, stride_w=32, lo_w=-5, win_h=43, n_th=2,
-                       stride_h=32, lo_h=-5)}[case]
+    shape, kw = WINDOW_CASES[case]
+    x = torch.randn(shape, generator=gen, device=cuda)
+    before = ps.launches["windows"]
     got = ps.element_windows(x, **kw)
     torch.cuda.synchronize()
     want = ps.element_windows_plain(x, **kw)
+    assert ps.launches["windows"] == before + 1
     assert got.shape == want.shape
     assert int((_bits(got) != _bits(want)).sum()) == 0
 
@@ -842,6 +862,77 @@ def test_probe_nine_tap_equals_plain_bitwise(cuda, mode, geometry):
     want = p8.nine_tap_int8_plain(w9, x, mode, cols, wp)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert int((_bits(got) != _bits(want)).sum()) == 0
+
+
+# taps_matmul_kernel (K8, K9) at taps 1 and 9: (offsets, cols, raw, out
+# dtype, S, O, I, P beyond cols + max offset, x a view 8 bytes off 16).
+# Offsets cover every residue mod 16 and reach past the 256-column tile;
+# cols of 128 and 384 leave a tile half empty; "many_tiles" give a CTA of
+# the persistent grid several tiles (int32: the staging region in turns)
+# and steps of several K slices; K-major offsets of whole 8-row atoms take
+# x's rows of 32 bytes in the 32-byte swizzle; "far_apart" spreads the taps
+# beyond one ring (one tap a step), on 16-byte starts too (raw x by tensor
+# map); a span starting off 16 bytes takes raw x by cp.async; P % 16 == 8
+# and the view take 8-byte raw pieces.
+TAPS_CASES = {
+    "residues_0_to_8_int32": (list(range(9)), 256, True, torch.int32, 2, 128, 64, 0, False),
+    "residues_9_to_15_past_the_tile": ([9, 10, 11, 12, 13, 14, 15, 300, 517], 384, True,
+                                       torch.bfloat16, 1, 256, 128, 0, False),
+    "unsorted_k_major_bf16": ([322, 0, 161, 1, 2, 160, 320, 321, 162], 512, False,
+                              torch.bfloat16, 2, 128, 192, 0, False),
+    "k_major_int32_past_the_tile": ([0, 5, 33, 257, 258, 290, 300, 311, 400], 256, False,
+                                    torch.int32, 1, 128, 64, 0, False),
+    "one_tap_s1_o128_i64": ([0], 128, True, torch.bfloat16, 1, 128, 64, 0, False),
+    "one_tap_k_major_offset_7": ([7], 384, False, torch.int32, 3, 128, 64, 0, False),
+    "far_apart": ([0, 1, 1500, 2999, 3001, 17, 4000, 4007, 2], 256, True, torch.int32, 1,
+                  128, 64, 0, False),
+    "p_mod_16_is_8": ([0, 3, 6, 9, 12, 15, 18, 21, 24], 256, True, torch.int32, 2, 128, 64,
+                      8, False),
+    "far_apart_on_16_bytes": ([0, 16, 1504, 2992, 3008, 32, 4000, 4016, 48], 256, True,
+                              torch.bfloat16, 1, 128, 64, 0, False),
+    "one_group_off_16_bytes": ([5, 6, 7, 165, 166, 167, 325, 326, 327], 256, True,
+                               torch.bfloat16, 2, 128, 64, 0, False),
+    "many_tiles_a_cta_int32": ([0, 16], 256, True, torch.int32, 300, 128, 128, 0, False),
+    "many_tiles_a_cta_k_major": ([0], 384, False, torch.int32, 150, 128, 256, 0, False),
+    "k_major_offsets_of_8_rows": ([8, 0, 16, 264, 40], 256, False, torch.bfloat16, 2, 128, 128,
+                                  0, False),
+    "x_view_8_bytes_off": ([0, 1, 2, 160, 161, 162, 320, 321, 322], 128, True,
+                           torch.bfloat16, 2, 128, 128, 0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(TAPS_CASES))
+def test_probe_taps_matmul_equals_plain_bitwise(cuda, case):
+    from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+    offsets, cols, raw, dtype, s, o, i, extra, off8 = TAPS_CASES[case]
+    p = -(-(cols + max(offsets)) // 16) * 16 + extra
+    w = _probe_int8(cuda, (len(offsets), o, i), 6)
+    x = _probe_int8(cuda, (s, i, p) if raw else (s, p, i), 7)
+    if off8:
+        buf = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+        x = buf[8:8 + x.numel()].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == 8
+    before = p8.launches["nine_tap"]
+    got = p8.taps_matmul_int8(w, x, offsets, cols, raw=raw, out_dtype=dtype)
+    torch.cuda.synchronize()
+    want = p8.taps_matmul_int8_plain(w, x, offsets, cols, raw, dtype)
+    assert p8.launches["nine_tap"] == before + 1
+    assert got.shape == want.shape == (s, o, cols) and got.dtype == dtype
+    assert int((_bits(got) != _bits(want)).sum()) == 0
+
+
+@pytest.mark.parametrize("raw,tma_ok", [(True, True), (True, False), (False, True)])
+def test_probe_taps_plan_of_the_kernel_is_plan_taps(cuda, raw, tma_ok):
+    """csrc/probe_int8.cu's make_plan, exported by afcm_taps_plan, against
+    its Python mirror plan_taps, at the probes' taps and the test cases'."""
+    from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+    sets = [[0], p8.tap_offsets("slices", 160), p8.tap_offsets("aligned", 160),
+            p8.tap_offsets("slices", 21)] + [c[0] for c in TAPS_CASES.values()]
+    for offsets in sets:
+        for i in (64, 128, 384, 512):
+            for out_bytes in (2, 4):
+                assert p8.kernel_plan(offsets, i, raw, out_bytes, tma_ok) == \
+                    p8.plan_taps(offsets, i, raw, out_bytes, tma_ok), (offsets, i, out_bytes)
 
 
 def test_probe_kernels_raise_instead_of_falling_back(cuda):

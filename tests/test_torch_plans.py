@@ -1,8 +1,10 @@
 """What surrounds the redesigned kernels K1, K2, K3 and the probes' bulk copy
-(K5a, K6) and runs on the CPU: K1's and K2's tile planners, K3's tile
-choice, the plain versions of the quantizer kernels against the JAX
-package's quantization, and the bulk copy's planner (its grid, ring and
-tiling of the span) and its aligned output.
+(K5a, K6), product kernel (K8, K9) and window kernel (K7) and runs on the
+CPU: K1's and K2's tile planners, K3's tile choice, the plain versions of
+the quantizer kernels against the JAX package's quantization, the bulk
+copy's planner (its grid, ring and tiling of the span) and its aligned
+output, the product kernel's plan (tap groups, span, ring, shared memory)
+and the window kernel's CTA work.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py); the
 planner decides which instantiation takes a call and how much shared memory
@@ -26,6 +28,7 @@ from afcm_tpu_torch.models import CMSR_ADNI_G, build_generator  # noqa: E402
 from afcm_tpu_torch.ops import design_lowpass_filter  # noqa: E402
 from afcm_tpu_torch.ops.cuda import conv_int8 as k3  # noqa: E402
 from afcm_tpu_torch.ops.cuda import filtered_lrelu as k1  # noqa: E402
+from afcm_tpu_torch.ops.cuda import probe_int8 as p8  # noqa: E402
 from afcm_tpu_torch.ops.cuda import probe_stream as ps  # noqa: E402
 
 torch.set_num_threads(1)
@@ -522,3 +525,160 @@ def test_aligned_output_shares_the_inputs_offset(elems_off):
     assert y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous()
     assert y.untyped_storage().data_ptr() != buf.untyped_storage().data_ptr()
     assert torch.equal(ps.stream_copy(x), x) and torch.equal(ps.copy2d(x, 3), x)
+
+
+# ---------------------------------------------------------------- K8, K9
+
+SM_SHARED = 233472          # an H100 SM's shared memory; a CTA reserves 1 KB
+# (offsets, bytes of K, bytes an output value) of the probes' calls and the
+# small test shape's
+PROBE_TAPS = {"k8": ([0], 512, 4), "k9_dot1": (p8.tap_offsets("dot1", 160), 384, 2),
+              "k9_aligned": (p8.tap_offsets("aligned", 160), 384, 2),
+              "k9_slices": (p8.tap_offsets("slices", 160), 384, 2),
+              "small_slices": (p8.tap_offsets("slices", 21), 64, 2)}
+
+
+@pytest.mark.parametrize("layout", ["raw_tma", "raw_async", "k_major"])
+@pytest.mark.parametrize("case", list(PROBE_TAPS))
+def test_taps_plan_fits_one_block_and_holds_the_ring(case, layout):
+    """At the probes' taps every tap is in one group (x staged once per K
+    step for all taps), and the ring, its raw buffers and the staged int32
+    tile fit the 227 KB of one block with the kernel's static barriers (one
+    CTA an SM: 384 threads of up to 168 registers take the register file):
+    the most K slices a step (4, 2, 1, dividing K) that keep three stages
+    (one slice: two), then the most stages (up to 8). Raw x: tensor-map
+    boxes of at most 256 bytes a row that cover the span in 16-byte
+    multiples, or cp.async rows long enough for a start up to 15 bytes off
+    plus a 4-byte funnel shift; K-major x: boxes of at most 256 rows of
+    8-row multiples that the span fills."""
+    offsets, i, out_bytes = PROBE_TAPS[case]
+    raw = layout != "k_major"
+    pl = p8.plan_taps(offsets, i, raw, out_bytes, tma_ok=layout == "raw_tma")
+    assert pl.groups == 1 and pl.tap == tuple(sorted(range(len(offsets)),
+                                                     key=lambda t: offsets[t]))
+    spread = max(offsets) - min(offsets)
+    assert pl.a_bytes == 4096 * len(offsets) and pl.slice_bytes == pl.a_bytes + 32 * pl.span
+    assert pl.stage_bytes == pl.ksub * pl.slice_bytes and i % (32 * pl.ksub) == 0
+    assert pl.slice_bytes % 256 == 0            # the swizzled weights' atoms
+    assert pl.epi_bytes == (64 * (256 * 4 + 16) if out_bytes == 4 else 0)
+    raw_bytes = pl.xboxes * 32 * pl.ksub * pl.xw if raw else 0
+    assert pl.smem == pl.stages * pl.stage_bytes + pl.raws * raw_bytes + pl.epi_bytes + 1024
+    assert pl.smem + 4 * 8 * p8.MAX_STAGES <= 232448
+    assert (3 if pl.ksub > 1 else 2) <= pl.stages <= p8.MAX_STAGES
+    assert pl.raws == 0 if not raw else pl.raws in (pl.stages, 2)
+    fits = lambda stages, raws, ksub=pl.ksub: (  # noqa: E731
+        stages * ksub * pl.slice_bytes + raws * pl.xboxes * 32 * ksub * pl.xw * raw
+        + pl.epi_bytes + 1024 <= p8.SMEM_BUDGET)
+    if not raw or pl.raws == pl.stages:         # the most stages (with as many raw buffers)
+        assert pl.stages == p8.MAX_STAGES or not fits(pl.stages + 1, pl.stages + 1)
+    else:                                       # no ring of three with as many fits
+        assert not fits(3 if pl.ksub > 1 else 2, 3 if pl.ksub > 1 else 2)
+    if pl.ksub < 4 and i % (64 * pl.ksub) == 0:     # twice the slices keep no ring of three
+        assert not fits(3, 2 * raw, 2 * pl.ksub)
+    assert pl.x_tma == (layout == "raw_tma")
+    if layout == "raw_tma":
+        assert pl.span == -(-(256 + spread) // 8) * 8
+        assert pl.xw % 16 == 0 and pl.xw <= 256 and pl.xboxes * pl.xw >= pl.span
+        assert (pl.xboxes - 1) * pl.xw < pl.span and 32 * pl.ksub <= 256
+    elif raw:
+        assert (pl.xboxes, pl.xw) == (1, -(-(pl.span + 32) // 16) * 16)
+        assert pl.xw >= pl.span + 15 + 4
+    else:
+        assert pl.span == pl.xboxes * pl.xw >= 256 + spread
+        assert pl.xw % 8 == 0 and pl.xw <= 256 and (pl.xboxes - 1) * pl.xw < 256 + spread
+    assert pl.b_sw32 == (not raw and all(o % 8 == 0 for o in pl.off))
+
+
+def test_taps_plan_at_the_probes_shapes():
+    """K9 (slices, wp 160, bf16 out from the registers): one slice a step,
+    spans of 584 rows (256 + 322) in three boxes of 208 bytes, 54 KB
+    stages and 20 KB raw buffers, a ring of 3, 222 KB. K8 (one tap, int32,
+    K 512): two slices a step as x comes raw (24 KB stages, 16 KB raw
+    buffers, a ring of 4 beside the 65 KB staged tile), four as it comes
+    K-major (48 KB stages, a ring of 3). K9's one tap (bf16): four slices,
+    3 stages and 2 raw buffers of 32 KB."""
+    k9 = p8.plan_taps(p8.tap_offsets("slices", 160), 384, True, 2)
+    assert (k9.span, k9.ksub, k9.xboxes, k9.xw, k9.x_tma, k9.stage_bytes, k9.stages, k9.raws,
+            k9.epi_bytes, k9.smem) == (584, 1, 3, 208, 1, 55552, 3, 3, 0, 227584)
+    k8 = p8.plan_taps([0], 512, True, 4)
+    assert (k8.span, k8.ksub, k8.xboxes, k8.xw, k8.x_tma, k8.stage_bytes, k8.stages, k8.raws,
+            k8.epi_bytes, k8.smem) == (256, 2, 1, 256, 1, 24576, 4, 4, 66560, 231424)
+    dot1 = p8.plan_taps([0], 384, True, 2)
+    assert (dot1.ksub, dot1.stages, dot1.raws, dot1.smem) == (4, 3, 2, 214016)
+    kli = p8.plan_taps([0], 512, False, 4)
+    assert (kli.ksub, kli.xboxes, kli.xw, kli.b_sw32, kli.stages, kli.smem) == \
+        (4, 1, 256, 1, 3, 215040)
+
+
+def test_taps_plan_stages_far_taps_one_a_step():
+    """Offsets whose spread leaves no ring of two stages in 227 KB are
+    staged one tap a step: 9 groups of span 256, each based at its tap's
+    offset; their starts off 16 bytes take raw x by cp.async."""
+    offsets = [0, 1, 1500, 2999, 3001, 17, 4000, 4007, 2]
+    pl = p8.plan_taps(offsets, 64, True, 4)
+    assert pl.groups == 9 and pl.span == 256 and pl.off == (0,) * 9
+    assert pl.base == tuple(sorted(offsets)) and pl.a_bytes == 4096 and pl.x_tma == 0
+    assert pl.smem + 4 * 8 * p8.MAX_STAGES <= 232448
+    aligned = p8.plan_taps([0, 16, 1504, 2992, 3008, 32, 4000, 4016, 48], 64, True, 4)
+    assert aligned.groups == 9 and aligned.x_tma == 1
+
+
+@pytest.mark.parametrize("offsets,i", [([], 64), ([0] * 10, 64), ([-1, 0], 64), ([0], 96)])
+def test_taps_plan_refuses_what_the_kernel_does_not_take(offsets, i):
+    with pytest.raises(ValueError, match="taps_matmul plan"):
+        p8.plan_taps(offsets, i, True, 4)
+
+
+def test_taps_plan_limits_match_the_kernel_source():
+    src = open(os.path.join(os.path.dirname(p8.__file__), "..", "..", "csrc",
+                            "probe_int8.cu")).read()
+    defines = dict(re.findall(r"#define (AFCM_P8_\w+) (\d+)", src))
+    assert int(defines["AFCM_P8_BN"]) == p8.TILE_N
+    assert int(defines["AFCM_P8_MAX_TAPS"]) == p8.MAX_TAPS
+    assert int(defines["AFCM_P8_MAX_STAGES"]) == p8.MAX_STAGES
+    assert int(defines["AFCM_P8_BOX_MAX"]) == p8.BOX_MAX
+    assert "(232448 - 4 * 8 * AFCM_P8_MAX_STAGES)" in src
+
+
+@pytest.mark.parametrize("mode", ["dot1", "aligned", "slices"])
+def test_taps_plain_is_the_probes_plain_versions(mode):
+    """The shared product's plain version (raw and K-major x, int32 and bf16)
+    against K8's and K9's own plain versions, exactly."""
+    rng = np.random.RandomState(11)
+    w9 = torch.from_numpy(rng.randint(-127, 127, (9, 16, 32)).astype(np.int8))
+    x = torch.from_numpy(rng.randint(-127, 127, (2, 32, 40)).astype(np.int8))
+    offsets = p8.tap_offsets(mode, 8)
+    got = p8.taps_matmul_int8(w9, x, offsets, 16, out_dtype=torch.bfloat16)
+    assert torch.equal(got, p8.nine_tap_int8_plain(w9, x, mode, 16, 8))
+    kli = p8.taps_matmul_int8(w9, x.transpose(1, 2).contiguous(), offsets, 16, raw=False)
+    assert torch.equal(p8.to_bf16(kli), got)
+    b = x[:, :, :24].contiguous()
+    assert torch.equal(p8.taps_matmul_int8(w9[:1], b, [0], 24),
+                       p8.stacked_matmul_int8_plain(w9[0], b))
+
+
+# ---------------------------------------------------------------- K7
+
+@pytest.mark.parametrize("c_out,win_h,win_w", [
+    (128, 39, 39), (362, 48, 48), (256, 29, 29), (128, 43, 43), (8, 64, 128), (16, 64, 128),
+    (7, 9, 7), (1, 39, 39), (6, 50, 150), (5, 1, 1), (1, 300, 300)])
+def test_window_plan_groups_channels_by_four(c_out, win_h, win_w):
+    """A CTA takes a multiple of 4 channels (at least 4), the most whose
+    output fits one chunk, never more than c_out rounded up to 4; a chunk is
+    a multiple of 4 values within 48 KB and holds the CTA's span or is full."""
+    group, chunk = ps.plan_windows(c_out, win_h, win_w)
+    area = win_h * win_w
+    assert group >= 4 and group % 4 == 0 and group <= -(-c_out // 4) * 4
+    assert group == 4 or group * area <= ps.WINDOW_CHUNK
+    assert group == -(-c_out // 4) * 4 or (group + 4) * area > ps.WINDOW_CHUNK
+    assert chunk % 4 == 0 and 4 <= chunk <= ps.WINDOW_CHUNK
+    assert chunk * 4 <= ps.CTA_SHARED_MAX
+    assert chunk == min(ps.WINDOW_CHUNK, -(-group * area // 4) * 4)
+
+
+def test_window_plan_at_k1s_variants():
+    """K1's windows (variants A-D): 8, 4, 12 and 4 channels a CTA, one chunk
+    each (48.7, 36.9, 40.4 and 29.6 KB), several CTAs an SM."""
+    plans = [ps.plan_windows(c, s, s) for c, s in ((128, 39), (362, 48), (256, 29), (128, 43))]
+    assert plans == [(8, 12168), (4, 9216), (12, 10092), (4, 7396)]
+    assert all(SM_SHARED // (4 * chunk + 1024) >= 4 for _, chunk in plans)

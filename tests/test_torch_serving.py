@@ -307,3 +307,30 @@ def test_serving_ignores_remat_and_says_matmul_precision_has_no_effect(capsys):
     assert torch.backends.cudnn.allow_tf32 is True       # bfloat16: TF32 on
     configure_numerics(_tiny_cfg("tpu.matmul_precision", "highest"))
     assert torch.backends.cudnn.allow_tf32 is False      # float32: off, whatever the key
+
+
+def test_serving_checks_filtered_lrelu_impl_as_afcm_tpu_does(capsys):
+    """ROADMAP C17: ``afcm_tpu``'s serving setup (``configure_ops`` ->
+    ``set_default_impl``) asserts that ``tpu.filtered_lrelu_impl`` is
+    ``xla``, ``pallas`` or ``auto``; the port's ``configure_numerics``
+    raises ``ValueError`` for the same value, naming it and the three.
+    ``pallas`` and ``auto`` each get one line (a CUDA tensor always takes
+    K1), ``xla`` none."""
+    from afcm_tpu.config import default_argument_parser as jax_parser
+    from afcm_tpu.evaluate import configure_ops
+    from afcm_tpu.ops.filtered_lrelu import get_default_impl
+    from afcm_tpu_torch.evaluate import configure_numerics
+    before = get_default_impl()
+    with pytest.raises(AssertionError):
+        configure_ops(jax_parser(["--config-file", os.path.join(
+            REPO, "configs/demo/cmsr_tiny.yml"), "tpu.filtered_lrelu_impl", "bogus"]))
+    assert get_default_impl() == before
+    with pytest.raises(ValueError, match="'bogus'.*xla, pallas, auto"):
+        configure_numerics(_tiny_cfg("tpu.filtered_lrelu_impl", "bogus"))
+    capsys.readouterr()
+    for impl, lines in (("pallas", 1), ("auto", 1), ("xla", 0)):
+        configure_numerics(_tiny_cfg("tpu.filtered_lrelu_impl", impl))
+        said = [line for line in capsys.readouterr().out.splitlines()
+                if line.startswith("tpu.filtered_lrelu_impl")]
+        assert len(said) == lines, (impl, said)
+        assert all(f"filtered_lrelu_impl {impl} has no effect" in line for line in said)

@@ -190,6 +190,32 @@ def test_train_says_matmul_precision_has_no_effect(monkeypatch, capsys):
         assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
+def test_train_checks_filtered_lrelu_impl_as_afcm_tpu_does(monkeypatch, capsys):
+    """ROADMAP C17: ``afcm_tpu``'s train path hands ``tpu.filtered_lrelu_impl``
+    to ``set_default_impl``, which asserts it is ``xla``, ``pallas`` or
+    ``auto``; the port's train CLI raises ``ValueError`` for the same value
+    before it loads data. ``pallas`` and ``auto`` each get one line, ``xla``
+    none."""
+    pytest.importorskip("jax")
+    from afcm_tpu.ops.filtered_lrelu import get_default_impl, set_default_impl
+    before = get_default_impl()
+    with pytest.raises(AssertionError):
+        set_default_impl("bogus")
+    assert get_default_impl() == before
+    monkeypatch.setattr(train_cli, "get_train_loaders", _no_loaders)
+    with pytest.raises(ValueError, match="'bogus'.*xla, pallas, auto"):
+        train_cli.main(["--config-file", CONFIG, "--device", "cpu",
+                        "tpu.filtered_lrelu_impl", "bogus"])
+    capsys.readouterr()
+    for impl, lines in (("pallas", 1), ("auto", 1), ("xla", 0)):
+        with pytest.raises(_Stop):
+            train_cli.main(["--config-file", CONFIG, "--device", "cpu",
+                            "tpu.filtered_lrelu_impl", impl])
+        said = [line for line in capsys.readouterr().out.splitlines()
+                if line.startswith("tpu.filtered_lrelu_impl")]
+        assert len(said) == lines, (impl, said)
+
+
 @pytest.mark.parametrize("card,dtype,capped,said", [
     (True, "float32", False, True), (True, "float32", True, False),
     (True, "bfloat16", False, False), (False, "float32", False, False)])
