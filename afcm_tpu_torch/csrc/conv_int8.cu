@@ -102,47 +102,9 @@ static_assert(2 * (Tile<20>::SMEM_BYTES + 1024) <= 228 * 1024, "two CTAs share a
 using afcm::cp_async16_zfill;
 using afcm::cp_async_commit;
 using afcm::cp_async_wait;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t arrivals) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals));
-}
-
-// One arrival that also announces `bytes` of bulk copies to come.
-__device__ __forceinline__ void mbarrier_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n"
-            ".reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n"
-            "}\n"
-            : "=r"(done)
-            : "r"(smem_u32(bar)), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// `bytes` (a multiple of 16) from global to shared memory, completion
-// reported to `bar`.
-__device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, uint32_t bytes,
-                                          uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-            "r"(smem_u32(smem)),
-        "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
-}
+using afcm::mbar_expect_tx;
+using afcm::mbar_init;
+using afcm::mbar_wait;
 
 // A thread's share of a step's patch: PIECES 16-byte pieces, the same ones
 // in every step, so their places are worked out once. to: the byte offset in
@@ -175,8 +137,8 @@ __device__ __forceinline__ void load_stage(unsigned char* slot, uint64_t* bar,
                                            const int8_t* __restrict__ xn, int step,
                                            const PatchPieces<R>& pieces, int tid) {
     if (tid == 0) {
-        mbarrier_expect_tx(bar, W_BYTES);
-        bulk_copy(slot, w_cta + static_cast<size_t>(step) * W_BYTES, W_BYTES, bar);
+        mbar_expect_tx(bar, W_BYTES);
+        afcm::bulk_load(slot, w_cta + static_cast<size_t>(step) * W_BYTES, W_BYTES, bar);
     }
     unsigned char* xs = slot + W_BYTES;         // [2][PH][PW][16]
     const int8_t* xk = xn + step * KC;
@@ -216,7 +178,7 @@ conv3x3_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
     if (tid == 0) {
 #pragma unroll
-        for (int s = 0; s < STAGES; ++s) mbarrier_init(&full[s], 1);
+        for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
@@ -245,7 +207,7 @@ conv3x3_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             load_stage<R>(smem + (ahead % STAGES) * STAGE_BYTES, &full[ahead % STAGES], w_cta,
                           xn, ahead, pieces, tid);
         cp_async_commit();
-        mbarrier_wait(&full[s % STAGES], (s / STAGES) & 1);     // step s's weights landed
+        mbar_wait(&full[s % STAGES], (s / STAGES) & 1);         // step s's weights landed
 
         const uint32_t slot16 = static_cast<uint32_t>((s % STAGES) * STAGE_BYTES) >> 4;
         afcm::wgmma_fence();

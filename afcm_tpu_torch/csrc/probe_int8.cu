@@ -7,14 +7,16 @@
 //       o[s] = bf16( sum_tap w[tap] @ x[s][:, off_tap : off_tap + N] )
 //       with one tap, nine taps at offset 0, nine taps at off = dy * wp + dx,
 //       and `sliceonly`: the nine shifted slices summed without a product.
-// Both are one function here: for every s,
+// The first three modes and K8 are one function here (taps_matmul_kernel):
+// for every s,
 //       out[s] = sum_{tap < taps} w[tap] @ x[s][:, off[tap] : off[tap] + N]
-// with int32 accumulation, written as int32 or rounded to bf16. Integer
-// sums have no rounding, so the result equals the plain version bit for bit.
+// with int32 accumulation, written as int32 or rounded to bf16. `sliceonly`
+// is slice_sum_kernel, whose note is above it. Integer sums have no
+// rounding, so each result equals its plain version bit for bit.
 //
-// What bounds them: K9 (nine taps, bf16 out) operations, K8 (one tap, int32
-// out) the bytes of its output. taps_matmul_kernel keeps the tensor cores
-// fed and the output stores in the background:
+// What bounds the products: K9 (nine taps, bf16 out) operations, K8 (one
+// tap, int32 out) the bytes of its output. taps_matmul_kernel keeps the
+// tensor cores fed and the output stores in the background:
 //
 // * The product is wgmma.mma_async m64n256k32 s8 x s8 -> s32 with both
 //   operands in shared memory (wgmma_s8.cuh). A CTA computes 128 x 256
@@ -97,17 +99,19 @@ constexpr int TRANSPOSERS = 96;                // warps 1-3
 constexpr int A_TAP_BYTES = BM * KC;           // one tap's weights of a step: [128 rows][32 B]
 constexpr int ALIGN = 1024;                    // the ring's start in shared memory
 
+using afcm::bulk_commit;
+using afcm::bulk_load;
+using afcm::bulk_store;
+using afcm::bulk_wait;
+using afcm::bulk_wait_read;
 using afcm::cp_async16_zfill;
 using afcm::cp_async8_zfill;
 using afcm::cp_async_commit;
 using afcm::cp_async_wait;
 using afcm::mbar_arrive;
+using afcm::mbar_expect_tx;
 using afcm::mbar_init;
 using afcm::mbar_wait;
-
-struct Offsets {
-    int v[AFCM_P8_MAX_TAPS];
-};
 
 // How a call is staged (make_plan). Taps are taken in groups, each group's
 // taps in one step: group g holds taps [first[g], first[g + 1]) of tap[]
@@ -247,14 +251,6 @@ __device__ __forceinline__ void cp_async_wait_upto(int pending) {
         case 5: cp_async_wait<5>(); break;
         default: cp_async_wait<6>(); break;
     }
-}
-
-// One arrival that also announces `bytes` of tensor-map copies to come.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                     afcm::smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
 }
 
 // A box of a 3-D tensor map at (c0, c1, c2) into shared memory, completion
@@ -569,15 +565,10 @@ taps_matmul_kernel(const int8_t* __restrict__ x, OutT* __restrict__ out, int O, 
                 const int cols = N - n0 < BN ? N - n0 : BN;
                 const uint32_t bytes = static_cast<uint32_t>(cols * sizeof(OutT));
                 OutT* dst = out + (static_cast<size_t>(s) * O + m0 + 64 * c) * N + n0;
-                const uint32_t src = afcm::smem_addr(staged);
                 for (int r = 0; r < 64; ++r)
-                    asm volatile(
-                        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-                            dst + static_cast<size_t>(r) * N),
-                        "r"(src + r * PITCH), "r"(bytes)
-                        : "memory");
-                asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-                asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+                    bulk_store(dst + static_cast<size_t>(r) * N, staged + r * PITCH, bytes);
+                bulk_commit();
+                bulk_wait_read<0>();
             }
             // the region is the other warpgroup's (warpgroup 1 hands it back
             // unless this was the CTA's last tile)
@@ -601,46 +592,301 @@ taps_matmul_kernel(const int8_t* __restrict__ x, OutT* __restrict__ out, int O, 
     }
 }
 
-// eight neighbouring columns of one row as bf16, one 16-byte store
-__device__ __forceinline__ void store_eight(__nv_bfloat16* p, const int (&v)[8]) {
-    __align__(16) __nv_bfloat162 h[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __halves2bfloat162(to_bf16(v[2 * i]), to_bf16(v[2 * i + 1]));
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+// ------------------------------------------------------------ slice sums
+//
+// `sliceonly` (scripts/diag_int8_kernel.py:38, mode="sliceonly"): for every
+// step s,
+//     out[s][o][n] = bf16( sum_tap int32(x[s][o][off_tap + n]) )   o < I,
+// rows I <= o < O zero; no product. What bounds it: bytes, the bytes
+// [min off, max off + N) of each x row read once and out written once (at
+// the probe's shape 179.1 MB + 408.9 MB / 3.35 TB/s = 0.1755 ms). The
+// kernel it replaces gave each thread eight columns and paid for every tap
+// with two 8-byte loads of x through L1/L2 (x read 18 times over), a funnel
+// shift and eight sign extensions and adds, on a grid of one CTA per 256
+// items of a step: its integer work alone took as long as the bound, and
+// its zero rows cost threads like live ones. slice_sum_kernel:
+// * is persistent, `ctas` CTAs an SM (make_slice_plan). A CTA walks units
+//   of (s, `rows` rows of o), units b, b + grid, ...; a unit's rows at or
+//   past I read nothing: the loading thread stores them from a zeroed
+//   region of shared memory with bulk copies;
+// * stages a unit's live x rows, rows * P contiguous bytes, once for all
+//   taps with one bulk copy (cp.async.bulk global -> shared, completing on
+//   an mbarrier) through a ring of `stages`, so that the next units' rows
+//   land while this one sums. A span that starts 8 bytes off 16 (P % 16 ==
+//   8, or x a view 8 bytes off) takes its first and last 8 bytes by plain
+//   loads of the loading thread and the 16-byte body by the bulk copy;
+// * sums packed: a summing thread takes four neighbouring columns, two
+//   of them a pass so that one's loads overlap the other's sums. Per tap,
+//   one funnel shift of two aligned words read from shared memory gives the
+//   four bytes at any offset; each byte is biased to unsigned (^ 0x80) and
+//   split into the two 16-bit lanes of a word, even columns by one LOP3
+//   ((v ^ 0x00800080) & 0x00ff00ff), odd ones by another and a
+//   multiply-high by 2^24 that moves them down and adds them (on the
+//   multiply-add pipe, beside the integer pipe). 9 * 255 fits a lane; the
+//   bias, 128 a tap, comes off once at the end. Five instructions and two
+//   loads a tap for four columns, where the old kernel spent some 25 for
+//   eight; the kernel is templated on the tap count, so that the taps'
+//   loads are straight-line code. Nine taps in three runs of three
+//   neighbouring offsets (the probe's 3 x 3 grid, any row pitch) take one
+//   load of three words, two funnel shifts and three more of the pair for
+//   a run, whose four byte pairs (sh + m, sh + m + 2), m = 0..3, give the
+//   even columns (m = 0, 1, 2) and the odd ones (m = 1, 2, 3): half the
+//   loads and no multiply (3-6% off the general path's time at the probe's
+//   shape on an H100, PERF.md section 6);
+// * writes each unit's bf16 rows into a staging ring of two in shared
+//   memory, and one thread stores them with one bulk copy (shared ->
+//   global) of rows * N * 2 contiguous bytes; a staging buffer is written
+//   again only once cp.async.bulk.wait_group.read says its store has read
+//   it.
+// Warp 0 (its lane 0) loads and stores the zero rows; warps 1-8 sum, and
+// warp 1's lane 0 stores. Integer sums are exact and |sum| <= 9 * 127, so
+// the one rounding is to_bf16's: the result equals the plain version bit
+// for bit.
+
+#define AFCM_SL_THREADS 288         // one loading warp, eight summing warps
+#define AFCM_SL_SUMMERS 256
+#define AFCM_SL_MAX_STAGES 4
+#define AFCM_SL_ZERO 4096           // bytes of zeros the dead rows are stored from
+#define AFCM_SL_SMEM_SM 233472      // shared memory of an SM (228 KB)
+#define AFCM_SL_STATIC (2 * 8 * AFCM_SL_MAX_STAGES)   // the static barriers
+
+// How slice_sum_kernel stages a call (make_slice_plan; mirrored by
+// ops/cuda/probe_int8.py:plan_slice_sum).
+struct SlicePlan {
+    int rows;        // rows of o a unit
+    int stages;      // x stages of the ring
+    int ctas;        // CTAs an SM
+    int in_bytes;    // an x stage: rows * P bytes and 32 of slack, rounded up to 128
+    int out_bytes;   // a staging buffer of out: rows * N * 2 bytes (two of them)
+    int smem;        // stages * in_bytes + 2 * out_bytes + the zeros + 128 to align
+};
+
+// The taps in order of offset: a tap reads the two words at byte
+// word[j] (off & ~3) of a thread's four columns and shifts them right by
+// shift[j] bits (8 * (off & 3)). Nine taps in three runs of three
+// neighbouring offsets (a 3 x 3 grid, whatever its row pitch) are given as
+// their runs' first offsets, in entries 0-2.
+struct SliceTaps {
+    int word[AFCM_P8_MAX_TAPS];
+    int shift[AFCM_P8_MAX_TAPS];
+};
+
+// The most rows a unit (8, 4, 2, 1), then the most CTAs an SM (2, 1),
+// then the most stages (3, 2) that fit the SM's shared memory, for rows of
+// p bytes of x and n columns.
+bool make_slice_plan(int p, int n, SlicePlan& pl) {
+    for (int rows = 8; rows >= 1; rows /= 2)
+        for (int ctas = 2; ctas >= 1; --ctas)
+            for (int stages = 3; stages >= 2; --stages) {
+                const long long in = (static_cast<long long>(rows) * p + 32 + 127) / 128 * 128;
+                const long long out = static_cast<long long>(rows) * n * 2;
+                const long long smem = stages * in + 2 * out + AFCM_SL_ZERO + 128;
+                long long budget = AFCM_SL_SMEM_SM / ctas - 1024;   // 1 KB a CTA for the system
+                if (budget > 232448) budget = 232448;
+                if (smem + AFCM_SL_STATIC <= budget) {
+                    pl = SlicePlan{rows, stages, ctas, static_cast<int>(in),
+                                   static_cast<int>(out), static_cast<int>(smem)};
+                    return true;
+                }
+            }
+    return false;
 }
 
-// `sliceonly`: out[s][o][n] = bf16( sum_tap int32(x[s][o][off_tap + n]) ) for
-// o < I, zero rows from I to O; no product. One thread sums eight
-// neighbouring columns: per tap two aligned 8-byte loads and a funnel shift
-// give the eight bytes that start at any offset.
-__global__ void __launch_bounds__(256)
-slice_sum_kernel(const int8_t* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                 int O, int I, int P, int N, int taps, const Offsets offs) {
-    const int n8 = N / 8;
-    for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-         e < static_cast<long long>(O) * n8;
-         e += static_cast<long long>(gridDim.x) * blockDim.x) {
-        const int o = static_cast<int>(e / n8), n = static_cast<int>(e % n8) * 8;
-        const int s = blockIdx.y;
-        int sum[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-        if (o < I) {
-            const int8_t* row = x + (static_cast<size_t>(s) * I + o) * P;
-            for (int tap = 0; tap < taps; ++tap) {
-                const int c = offs.v[tap] + n, sh = c & 7;
-                const unsigned long long* p =
-                    reinterpret_cast<const unsigned long long*>(row + (c - sh));
-                unsigned long long lo = p[0];
-                if (sh) {
-                    const unsigned long long hi = (c - sh + 16 <= P) ? p[1] : 0ull;
-                    lo = (lo >> (8 * sh)) | (hi << (64 - 8 * sh));
-                }
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-                    sum[i] += static_cast<int>(static_cast<signed char>((lo >> (8 * i)) & 0xff));
+constexpr int BAR_FREE = 1;      // summing warps: this unit's staging buffer is free
+constexpr int BAR_WRITTEN = 2;   // summing warps -> warp 1: the unit's rows are staged
+
+// The lane constants, passed at run time so that the compiler neither
+// turns the multiply-high into a shift nor splits a bias and a mask into
+// two instructions (one LOP3 each, their biases kept apart so that no
+// shared XOR is factored out): even lanes (v ^ 0x00800080) & 0x00ff00ff,
+// odd lanes (v ^ 0x80008000) & 0xff00ff00, moved down by a multiply-high
+// by 2^24. Written in as literals, they cost the general nine-tap path
+// 12-13% at the probe's shape on an H100 (the run path, within the spread).
+struct Lanes {
+    uint32_t bias_even, even, bias_odd, odd, down;
+};
+
+// x [S][I][P] int8, out [S][O][N] bf16 (see above), TAPS taps; RUNS: nine
+// in three runs of three neighbouring offsets.
+template <int TAPS, bool RUNS>
+__global__ void __launch_bounds__(AFCM_SL_THREADS, 2)
+slice_sum_kernel(const int8_t* __restrict__ x, __nv_bfloat16* __restrict__ out, int S, int O,
+                 int I, int P, int N, const __grid_constant__ SlicePlan pl,
+                 const __grid_constant__ SliceTaps tp, const Lanes ln) {
+    extern __shared__ unsigned char sl_smem_raw[];
+    __shared__ __align__(8) uint64_t full[AFCM_SL_MAX_STAGES];    // an x stage landed
+    __shared__ __align__(8) uint64_t empty[AFCM_SL_MAX_STAGES];   // ... and was summed
+    unsigned char* smem = sl_smem_raw + ((128 - afcm::smem_addr(sl_smem_raw) % 128) % 128);
+    unsigned char* in_ring = smem;
+    unsigned char* out_ring = in_ring + pl.stages * pl.in_bytes;
+    unsigned char* zeros = out_ring + 2 * pl.out_bytes;
+    const int tid = threadIdx.x;
+    const int R = pl.rows;
+    const int live = O < I ? O : I;
+    const int per_s = (O + R - 1) / R;
+    const long long units = static_cast<long long>(S) * per_s;
+
+    for (int k = tid; k < AFCM_SL_ZERO / 16; k += AFCM_SL_THREADS)
+        reinterpret_cast<uint4*>(zeros)[k] = make_uint4(0, 0, 0, 0);
+    if (tid == 0) {
+        for (int k = 0; k < pl.stages; ++k) {
+            mbar_init(&full[k], 1);
+            mbar_init(&empty[k], AFCM_SL_SUMMERS / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    afcm::fence_proxy_async();                  // the zeros, visible to the bulk stores
+    __syncthreads();
+
+    if (tid < 32) {
+        // ---------------------------------------------------------- loader
+        if (tid != 0) return;
+        int k = 0;                              // the CTA's units with live rows so far
+        for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+            const int s = static_cast<int>(u / per_s);
+            const int o0 = static_cast<int>(u - static_cast<long long>(s) * per_s) * R;
+            const int o1 = o0 + R < O ? o0 + R : O;
+            const int l1 = o1 < live ? o1 : live;
+            if (o0 < l1) {       // x rows o0 .. l1 - 1, once stage k - stages is summed
+                const int st = k % pl.stages;
+                if (k >= pl.stages) mbar_wait(&empty[st], (k / pl.stages + 1) & 1);
+                const int8_t* src = x + (static_cast<size_t>(s) * I + o0) * P;
+                const uint32_t len = static_cast<uint32_t>(l1 - o0) * P;
+                const uint32_t mis = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(src) & 15);
+                const uint32_t head = (16 - mis) & 15, body = (len - head) & ~15u;
+                const uint32_t tail = len - head - body;   // 0 or 8, as head
+                unsigned char* dst = in_ring + st * pl.in_bytes + mis;   // the span's first byte
+                if (head) *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+                if (tail)
+                    *reinterpret_cast<uint2*>(dst + head + body) =
+                        *reinterpret_cast<const uint2*>(src + head + body);
+                afcm::fence_proxy_async();      // generic writes to the stage before the copy's
+                mbar_expect_tx(&full[st], body);
+                if (body) bulk_load(dst + head, src + head, body, &full[st]);
+                ++k;
+            }
+            if (l1 < o1) {                      // rows max(o0, live) .. o1 - 1 are zero
+                const int d0 = o0 > live ? o0 : live;
+                unsigned char* z = reinterpret_cast<unsigned char*>(
+                    out + (static_cast<size_t>(s) * O + d0) * N);
+                for (long long left = static_cast<long long>(o1 - d0) * N * 2; left > 0;
+                     left -= AFCM_SL_ZERO, z += AFCM_SL_ZERO)
+                    bulk_store(z, zeros, left < AFCM_SL_ZERO ? static_cast<uint32_t>(left)
+                                                             : AFCM_SL_ZERO);
+                bulk_commit();
+                bulk_wait_read<8>();            // a bound on this thread's groups in flight
             }
         }
-        store_eight(out + (static_cast<size_t>(s) * O + o) * N + n, sum);
+        bulk_wait<0>();
+        return;
     }
+
+    // --------------------------------------------------------- summing warps
+    const int ct = tid - 32, warp = ct / 32, lane = ct % 32;
+    const int nq = N / 4;                                 // items of four columns a row
+    const int dr = AFCM_SL_SUMMERS / nq, dq = AFCM_SL_SUMMERS % nq;
+    constexpr int LOADS = RUNS ? 3 : TAPS;               // word pairs (triples) an item
+    int word[LOADS], shift[LOADS];
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j) {
+        word[j] = tp.word[j];
+        shift[j] = tp.shift[j];
+    }
+    // the four columns whose bytes of tap offset 0 start at `at` (4-byte
+    // aligned), as four bf16
+    auto sum4 = [&](const unsigned char* at) {
+        uint32_t even = 0, odd = 0;
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+            const uint32_t w0 = lds32(at + word[j]), w1 = lds32(at + word[j] + 4);
+            if (RUNS) {
+                // a run of three: bytes sh .. sh + 7 as two words, then the
+                // four byte pairs (sh + m, sh + m + 2), m = 0 .. 3, in the
+                // even lanes: the even columns take m = 0, 1, 2 and the
+                // odd ones m = 1, 2, 3
+                const uint32_t w2 = lds32(at + word[j] + 8);
+                const uint32_t a = __funnelshift_r(w0, w1, shift[j]);
+                const uint32_t b = __funnelshift_r(w1, w2, shift[j]);
+                const uint32_t e0 = (a ^ ln.bias_even) & ln.even;
+                const uint32_t e1 = (__funnelshift_r(a, b, 8) ^ ln.bias_even) & ln.even;
+                const uint32_t e2 = (__funnelshift_r(a, b, 16) ^ ln.bias_even) & ln.even;
+                const uint32_t e3 = (__funnelshift_r(a, b, 24) ^ ln.bias_even) & ln.even;
+                const uint32_t mid = e1 + e2;
+                even += e0 + mid;
+                odd += mid + e3;
+            } else {
+                const uint32_t v = __funnelshift_r(w0, w1, shift[j]);
+                even += (v ^ ln.bias_even) & ln.even;
+                odd += __umulhi((v ^ ln.bias_odd) & ln.odd, ln.down);
+            }
+        }
+        constexpr int bias = 128 * TAPS;                  // a lane's bias
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            __int2float_rn(static_cast<int>(even & 0xffffu) - bias),
+            __int2float_rn(static_cast<int>(odd & 0xffffu) - bias));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(
+            __int2float_rn(static_cast<int>(even >> 16) - bias),
+            __int2float_rn(static_cast<int>(odd >> 16) - bias));
+        return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                          *reinterpret_cast<const uint32_t*>(&hi));
+    };
+    int k = 0;
+    for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const int s = static_cast<int>(u / per_s);
+        const int o0 = static_cast<int>(u - static_cast<long long>(s) * per_s) * R;
+        const int o1 = o0 + R < O ? o0 + R : O;
+        const int l1 = o1 < live ? o1 : live;
+        if (o0 >= l1) continue;
+        const int st = k % pl.stages;
+        unsigned char* staged = out_ring + (k & 1) * pl.out_bytes;
+        mbar_wait(&full[st], (k / pl.stages) & 1);
+        bar_sync(BAR_FREE, AFCM_SL_SUMMERS);   // the store of unit k - 2 has read `staged`
+        const unsigned char* rows =
+            in_ring + st * pl.in_bytes +
+            (reinterpret_cast<uintptr_t>(x + (static_cast<size_t>(s) * I + o0) * P) & 15);
+        // two items a pass, for the loads and sums of one to overlap the
+        // other's (the second one, where there is none, sums the first
+        // again and stores nothing)
+        const int items = (l1 - o0) * nq;
+        int r = ct / nq, q = ct - r * nq;
+        for (int it = ct; it < items; it += 2 * AFCM_SL_SUMMERS) {
+            int r2 = r + dr, q2 = q + dq;
+            if (q2 >= nq) {
+                q2 -= nq;
+                ++r2;
+            }
+            const bool second = it + AFCM_SL_SUMMERS < items;
+            const uint2 a = sum4(rows + static_cast<size_t>(r) * P + 4 * q);
+            const uint2 b = sum4(rows + static_cast<size_t>(second ? r2 : r) * P +
+                                 4 * (second ? q2 : q));
+            *reinterpret_cast<uint2*>(staged + static_cast<size_t>(r) * N * 2 + 8 * q) = a;
+            if (second)
+                *reinterpret_cast<uint2*>(staged + static_cast<size_t>(r2) * N * 2 + 8 * q2) = b;
+            r = r2 + dr;
+            q = q2 + dq;
+            if (q >= nq) {
+                q -= nq;
+                ++r;
+            }
+        }
+        afcm::fence_proxy_async();              // the staged rows, visible to the bulk store
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);   // this warp is done with the x stage
+        if (warp == 0) {
+            bar_sync(BAR_WRITTEN, AFCM_SL_SUMMERS);
+            if (lane == 0) {
+                bulk_store(out + (static_cast<size_t>(s) * O + o0) * N, staged,
+                           static_cast<uint32_t>(l1 - o0) * N * 2);
+                bulk_commit();
+                bulk_wait_read<1>();            // unit k - 1's store has read its buffer
+            }
+            __syncwarp();
+        } else {
+            bar_arrive(BAR_WRITTEN, AFCM_SL_SUMMERS);
+        }
+        ++k;
+    }
+    if (ct == 0) bulk_wait<0>();
 }
 
 // A 3-D int8 tensor map: dims innermost first, strides of dims 1 and 2 in
@@ -784,22 +1030,69 @@ int afcm_taps_matmul_int8(const void* w, const void* x, void* out, int s, int o,
                     : launch_taps<int, false>(x, out, s, o, i, p, n, piece, wmap, xmap, pl, st);
 }
 
+// The plan of a slice-sum call (make_slice_plan) as six ints: rows,
+// stages, ctas, in_bytes, out_bytes, smem. 0, or an error if there is none.
+int afcm_slice_sum_plan(int o, int i, int p, int n, int* info) {
+    SlicePlan pl;
+    if (o < 1 || i < 1 || n < 8 || n % 8 || p % 8 || p < n || !make_slice_plan(p, n, pl))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int v[6] = {pl.rows, pl.stages, pl.ctas, pl.in_bytes, pl.out_bytes, pl.smem};
+    for (int k = 0; k < 6; ++k) info[k] = v[k];
+    return 0;
+}
+
 // out bf16 [s][o][n] = sum_tap int32(x[s][row][off_tap + n]) for row < i,
-// zero rows from i to o. x int8 [s][i][p]; n and p multiples of 8.
+// zero rows from i to o (slice_sum_kernel). x int8 [s][i][p], 8-byte
+// aligned; out 16-byte aligned; n and p multiples of 8; off + n <= p for
+// every tap.
 int afcm_slice_sum_int8(const void* x, void* out, int s, int o, int i, int p, int n,
                         int taps, const int* offs, void* stream) {
-    if (s < 1 || s > 65535 || o < 1 || i < 1 || n < 8 || n % 8 || p % 8 || taps < 1 ||
-        taps > AFCM_P8_MAX_TAPS)
+    if (s < 1 || o < 1 || i < 1 || n < 8 || n % 8 || p % 8 || taps < 1 ||
+        taps > AFCM_P8_MAX_TAPS || !aligned(x, 8) || !aligned(out, 16))
         return static_cast<int>(cudaErrorInvalidValue);
-    Offsets of = {};
-    for (int k = 0; k < taps; ++k) {
+    int sorted[AFCM_P8_MAX_TAPS];
+    for (int k = 0; k < taps; ++k) {            // insertion sort by offset
         if (offs[k] < 0 || offs[k] + n > p) return static_cast<int>(cudaErrorInvalidValue);
-        of.v[k] = offs[k];
+        int j = k;
+        while (j > 0 && sorted[j - 1] > offs[k]) {
+            sorted[j] = sorted[j - 1];
+            --j;
+        }
+        sorted[j] = offs[k];
     }
-    const long long items = static_cast<long long>(o) * (n / 8);
-    const int blocks = static_cast<int>((items + 255) / 256 < 65535 ? (items + 255) / 256 : 65535);
-    slice_sum_kernel<<<dim3(blocks, s), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(x), static_cast<__nv_bfloat16*>(out), o, i, p, n, taps, of);
+    bool runs = taps == 9;                      // three runs of three neighbouring offsets
+    for (int k = 0; k < taps && runs; ++k) runs = sorted[k] == sorted[k - k % 3] + k % 3;
+    SliceTaps tp = {};
+    for (int k = 0; k < (runs ? 3 : taps); ++k) {
+        const int off = sorted[runs ? 3 * k : k];
+        tp.word[k] = off & ~3;
+        tp.shift[k] = 8 * (off & 3);
+    }
+    SlicePlan pl;
+    if (!make_slice_plan(p, n, pl)) return static_cast<int>(cudaErrorInvalidValue);
+    using Kernel = void (*)(const int8_t*, __nv_bfloat16*, int, int, int, int, int, SlicePlan,
+                            SliceTaps, Lanes);
+    const Kernel kernels[AFCM_P8_MAX_TAPS] = {
+        slice_sum_kernel<1, false>, slice_sum_kernel<2, false>, slice_sum_kernel<3, false>,
+        slice_sum_kernel<4, false>, slice_sum_kernel<5, false>, slice_sum_kernel<6, false>,
+        slice_sum_kernel<7, false>, slice_sum_kernel<8, false>, slice_sum_kernel<9, false>};
+    const Kernel kernel = runs ? slice_sum_kernel<9, true> : kernels[taps - 1];
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+    int device = 0, sms = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long units = static_cast<long long>(s) * ((o + pl.rows - 1) / pl.rows);
+    const long long most = static_cast<long long>(sms) * pl.ctas;
+    const int grid = static_cast<int>(units < most ? units : most);
+    kernel<<<grid, AFCM_SL_THREADS, pl.smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(x), static_cast<__nv_bfloat16*>(out), s, o, i, p, n, pl, tp,
+        Lanes{0x00800080u, 0x00ff00ffu, 0x80008000u, 0xff00ff00u, 1u << 24});
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -72,6 +72,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "wgmma_s8.cuh"     // mbarriers and bulk copies
+
 #define AFCM_PS_THREADS 256
 #define AFCM_PS_MAX_BLOCKS (132 * 8)
 #define AFCM_PS_RING_MAX 8          // stages of the bulk copy's ring (barriers held)
@@ -195,43 +197,6 @@ chain_kernel(const V* __restrict__ x, V* __restrict__ y, long long items, int ti
     }
 }
 
-// Bulk asynchronous copies (sm_90; PTX ISA, cp.async.bulk and mbarrier): a
-// load from device memory completes on an mbarrier with the bytes it moved,
-// a store to device memory joins the issuing thread's bulk groups. Both run
-// in the async proxy.
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred done;\n"
-        "WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-        "@!done bra WAIT;\n"
-        "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar), "r"(bytes) : "memory");
-    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-                 "[%0], [%1], %2, [%3];" :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-                 : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                 :: "l"(dst), "r"(src), "r"(bytes) : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
 // y = x over the pieces of a span of `bytes` (a multiple of 16) between
 // 16-byte aligned addresses, driven by one thread: next() gives the offset
 // of the next piece of stage_bytes (the last may be shorter; negative: none
@@ -244,7 +209,7 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t byt
 // fence stands between them. The caller waits for the last stores.
 template <typename Next>
 __device__ void copy_pieces(const unsigned char* x, unsigned char* y, long long bytes,
-                            uint32_t ring, uint32_t bars, int stages, int stage_bytes,
+                            unsigned char* ring, uint64_t* bars, int stages, int stage_bytes,
                             Next next) {
     long long at[AFCM_PS_RING_MAX];
     auto size = [&](long long off) {
@@ -253,7 +218,8 @@ __device__ void copy_pieces(const unsigned char* x, unsigned char* y, long long 
     };
     auto load = [&](int s, long long off) {
         at[s] = off;
-        bulk_load(ring + s * stage_bytes, x + off, size(off), bars + 8 * s);
+        afcm::mbar_expect_tx(bars + s, size(off));
+        afcm::bulk_load(ring + s * stage_bytes, x + off, size(off), bars + s);
     };
     int loaded = 0;
     bool more = true;
@@ -264,14 +230,15 @@ __device__ void copy_pieces(const unsigned char* x, unsigned char* y, long long 
     }
     for (long long i = 0; loaded > 0; ++i) {
         const int s = static_cast<int>(i % stages);
-        bar_wait(bars + 8 * s, static_cast<uint32_t>((i / stages) & 1));
-        bulk_store(y + at[s], ring + s * stage_bytes, size(at[s]));
+        afcm::mbar_wait(bars + s, static_cast<uint32_t>((i / stages) & 1));
+        afcm::bulk_store(y + at[s], ring + s * stage_bytes, size(at[s]));
+        afcm::bulk_commit();
         --loaded;
         if (i >= 1 && more) {               // refill the stage of piece i - 1
             const long long off = next();
             if (off < 0) more = false;
             else {
-                asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+                afcm::bulk_wait_read<1>();
                 load(static_cast<int>((i - 1) % stages), off);
                 ++loaded;
             }
@@ -294,7 +261,7 @@ copy_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ y,
             long long nbytes, long long block_bytes, int stages, int stage_bytes,
             unsigned long long* counter) {
     extern __shared__ __align__(128) unsigned char ring[];
-    __shared__ __align__(8) unsigned long long bars[AFCM_PS_RING_MAX];
+    __shared__ __align__(8) uint64_t bars[AFCM_PS_RING_MAX];
     const long long lo = counter ? 0 : static_cast<long long>(blockIdx.x) * block_bytes;
     const long long len = block_bytes < nbytes - lo ? block_bytes : nbytes - lo;
     const unsigned char* src = x + lo;
@@ -314,15 +281,14 @@ copy_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ y,
         }
     }
     if (lane != 0 || body == 0) return;
-    const uint32_t r = smem_u32(ring), b = smem_u32(bars);
-    for (int s = 0; s < stages; ++s) bar_init(b + 8 * s);
+    for (int s = 0; s < stages; ++s) afcm::mbar_init(bars + s, 1);
     // the barriers, initialised in the generic proxy, are used by the
     // async proxy's complete_tx
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    afcm::fence_proxy_async();
     const long long pieces = (body + stage_bytes - 1) / stage_bytes;
     if (counter) {
-        copy_pieces(src + head, dst + head, body, r, b, stages, stage_bytes, [&] {
+        copy_pieces(src + head, dst + head, body, ring, bars, stages, stage_bytes, [&] {
             const long long p = static_cast<long long>(atomicAdd(counter, 1ULL));
             return p < pieces ? p * stage_bytes : -1LL;
         });
@@ -335,12 +301,12 @@ copy_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ y,
         }
     } else {
         long long k = 0;
-        copy_pieces(src + head, dst + head, body, r, b, stages, stage_bytes, [&] {
+        copy_pieces(src + head, dst + head, body, ring, bars, stages, stage_bytes, [&] {
             return k < pieces ? stage_bytes * k++ : -1LL;
         });
     }
     // the CTA (and its shared memory) lasts until every store has landed
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    afcm::bulk_wait<0>();
 }
 
 // out [n_th][n_tw][c_out][win_h][win_w] fp32. One CTA per window position
@@ -395,7 +361,6 @@ windows_kernel(const float* __restrict__ x, float* __restrict__ out, int C, int 
     }
 
     const int dq = THREADS % win_w, dr = (THREADS / win_w) % win_h, dc = THREADS / area;
-    const uint32_t sbuf = smem_u32(buf);
     for (long long at = head; at < head + body; at += chunk) {
         const int n = static_cast<int>(head + body - at < chunk ? head + body - at : chunk);
         const long long e = at + tid;
@@ -413,11 +378,12 @@ windows_kernel(const float* __restrict__ x, float* __restrict__ out, int C, int 
             r -= cr ? win_h : 0;
             cl += dc + cr;
         }
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // visible to the bulk copy
+        afcm::fence_proxy_async();              // visible to the bulk copy
         __syncthreads();
         if (tid == 0) {
-            bulk_store(dst + at, sbuf, static_cast<uint32_t>(n) * 4u);
-            asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");   // buf is free
+            afcm::bulk_store(dst + at, buf, static_cast<uint32_t>(n) * 4u);
+            afcm::bulk_commit();
+            afcm::bulk_wait_read<0>();          // buf is free
         }
         __syncthreads();
     }

@@ -1,8 +1,9 @@
-// Warpgroup int8 tensor-core building blocks for sm_90a (conv_int8.cu,
-// probe_int8.cu): wgmma.mma_async m64nNk32 s8 x s8 -> s32 with both operands
-// in shared memory, the shared-memory matrix descriptor of the layout without
-// swizzle, the fences around a batch of products, cp.async (with zero fill)
-// and the mbarrier that hands a stage from its loads to its products.
+// Hopper building blocks for sm_90a (conv_int8.cu, probe_int8.cu,
+// probe_stream.cu): wgmma.mma_async m64nNk32 s8 x s8 -> s32 with both
+// operands in shared memory, the shared-memory matrix descriptor of the layout
+// without swizzle, the fences around a batch of products, cp.async (with zero
+// fill), the mbarrier that hands a stage from its loads to its users, and the
+// bulk asynchronous copies (cp.async.bulk) between device and shared memory.
 //
 // Operands without swizzle, K-major (the only order 8-bit wgmma takes): a
 // core matrix is 8 rows (M of A, N of B) of 16 bytes of K, 128 contiguous
@@ -121,6 +122,52 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "}\n" ::"r"(smem_addr(bar)),
         "r"(parity)
         : "memory");
+}
+
+// One arrival that also announces `bytes` of asynchronous copies (bulk or
+// tensor-map) to come.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+// Bulk asynchronous copies (PTX ISA, cp.async.bulk), both in the async
+// proxy; addresses and sizes are multiples of 16 bytes. A load from device
+// memory completes on an mbarrier with the bytes it moved (announced by
+// mbar_expect_tx); a store to device memory joins the issuing thread's
+// current bulk group, which bulk_commit closes.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(smem)),
+        "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem),
+                 "r"(smem_addr(smem)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `Pending` of this thread's bulk groups have yet to read
+// their source (their shared memory may be written again).
+template <int Pending>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Wait until at most `Pending` of this thread's bulk groups are unfinished
+// (0: every store has landed, and the CTA may end).
+template <int Pending>
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 // D (64 x N, s32, in registers) += A (64 x 32 s8) * B (32 x N s8), both from

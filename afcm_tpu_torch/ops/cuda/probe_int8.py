@@ -14,17 +14,21 @@
   in the script's four modes: ``dot1`` (one tap), ``aligned`` (nine taps,
   offset 0), ``slices`` (``off = dy * wp + dx``) and ``sliceonly`` (the nine
   shifted slices cast to int32 and summed, rows from I to O zero, no
-  product).
+  product: ``slice_sum_int8``).
 
-Both run ``taps_matmul_kernel``: ``wgmma.mma_async`` m64n256k32 products
-from shared memory (``csrc/wgmma_s8.cuh``, as the int8 conv has them); a
-loader warp brings the weights and x by tensor-map copies, x once per K
-step for all taps, and three warps transpose it in shared memory when it
-comes n-contiguous, through a ring of stages on mbarriers that
-``plan_taps`` sizes; ``sliceonly`` runs ``slice_sum_kernel``.
-Integer sums have no rounding: each kernel equals its plain version bit for
-bit. A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. ``launches`` counts the launches by kernel name.
+K8 and the three product modes run ``taps_matmul_kernel``:
+``wgmma.mma_async`` m64n256k32 products from shared memory
+(``csrc/wgmma_s8.cuh``, as the int8 conv has them); a loader warp brings
+the weights and x by tensor-map copies, x once per K step for all taps, and
+three warps transpose it in shared memory when it comes n-contiguous,
+through a ring of stages on mbarriers that ``plan_taps`` sizes.
+``sliceonly`` runs ``slice_sum_kernel``: persistent CTAs stage a unit of x
+rows once for all taps by one bulk copy through a ring, sum the taps in
+16-bit lanes of packed words and store the unit's bf16 rows by one bulk
+copy, as ``plan_slice_sum`` sizes them. Integer sums have no rounding: each
+kernel equals its plain version bit for bit. A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. ``launches`` counts
+the launches by kernel name.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 
 # Launches of each kernel in this process (tests and chip_smoke.py read and
 # reset them).
-launches = {"stacked_matmul": 0, "nine_tap": 0}
+launches = {"stacked_matmul": 0, "nine_tap": 0, "slice_sum": 0}
 
 MODES = ("dot1", "aligned", "slices", "sliceonly")
 _M_ALIGN = 128      # O and n: AFCM_P8_BM in csrc/probe_int8.cu, half of AFCM_P8_BN
@@ -50,6 +54,10 @@ MAX_STAGES = 8
 BOX_MAX = 256                                   # bytes (raw x) or rows (K-major) of a box
 SMEM_BUDGET = 232448 - 4 * 8 * MAX_STAGES       # 227 KB less the static barriers
 ALIGN = 1024                                    # the ring's start in shared memory
+# slice_sum_kernel's (AFCM_SL_*)
+SLICE_ZERO = 4096                               # bytes of zeros the dead rows come from
+SLICE_SMEM_SM = 233472                          # shared memory of an SM
+SLICE_STATIC = 2 * 8 * 4                        # its static barriers
 
 
 def reset_launches() -> None:
@@ -169,6 +177,50 @@ def kernel_plan(offsets, i: int, raw: bool, out_bytes: int, tma_ok: bool = True)
                     tuple(rest[2 * taps:2 * taps + head[0]]))
 
 
+@dataclasses.dataclass(frozen=True)
+class SlicePlan:
+    """How ``slice_sum_kernel`` stages a call (``csrc/probe_int8.cu``:
+    ``make_slice_plan``, which this mirrors; ``afcm_slice_sum_plan`` exports
+    the C side's). A unit is ``rows`` rows of o of one step; ``ctas`` CTAs
+    an SM walk the units. x comes into a ring of ``stages`` stages of
+    ``in_bytes`` (a unit's rows * P bytes and 32 of slack, rounded up to
+    128), out leaves through two staging buffers of ``out_bytes`` (rows *
+    N * 2); ``smem`` adds the zero rows' 4 KB and 128 bytes to align."""
+    rows: int
+    stages: int
+    ctas: int
+    in_bytes: int
+    out_bytes: int
+    smem: int
+
+
+def plan_slice_sum(o: int, i: int, p: int, n: int) -> SlicePlan:
+    """The kernel's plan for out rows ``o``, x rows ``i``, x row bytes ``p``
+    and ``n`` columns (multiples of 8): the most rows a unit (8, 4, 2, 1),
+    then the most CTAs an SM (2, 1), then the most stages (3, 2) that fit
+    the SM's shared memory, 1 KB a CTA kept for the system."""
+    if o < 1 or i < 1 or n < 8 or n % 8 or p % 8 or p < n:
+        raise ValueError(f"slice_sum plan: o {o}, i {i}, p {p}, n {n}")
+    for rows in (8, 4, 2, 1):
+        for ctas in (2, 1):
+            for stages in (3, 2):
+                in_bytes = _round_up(rows * p + 32, 128)
+                out_bytes = rows * n * 2
+                smem = stages * in_bytes + 2 * out_bytes + SLICE_ZERO + 128
+                if smem + SLICE_STATIC <= min(232448, SLICE_SMEM_SM // ctas - 1024):
+                    return SlicePlan(rows, stages, ctas, in_bytes, out_bytes, smem)
+    raise ValueError(f"slice_sum plan: no unit of one row fits, p {p}, n {n}")
+
+
+def kernel_slice_plan(o: int, i: int, p: int, n: int) -> SlicePlan:
+    """The C side's plan (``afcm_slice_sum_plan``), to hold ``plan_slice_sum`` to."""
+    info = (ctypes.c_int * 6)()
+    err = _lib().afcm_slice_sum_plan(o, i, p, n, info)
+    if err != 0:
+        raise RuntimeError(f"afcm_slice_sum_plan: CUDA error {err}")
+    return SlicePlan(*info)
+
+
 # ---------------------------------------------------------------- plain
 
 def _int_matmul(a, b):
@@ -200,16 +252,21 @@ def taps_matmul_int8_plain(w, x, offsets, cols: int, raw: bool = True,
     return acc if out_dtype == torch.int32 else to_bf16(acc)
 
 
-def nine_tap_int8_plain(w9, x, mode: str, cols: int, wp: int):
-    o, i = w9.shape[1:]
+def slice_sum_int8_plain(x, offsets, o: int, cols: int):
+    """The plain version of ``slice_sum_int8``."""
+    rows = min(o, x.shape[1])
     acc = torch.zeros((x.shape[0], o, cols), dtype=torch.int32, device=x.device)
+    for off in offsets:
+        acc[:, :rows] += x[:, :rows, off:off + cols].to(torch.int32)
+    return to_bf16(acc)
+
+
+def nine_tap_int8_plain(w9, x, mode: str, cols: int, wp: int):
+    if mode == "sliceonly":
+        return slice_sum_int8_plain(x, tap_offsets(mode, wp), w9.shape[1], cols)
+    acc = torch.zeros((x.shape[0], w9.shape[1], cols), dtype=torch.int32, device=x.device)
     for tap, off in enumerate(tap_offsets(mode, wp)):
-        rhs = x[:, :, off:off + cols]
-        if mode == "sliceonly":
-            rows = min(o, i)
-            acc[:, :rows] += rhs[:, :rows].to(torch.int32)
-        else:
-            acc += _int_matmul(w9[tap][None], rhs)
+        acc += _int_matmul(w9[tap][None], x[:, :, off:off + cols])
     return to_bf16(acc)
 
 
@@ -224,7 +281,9 @@ def _lib():
     lib.afcm_taps_matmul_int8.argtypes = [p, p, p, i, i, i, i, i, i, p, i, i, p]
     lib.afcm_slice_sum_int8.argtypes = [p, p, i, i, i, i, i, i, p, p]
     lib.afcm_taps_plan.argtypes = [p, i, i, i, i, i, p]
-    for fn in (lib.afcm_taps_matmul_int8, lib.afcm_slice_sum_int8, lib.afcm_taps_plan):
+    lib.afcm_slice_sum_plan.argtypes = [i, i, i, i, p]
+    for fn in (lib.afcm_taps_matmul_int8, lib.afcm_slice_sum_int8, lib.afcm_taps_plan,
+               lib.afcm_slice_sum_plan):
         fn.restype = ctypes.c_int
     return lib
 
@@ -316,9 +375,49 @@ def stacked_matmul_int8(a, b, b_layout: str = "kil"):
     return taps_matmul_int8(a[None], b, [0], l, raw=b_layout == "kil", counter="stacked_matmul")
 
 
+def slice_sum_int8(x, offsets, o: int, cols: int):
+    """K9's ``sliceonly``, ``slice_sum_kernel``: for every step s,
+
+        out[s, r] = bf16( sum_tap int32(x[s, r, off : off + cols]) )   r < min(o, I)
+
+    and rows from I to ``o`` zero, exact in int32 before the one rounding.
+
+    Args:
+      x: int8 ``[S, I, P]``.
+      offsets: 1 to 9 column offsets, in any order, each with ``off + cols
+        <= P``.
+      o: rows of the output.
+    Returns bf16 ``[S, o, cols]``. On the card cols and P must be multiples
+    of 8 and x 8-byte aligned; anything else raises. The launch counts under
+    ``slice_sum``."""
+    _check_int8("slice_sum_int8", x=x)
+    offsets = [int(v) for v in offsets]
+    if x.ndim != 3 or not 1 <= len(offsets) <= MAX_TAPS or o < 1 or cols < 1 \
+            or min(offsets) < 0 or max(offsets) + cols > x.shape[2]:
+        raise ValueError(f"slice_sum_int8: x {tuple(x.shape)}, offsets {offsets}, o {o}, "
+                         f"cols {cols}")
+    if x.device.type == "cpu":
+        return slice_sum_int8_plain(x, offsets, o, cols)
+    s, i, p = x.shape
+    if cols % 8 or p % 8 or x.data_ptr() % 8:
+        raise ValueError(f"slice_sum_int8 on the card takes cols and P in multiples of 8 and "
+                         f"x 8-byte aligned, got cols {cols}, P {p}, x at "
+                         f"{x.data_ptr() % 16} bytes off 16")
+    plan_slice_sum(o, i, p, cols)               # raises where no unit of one row fits
+    out = torch.empty((s, o, cols), dtype=torch.bfloat16, device=x.device)
+    offs = (ctypes.c_int * len(offsets))(*offsets)
+    _launch("slice_sum", _lib().afcm_slice_sum_int8, x, x.data_ptr(), out.data_ptr(),
+            s, o, i, p, cols, len(offsets), offs)
+    return out
+
+
 def nine_tap_int8(w9, x, mode: str, cols: int, wp: int):
     """K9: per step ``s``, the sum over the taps of ``mode`` of
     ``w9[tap] @ x[s, :, off : off + cols]`` in int32, rounded to bf16.
+    ``dot1``, ``aligned`` and ``slices`` run ``taps_matmul_kernel``
+    (``taps_matmul_int8``, counted under ``nine_tap``); ``sliceonly`` sums
+    the slices without a product in ``slice_sum_kernel`` (``slice_sum_int8``,
+    counted under ``slice_sum``).
 
     Args:
       w9: int8 ``[9, O, I]``.
@@ -336,16 +435,12 @@ def nine_tap_int8(w9, x, mode: str, cols: int, wp: int):
     if x.device.type == "cpu":
         return nine_tap_int8_plain(w9, x, mode, cols, wp)
     _, o, i = w9.shape
-    s, _, p = x.shape
+    p = x.shape[2]
     if o % _M_ALIGN or cols % _M_ALIGN or i % _K_ALIGN or p % 8:
         raise ValueError(f"nine_tap_int8 on the card takes O and cols in multiples of "
                          f"{_M_ALIGN}, I of {_K_ALIGN} and P of 8, got O {o}, I {i}, "
                          f"cols {cols}, P {p}")
-    if mode != "sliceonly":
-        return taps_matmul_int8(w9, x, offsets, cols, out_dtype=torch.bfloat16,
-                                counter="nine_tap")
-    out = torch.empty((s, o, cols), dtype=torch.bfloat16, device=x.device)
-    offs = (ctypes.c_int * len(offsets))(*offsets)
-    _launch("nine_tap", _lib().afcm_slice_sum_int8, x, x.data_ptr(), out.data_ptr(),
-            s, o, i, p, cols, len(offsets), offs)
-    return out
+    if mode == "sliceonly":
+        return slice_sum_int8(x, offsets, o, cols)
+    return taps_matmul_int8(w9, x, offsets, cols, out_dtype=torch.bfloat16,
+                            counter="nine_tap")

@@ -14,8 +14,11 @@ no tap math:
           once with the 224 KB one CTA can have (`chainX`)
 
 and beside them ``Tensor.copy_`` (the library's copy), ``x.unsqueeze(1) *
-s`` (one broadcasting multiply: wr4x as a library call; copy and wr4x are
-timed with these in turns, median of ``WINDOWS`` windows) and, at the same shape,
+s`` (one broadcasting multiply: wr4x as a library call) and ``x4.sum(1)``
+(rd4x's sum as one reduction, which rounds once from float32 where rd4x
+rounds each pairwise add, so its largest difference in bf16 units of
+the largest addend is printed beside it); copy, wr4x and rd4x are timed with these in turns,
+median of ``WINDOWS`` windows. At the same shape,
 the fused ``filtered_lrelu`` kernel (separable 12-tap up2 -> lrelu -> down2)
 and its plain composition with the same least-traffic accounting (x read, y
 written): how far the real kernel is from the stream rate of its own
@@ -70,6 +73,24 @@ def library_wr4x(x):
     return x.unsqueeze(1) * s.view(1, 4, 1, 1)
 
 
+def library_rd4x(x4):
+    """K5c's sum as one library call: a reduction over the four planes,
+    accumulated in float32 and rounded to bf16 once (rd4x rounds each of its
+    three adds), so not bit-equal to the plain version."""
+    return x4.sum(1)
+
+
+def rd4x_units(a, b, x4) -> float:
+    """The largest difference of two sums of x4's four planes (``[C, H,
+    W]``), each element in bf16 units of the last place of its largest
+    addend (2^(e - 8) for |addend| = m * 2^e, 0.5 <= m < 1): the scale of
+    one rounding, where units of the sum itself blow up as the addends
+    cancel."""
+    _, e = torch.frexp(x4.float().abs().amax(1))
+    unit = torch.ldexp(torch.ones(e.shape, device=e.device), e - 8)
+    return float(((a.float() - b.float()).abs() / unit).max())
+
+
 def measure(name, c0, h, w, rep, device, gen, batch=BATCH, iters=10, windows=WINDOWS):
     c = batch * c0 * rep
     x = randn_bf16((c, h, w), device, gen)
@@ -91,7 +112,11 @@ def measure(name, c0, h, w, rep, device, gen, batch=BATCH, iters=10, windows=WIN
         lambda: ps.stream_chain(x, tile=ps.CHAIN_TILE_MAX), device, iters)
     free(device)
     x4 = randn_bf16((c, 4, h, w), device, gen)
-    row["rd4x_ms"] = time_ms(lambda: ps.stream_rd4x(x4), device, iters)
+    t = time_windows({"rd4x": lambda: ps.stream_rd4x(x4),
+                      "library_rd4x": lambda: library_rd4x(x4)}, device, windows, iters)
+    for key, r in t.items():
+        row[f"{key}_ms"], row[f"{key}_ms_spread"] = r["ms"], [r["lo"], r["hi"]]
+    row["library_rd4x_units"] = rd4x_units(library_rd4x(x4), ps.stream_rd4x_plain(x4), x4)
     del x4
     free(device)
     row["bytes"] = dict(copy=2 * nb, wr4x=5 * nb, rd4x=5 * nb, chain=2 * nb)
@@ -138,6 +163,7 @@ def main(argv=None):
         row["chain_max_tile_gbps"] = gbps(nb["chain"], row["chain_max_tile_ms"])
         row["library_copy_gbps"] = gbps(nb["copy"], row["library_copy_ms"])
         row["library_wr4x_gbps"] = gbps(nb["wr4x"], row["library_wr4x_ms"])
+        row["library_rd4x_gbps"] = gbps(nb["rd4x"], row["library_rd4x_ms"])
         row["fused_gbps"] = gbps(row["fused_bytes"], row["fused_ms"])
         row["fused_plain_gbps"] = gbps(row["fused_bytes"], row["fused_plain_ms"])
         print(f"{name:10s} {rep:3d} {row['x_mbytes']:7.1f} | {row['copy_gbps']:6.0f} "
@@ -149,11 +175,16 @@ def main(argv=None):
         print("           ms [fastest, slowest window]: " + "; ".join(
             f"{key} {row[f'{key}_ms']:.4f} [{row[f'{key}_ms_spread'][0]:.4f}, "
             f"{row[f'{key}_ms_spread'][1]:.4f}]"
-            for key in ("copy", "library_copy", "wr4x", "library_wr4x")), flush=True)
+            for key in ("copy", "library_copy", "wr4x", "library_wr4x", "rd4x",
+                        "library_rd4x"))
+              + f"; x4.sum(1) {row['library_rd4x_gbps']:.0f} GB/s, at most "
+              f"{row['library_rd4x_units']:g} bf16 units (of the largest addend) from "
+              "rd4x's plain version", flush=True)
         rows.append(row)
     print("\nGB/s of logical bytes (read + written). copy/wr4x/rd4x/chain: the "
           "hand-written stream kernels, no tap math; copy_: Tensor.copy_; x*s: "
-          "x.unsqueeze(1) * s, wr4x's function in one library call.\nchain "
+          "x.unsqueeze(1) * s, wr4x's function in one library call; x4.sum(1): rd4x's "
+          "sum in one library call, rounded once.\nchain "
           f"(chainX: with {4 * ps.CHAIN_TILE_MAX * 16 // 1024} KB shared per CTA) "
           "bounds a fused up -> act -> down kernel's device-memory rate; fused: the "
           "filtered_lrelu kernel at the same shape, x read + y written;\nplain: its "

@@ -8,8 +8,14 @@ products at offset 0), ``slices`` (nine products at the taps' offsets
 and ``sliceonly`` (the nine shifted slices summed, no product). ``aligned``
 against ``slices`` says what the unaligned tap loads cost; ``sliceonly``
 what the slicing costs alone. The four modes are timed together in
-``WINDOWS`` windows, taking turns; a line gives the median and the fastest
-and slowest window.
+``WINDOWS`` windows, taking turns, with ``dot1``'s product as a library
+call beside them (``torch._int_mm`` per step, int32 out: the rounding to
+bf16 is not in it); a line gives the median and the fastest and slowest
+window.
+
+Modes and kernels (``ops/cuda/probe_int8.py``): ``dot1``, ``aligned`` and
+``slices`` run ``taps_matmul_kernel``, ``sliceonly`` runs
+``slice_sum_kernel``.
 
     python -m afcm_tpu_torch.probes.int8_kernel [--device cpu] [--small]
 """
@@ -19,6 +25,7 @@ from __future__ import annotations
 from ..ops.cuda import probe_int8 as p8
 from ..utils.profiling import time_windows
 from . import INT8_OP_PER_S, banner, device_generator, probe_args, randint8
+from .int8_matmul import library_int_mm
 
 O, I, COLS, WP, STEPS = 512, 384, 1920, 160, 208
 SMALL = dict(o=128, i=64, cols=128, wp=8, steps=2)
@@ -45,8 +52,12 @@ def main(argv=None):
           f"int8 peak {INT8_OP_PER_S / 1e12:.0f} TOP/s; ms: median of windows "
           "[fastest, slowest]", flush=True)
     iters, windows = (2, 2) if args.small else (10, WINDOWS)
-    t = time_windows({mode: lambda mode=mode: p8.nine_tap_int8(w9, x, mode, cols, wp)
-                      for mode in p8.MODES}, device, windows, iters)
+    calls = {mode: lambda mode=mode: p8.nine_tap_int8(w9, x, mode, cols, wp)
+             for mode in p8.MODES}
+    int_mm = library_int_mm(w9[0], x[:, :, :cols])
+    if int_mm is not None:
+        calls["library_dot1"] = int_mm
+    t = time_windows(calls, device, windows, iters)
     rows = []
     for mode in p8.MODES:
         ms, lo, hi = t[mode]["ms"], t[mode]["lo"], t[mode]["hi"]
@@ -54,8 +65,14 @@ def main(argv=None):
         rows.append(dict(mode=mode, ms=ms, ms_spread=[lo, hi], ops=ops, tops=ops / ms / 1e9))
         print(f"{mode:9s}: {ms:7.4f} ms [{lo:.4f}, {hi:.4f}]  "
               f"({ops / ms / 1e9:6.1f} TOP/s equivalent)"
-              + ("  [no products: the slices and their sum alone]"
-                 if mode == "sliceonly" else ""), flush=True)
+              + ("  [slice_sum_kernel, no products: the slices and their sum alone]"
+                 if mode == "sliceonly" else "  [taps_matmul_kernel]"), flush=True)
+    lib, dot1 = t.get("library_dot1"), rows[p8.MODES.index("dot1")]
+    dot1["library_ms"] = None if lib is None else lib["ms"]
+    dot1["library_ms_spread"] = None if lib is None else [lib["lo"], lib["hi"]]
+    print("dot1 as torch._int_mm per step (int32 out): " + (
+        "n/a (no _int_mm for the shape here)" if lib is None else
+        f"{lib['ms']:7.4f} ms [{lib['lo']:.4f}, {lib['hi']:.4f}]"), flush=True)
     return rows
 
 

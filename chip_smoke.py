@@ -95,17 +95,20 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    at bf16 b16, the conv implementation set by configure_numerics: finite
    volume and scores, 28 K1, 11 K3 and 11 launches of each quantizer per
    batch; then the knob off and no K3 launch in the next forward;
-9. the probes: (a) each of the nine probe kernels (copy, wr4x, rd4x, chain,
-   copy3d, copy2d, windows, stacked_matmul, nine_tap in its four modes) at
-   a small shape and at a full one against its plain version (copy3d and
+9. the probes: (a) each of the ten probe kernels (copy, wr4x, rd4x, chain,
+   copy3d, copy2d, windows, stacked_matmul, nine_tap in three modes,
+   slice_sum for the fourth, sliceonly) at a small shape and at a full one
+   against its plain version, one launch under its own count (copy3d and
    copy2d at every cb and br of stream_diag, the small ones also from a view
    2 bytes off a 16-byte boundary): every one is exact, the count of
    unequal elements is printed and must be 0, and wr4x's library call
-   (x.unsqueeze(1) * s) is held to its plain version the same way; (b) the
+   (x.unsqueeze(1) * s) is held to its plain version the same way (rd4x's,
+   x4.sum(1), rounds once: its largest difference is printed); (b) the
    five entry points (afcm_tpu_torch.probes.*.main) at full size, their
    tables printed, each kernel launched at least once; (c) per kernel its
    time, rate, bound and the library call's time (Tensor.copy_ for the
-   three copies, with the spread of both over the probes' windows);
+   three copies, x4.sum(1) for rd4x, with the spread of both over the
+   probes' windows);
 10. the serve entry point's loop (afcm_tpu_torch.serve.serve_subjects) over
    the phantom at full width in float32, with the float32 fetch and with
    tpu.fetch_dtype bfloat16: 28 K1 launches per batch, the bf16-fetched
@@ -1431,21 +1434,21 @@ def check_probe_kernels(device):
     results = {}
 
     def hold(kernel, size, fn, plain, *args, note=None):
-        before = dict(ps.launches), dict(p8.launches)
+        before = {**ps.launches, **p8.launches}
         got = fn(*args)
         torch.cuda.synchronize()
-        launched = sum(ps.launches.values()) + sum(p8.launches.values()) \
-            - sum(before[0].values()) - sum(before[1].values())
+        launched = {k: v - before[k] for k, v in {**ps.launches, **p8.launches}.items()
+                    if v != before[k]}
         want = plain(*args)
         unequal, err = unequal_elements(got, want)
         plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=0) if size == "full" else None
         phase("9a probe kernel vs plain", kernel=kernel, size=size,
               **({"note": note} if note else {}), out=list(got.shape),
-              unequal_elements=unequal, max_abs_err=err, launches=launched,
+              unequal_elements=unequal, max_abs_err=err, launches=launched.get(kernel, 0),
               plain_ms=plain_ms)
-        if unequal or launched != 1:
+        if unequal or launched != {kernel: 1}:
             raise AssertionError(f"{kernel} ({size}): {unequal} elements differ from the "
-                                 f"plain version, {launched} launches")
+                                 f"plain version, launches {launched}")
         old = results.get(kernel, (0, 0.0, None))
         results[kernel] = (old[0] + unequal, max(old[1], err),
                            plain_ms if plain_ms is not None else old[2])
@@ -1468,6 +1471,10 @@ def check_probe_kernels(device):
         del x
         x4 = probes.randn_bf16((shape[0], 4) + shape[1:], device, gen)
         hold("rd4x", size, ps.stream_rd4x, ps.stream_rd4x_plain, x4)
+        phase("9a library call vs plain", kernel="rd4x", size=size, library="x4.sum(1)",
+              max_units=fir_roofline.rd4x_units(fir_roofline.library_rd4x(x4),
+                                                ps.stream_rd4x_plain(x4), x4),
+              units="bf16 units of the largest addend (rounds once, not bit-equal)")
         del x4
     # the copies at every cb and br of stream_diag, and a view 2 bytes off a
     # 16-byte boundary (small: the bulk copy's head, body and tail)
@@ -1523,7 +1530,8 @@ def check_probe_kernels(device):
         w9 = probes.randint8((9, o, i), device, gen)
         x = probes.randint8((steps, i, int8_kernel.window(cols, wp)), device, gen)
         for mode in p8.MODES:
-            hold("nine_tap", size if mode == "slices" or size == "small"
+            kernel = "slice_sum" if mode == "sliceonly" else "nine_tap"
+            hold(kernel, size if mode in ("slices", "sliceonly") or size == "small"
                  else size + " (not timed)",
                  lambda u, v: p8.nine_tap_int8(u, v, mode, cols, wp),
                  lambda u, v: p8.nine_tap_int8_plain(u, v, mode, cols, wp), w9, x, note=mode)
@@ -1573,14 +1581,17 @@ def run_probes(checked):
 
     for kernel, line in (("copy", 81), ("wr4x", 94), ("rd4x", 112), ("chain", 130)):
         nb = fir["bytes"][kernel]
-        library = {"copy": "Tensor.copy_", "wr4x": "x.unsqueeze(1) * s"}.get(kernel)
-        spreads = {} if library is None else dict(
+        library = {"copy": "Tensor.copy_", "wr4x": "x.unsqueeze(1) * s",
+                   "rd4x": "x4.sum(1)"}.get(kernel)
+        more = {} if library is None else dict(
             ms_spread=fir[f"{kernel}_ms_spread"],
             library_ms_spread=fir[f"library_{kernel}_ms_spread"])
+        if kernel == "rd4x":        # one rounding from float32, not rd4x's three
+            more["library_max_units"] = fir["library_rd4x_units"]
         entry(f"probe_stream_{kernel}", kernel, src, f"scripts/probe_fir_roofline.py:{line}",
               fir[f"{kernel}_ms"], 1e3 * nb / hbm, "bytes",
               fir[f"library_{kernel}_ms"] if library else None, library, shape,
-              gbps=fir[f"{kernel}_gbps"], **spreads)
+              gbps=fir[f"{kernel}_gbps"], **more)
     first = stream_diag.SHAPES[0][0]
     for kernel, key, line in (("copy3d", (first, "copy3d", "cb=8"), 39),
                               ("copy2d", ("flat", "copy2d", "br=4096"), 49)):
@@ -1606,9 +1617,10 @@ def run_probes(checked):
           library_ms_spread=mm["int_mm_ms_spread"] if mm["int_mm_ms"] is not None
           else mm["bf16_ms_spread"])
     sl = taps["slices"]
+    offs = p8.tap_offsets("slices", int8_kernel.WP)
+    reach = max(offs) + int8_kernel.COLS - min(offs)   # the bytes of an x row a mode reads
     nbytes = 9 * int8_kernel.O * int8_kernel.I + int8_kernel.STEPS * (
-        int8_kernel.I * int8_kernel.window(int8_kernel.COLS, int8_kernel.WP)
-        + 2 * int8_kernel.O * int8_kernel.COLS)
+        int8_kernel.I * reach + 2 * int8_kernel.O * int8_kernel.COLS)
     by_ops, by_bytes = 1e3 * sl["ops"] / probes.INT8_OP_PER_S, 1e3 * nbytes / hbm
     entry("probe_int8_nine_tap", "nine_tap", "afcm_tpu_torch/csrc/probe_int8.cu",
           "scripts/diag_int8_kernel.py:38", sl["ms"], max(by_ops, by_bytes),
@@ -1616,7 +1628,18 @@ def run_probes(checked):
           f"mode slices: w9 [9,{int8_kernel.O},{int8_kernel.I}], x [{int8_kernel.STEPS},"
           f"{int8_kernel.I},{int8_kernel.window(int8_kernel.COLS, int8_kernel.WP)}] int8 "
           "-> bf16", tops=sl["tops"],
-          modes_ms={mode: row["ms"] for mode, row in taps.items()}, ms_spread=sl["ms_spread"])
+          modes_ms={mode: taps[mode]["ms"] for mode in ("dot1", "aligned", "slices")},
+          ms_spread=sl["ms_spread"],
+          dot1_library_ms=taps["dot1"]["library_ms"],
+          dot1_library="torch._int_mm per step (int32 out)")
+    so = taps["sliceonly"]     # the same offsets and reach as mode slices
+    so_bytes = int8_kernel.STEPS * (int8_kernel.I * reach + 2 * int8_kernel.O * int8_kernel.COLS)
+    entry("probe_int8_slice_sum", "slice_sum", "afcm_tpu_torch/csrc/probe_int8.cu",
+          "scripts/diag_int8_kernel.py:38", so["ms"], 1e3 * so_bytes / hbm, "bytes", None,
+          None, f"mode sliceonly: x [{int8_kernel.STEPS},{int8_kernel.I},"
+          f"{int8_kernel.window(int8_kernel.COLS, int8_kernel.WP)}] int8 -> bf16 "
+          f"[{int8_kernel.STEPS},{int8_kernel.O},{int8_kernel.COLS}], rows from "
+          f"{int8_kernel.I} zero", gbps=so_bytes / so["ms"] / 1e6, ms_spread=so["ms_spread"])
     for e in entries:
         phase("9c probe kernel", kernel=e["name"], **{k: e[k] for k in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,27 +1,28 @@
 """Time the window and int8 probe kernels (K7, K8, K9) of this tree against
-those of another tree, in turns in one process, at the probes' full shapes.
+those of other trees, in turns in one process, at the probes' full shapes.
 
-    python scripts/torch_probe_turns.py --other DIR [--out FILE]
+    python scripts/torch_probe_turns.py --other DIR [DIR ...] [--out FILE]
 
-DIR is the root of another checkout of the repository, e.g. the parent
-commit's ``git archive`` unpacked under an ignored directory. Its
-``afcm_tpu_torch/csrc/probe_int8.cu`` and ``probe_stream.cu`` are built with
-this tree's nvcc flags and called through their C entry points, whose
-interfaces are the ones before K7's redesign: ``afcm_taps_matmul_int8`` as
-now, ``afcm_probe_windows`` without the group and chunk arguments. This
-tree's kernels are called through their wrappers. Each case holds the two
-outputs equal bit for bit, then times the other tree's kernel, this tree's
-and, for K8, ``torch._int_mm`` per k together by
-``utils/profiling.time_windows`` (median of 5 windows of 10 calls, the calls
-taking turns; the spread is the fastest and the slowest window). Prints the
-card's name and power limit first and a table; ``--out`` also writes the rows
-as JSON. Needs a card.
+Each DIR is the root of another checkout of the repository, e.g. the parent
+commit's ``git archive`` unpacked under an ignored directory, and is named
+by its last path component. Its ``afcm_tpu_torch/csrc/probe_int8.cu`` and
+``probe_stream.cu`` are built with this tree's nvcc flags and called through
+their C entry points ``afcm_taps_matmul_int8``, ``afcm_slice_sum_int8``
+(K9's ``sliceonly``) and ``afcm_probe_windows`` (the group and chunk from
+this tree's ``plan_windows``). This tree's kernels are called through their
+wrappers. Each case holds every other tree's output equal to this tree's
+bit for bit, then times the other trees' kernels, this tree's and, for K8,
+``torch._int_mm`` per k together by ``utils/profiling.time_windows`` (median
+of 5 windows of 10 calls, the calls taking turns; the spread is the fastest
+and the slowest window). Prints the card's name and power limit first and a
+table; ``--out`` also writes the rows as JSON. Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -42,28 +43,35 @@ from afcm_tpu_torch.utils.profiling import device_banner, time_windows  # noqa: 
 WINDOWS, ITERS = 5, 10
 
 
-def build_other(root: str):
-    """The other tree's probe libraries, built into ``<root>/_build_turns``."""
-    csrc = os.path.join(root, "afcm_tpu_torch", "csrc")
-    out = os.path.join(root, "_build_turns")
-    os.makedirs(out, exist_ok=True)
-    libs, procs = {}, {}
-    for name in ("probe_int8", "probe_stream"):
-        so = os.path.join(out, f"lib{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", so,
-             os.path.join(csrc, f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (so, proc) in procs.items():
+def build_others(roots):
+    """Each other tree's probe libraries, built into ``<root>/_build_turns``
+    (every nvcc started together), by the tree's name."""
+    procs = []
+    for root in roots:
+        csrc = os.path.join(root, "afcm_tpu_torch", "csrc")
+        os.makedirs(os.path.join(root, "_build_turns"), exist_ok=True)
+        for name in ("probe_int8", "probe_stream"):
+            so = os.path.join(root, "_build_turns", f"lib{name}.so")
+            procs.append((root, name, so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", so,
+                 os.path.join(csrc, f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {os.path.basename(root): {} for root in roots}
+    for root, name, so, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the other tree's {name}.cu:\n{log}")
-        libs[name] = ctypes.CDLL(so)
+            raise RuntimeError(f"nvcc failed on {root}'s {name}.cu:\n{log}")
+        libs[os.path.basename(root)][name] = ctypes.CDLL(so)
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    libs["probe_int8"].afcm_taps_matmul_int8.argtypes = [p, p, p, i, i, i, i, i, i, p, i, i, p]
-    libs["probe_stream"].afcm_probe_windows.argtypes = [p, p] + [i] * 12 + [f, p]
-    for fn in (libs["probe_int8"].afcm_taps_matmul_int8, libs["probe_stream"].afcm_probe_windows):
-        fn.restype = ctypes.c_int
+    for tree in libs.values():
+        tree["probe_int8"].afcm_taps_matmul_int8.argtypes = \
+            [p, p, p, i, i, i, i, i, i, p, i, i, p]
+        tree["probe_int8"].afcm_slice_sum_int8.argtypes = [p, p, i, i, i, i, i, i, p, p]
+        tree["probe_stream"].afcm_probe_windows.argtypes = [p, p] + [i] * 12 + [f, i, i, p]
+        for fn in (tree["probe_int8"].afcm_taps_matmul_int8,
+                   tree["probe_int8"].afcm_slice_sum_int8,
+                   tree["probe_stream"].afcm_probe_windows):
+            fn.restype = ctypes.c_int
     return libs
 
 
@@ -86,15 +94,27 @@ def other_taps(lib, w, x, offsets, cols, raw, out_dtype):
     return out
 
 
+def other_slice_sum(lib, x, offsets, o, cols):
+    """The other tree's afcm_slice_sum_int8 (this tree's arguments)."""
+    s, i, p = x.shape
+    out = torch.empty((s, o, cols), dtype=torch.bfloat16, device=x.device)
+    offs = (ctypes.c_int * len(offsets))(*offsets)
+    _check(lib.afcm_slice_sum_int8(
+        x.data_ptr(), out.data_ptr(), s, o, i, p, cols, len(offsets), offs,
+        torch.cuda.current_stream().cuda_stream), "afcm_slice_sum_int8")
+    return out
+
+
 def other_windows(lib, x, call):
-    """The other tree's afcm_probe_windows (before K7's redesign)."""
+    """The other tree's afcm_probe_windows (this tree's plan)."""
     c, h, w = x.shape
     out = torch.empty((call["n_th"], call["n_tw"], c, call["win_h"], call["win_w"]),
                       dtype=x.dtype, device=x.device)
+    plan = ps.plan_windows(c, call["win_h"], call["win_w"])
     _check(lib.afcm_probe_windows(
         x.data_ptr(), out.data_ptr(), c, h, w, c, call["win_h"], call["win_w"], call["n_th"],
         call["n_tw"], call["stride_h"], call["stride_w"], call["lo_h"], call["lo_w"], 2.0,
-        torch.cuda.current_stream().cuda_stream), "afcm_probe_windows")
+        *plan, torch.cuda.current_stream().cuda_stream), "afcm_probe_windows")
     return out
 
 
@@ -109,10 +129,10 @@ def unequal(a, b):
 
 
 def measure(rows, kernel, case, bound_ms, bound_by, calls, device):
-    """Holds 'other' and 'this' equal, times every call in turns."""
-    got = {name: fn() for name, fn in calls.items() if name in ("other", "this")}
+    """Holds every tree's output equal to 'this', times every call in turns."""
+    got = {name: fn() for name, fn in calls.items() if name != "library"}
     torch.cuda.synchronize()
-    diff = unequal(got["other"], got["this"])
+    diff = {name: unequal(out, got["this"]) for name, out in got.items() if name != "this"}
     del got
     t = time_windows(calls, device, WINDOWS, ITERS)
     row = dict(kernel=kernel, case=case, bound_ms=bound_ms, bound_by=bound_by,
@@ -120,25 +140,27 @@ def measure(rows, kernel, case, bound_ms, bound_by, calls, device):
     for name, r in t.items():
         row[f"{name}_ms"], row[f"{name}_ms_spread"] = r["ms"], [r["lo"], r["hi"]]
     rows.append(row)
-    lib = f" | library {row['library_ms']:.4f}" if "library_ms" in row else ""
-    print(f"{kernel:4s} {case:34s} other {row['other_ms']:.4f} "
-          f"[{row['other_ms_spread'][0]:.4f}, {row['other_ms_spread'][1]:.4f}] | this "
-          f"{row['this_ms']:.4f} [{row['this_ms_spread'][0]:.4f}, "
-          f"{row['this_ms_spread'][1]:.4f}]{lib} | bound {bound_ms:.4f} ({bound_by}) | "
+    times = " | ".join(f"{name} {r['ms']:.4f} [{r['lo']:.4f}, {r['hi']:.4f}]"
+                       for name, r in t.items())
+    print(f"{kernel:4s} {case:34s} {times} | bound {bound_ms:.4f} ({bound_by}) | "
           f"unequal {diff}", flush=True)
     torch.cuda.empty_cache()
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
-    parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--other", required=True, nargs="+",
+                        help="roots of the other checkouts (distinct last components)")
     parser.add_argument("--out", default=None, help="write the rows here as JSON")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     device = torch.device("cuda")
     print(device_banner(device), flush=True)
-    other = build_other(os.path.abspath(args.other))
+    roots = [os.path.abspath(r) for r in args.other]
+    if len({os.path.basename(r) for r in roots} | {"this", "library"}) != len(roots) + 2:
+        raise SystemExit("the other trees need distinct names, neither 'this' nor 'library'")
+    others = build_others(roots)
     gen = probes.device_generator(device, 0)
     hbm, peak = probes.HBM_BYTES_PER_S, probes.INT8_OP_PER_S
     rows = []
@@ -150,9 +172,10 @@ def main(argv=None):
         call = dict(win_w=win, n_tw=tiles, stride_w=stride, lo_w=lo, win_h=win, n_th=tiles,
                     stride_h=stride, lo_h=lo)
         moved = xv.numel() * 4 + tiles * tiles * planes * win * win * 4
-        measure(rows, "K7", label, 1e3 * moved / hbm, "bytes",
-                {"other": lambda: other_windows(other["probe_stream"], xv, call),
-                 "this": lambda: ps.element_windows(xv, **call)}, device)
+        calls = {name: functools.partial(other_windows, tree["probe_stream"], xv, call)
+                 for name, tree in others.items()}
+        calls["this"] = lambda: ps.element_windows(xv, **call)
+        measure(rows, "K7", label, 1e3 * moved / hbm, "bytes", calls, device)
         del xv
 
     # K8 at bench_int8_matmul's first shape, b as [K, I, L] and [K, L, I]
@@ -164,9 +187,10 @@ def main(argv=None):
     int_mm = int8_matmul.library_int_mm(a, b)
     for layout in ("kil", "kli"):
         bb = b if layout == "kil" else b.transpose(1, 2).contiguous()
-        calls = {"other": lambda: other_taps(other["probe_int8"], a[None], bb, [0], l,
-                                             layout == "kil", torch.int32),
-                 "this": lambda: p8.stacked_matmul_int8(a, bb, layout)}
+        calls = {name: functools.partial(other_taps, tree["probe_int8"], a[None], bb, [0], l,
+                                         layout == "kil", torch.int32)
+                 for name, tree in others.items()}
+        calls["this"] = functools.partial(p8.stacked_matmul_int8, a, bb, layout)
         if int_mm is not None:
             calls["library"] = int_mm
         measure(rows, "K8", f"[{o},{i}]@[{k},{i},{l}] b {layout}", *bound, calls, device)
@@ -181,24 +205,26 @@ def main(argv=None):
     for mode in p8.MODES:
         offsets = p8.tap_offsets(mode, WP)
         ops = 2 * O * I * COLS * len(offsets) * STEPS
-        moved = (len(offsets) if mode != "sliceonly" else 0) * O * I + x.numel() \
+        reach = max(offsets) + COLS - min(offsets)   # the bytes of an x row the mode reads
+        moved = (len(offsets) if mode != "sliceonly" else 0) * O * I + STEPS * I * reach \
             + 2 * STEPS * O * COLS
         by_ops = 0.0 if mode == "sliceonly" else 1e3 * ops / peak
         bound = (max(by_ops, 1e3 * moved / hbm), "operations" if by_ops >= 1e3 * moved / hbm
                  else "bytes")
-        if mode == "sliceonly":   # the same slice_sum_kernel in both trees
-            this = lambda: p8.nine_tap_int8(w9, x, mode, COLS, WP)
-            calls = {"other": this, "this": this}
+        if mode == "sliceonly":   # slice_sum_kernel of each tree
+            calls = {name: functools.partial(other_slice_sum, tree["probe_int8"], x, offsets,
+                                             O, COLS) for name, tree in others.items()}
         else:
-            calls = {"other": lambda: other_taps(other["probe_int8"], w9, x, offsets, COLS, True,
-                                                 torch.bfloat16),
-                     "this": lambda: p8.nine_tap_int8(w9, x, mode, COLS, WP)}
-        measure(rows, "K9", f"mode {mode}" + (" (one kernel in both)" if mode == "sliceonly"
-                                             else ""), *bound, calls, device)
+            calls = {name: functools.partial(other_taps, tree["probe_int8"], w9, x, offsets,
+                                             COLS, True, torch.bfloat16)
+                     for name, tree in others.items()}
+        calls["this"] = functools.partial(p8.nine_tap_int8, w9, x, mode, COLS, WP)
+        measure(rows, "K9", f"mode {mode}", *bound, calls, device)
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"device": device_banner(device), "rows": rows}, fh, indent=1)
-    bad = [r for r in rows if r["unequal_elements"] != 0]
+            json.dump({"device": device_banner(device), "others": roots, "rows": rows}, fh,
+                      indent=1)
+    bad = [r for r in rows if any(r["unequal_elements"].values())]
     if bad:
         raise SystemExit(f"outputs differ between the trees: {[r['case'] for r in bad]}")
     return rows

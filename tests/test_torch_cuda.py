@@ -864,6 +864,59 @@ def test_probe_nine_tap_equals_plain_bitwise(cuda, mode, geometry):
     assert int((_bits(got) != _bits(want)).sum()) == 0
 
 
+# slice_sum_kernel (K9 sliceonly) apart from the probe's geometry: (offsets,
+# cols, S, O, I, P beyond cols + max offset, x a view 8 bytes off 16). A
+# unit is 8 rows at these widths: "many_units_a_cta" gives every CTA of the
+# persistent grid several units (and the x ring several rounds); I of 13
+# ends the live rows inside a unit; I > O leaves no zero row; a unit
+# straddling I zeroes its dead rows; P % 16 == 8 and the view start every
+# other unit's span 8 bytes off 16 (plain loads of its first and last 8
+# bytes). Nine offsets in three runs of three neighbours take the kernel's
+# run path (its runs starting at every residue mod 4 across the cases),
+# other offsets the general one.
+SLICE_CASES = {
+    "p_mod_16_is_8": ([0, 1, 2, 160, 161, 162, 320, 321, 322], 128, 3, 24, 24, 8, False),
+    "x_view_8_bytes_off": ([0, 1, 2, 21, 22, 23, 42, 43, 44], 64, 2, 16, 16, 0, True),
+    "many_units_a_cta": ([0, 1, 2, 160, 161, 162, 320, 321, 322], 256, 400, 64, 48, 0, False),
+    "i_not_a_multiple_of_the_unit": ([5, 3, 9], 64, 3, 16, 13, 0, False),
+    "i_greater_than_o": ([0, 1, 2, 8, 9, 10, 16, 17, 18], 64, 2, 24, 40, 0, False),
+    "unit_straddling_i": ([2, 0, 1], 128, 2, 20, 12, 0, False),
+    "one_tap": ([7], 128, 3, 16, 16, 0, False),
+    "far_apart": ([0, 1, 1500, 2999, 3001, 17, 4000, 4007, 2], 256, 2, 16, 12, 8, False),
+    "runs_at_residue_3": ([49, 3, 24, 4, 47, 5, 23, 25, 48], 128, 2, 16, 16, 8, False),
+    "nine_taps_not_in_runs": ([0, 1, 2, 10, 11, 13, 20, 21, 22], 128, 2, 16, 16, 0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SLICE_CASES))
+def test_probe_slice_sum_equals_plain_bitwise(cuda, case):
+    from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+    offsets, cols, s, o, i, extra, off8 = SLICE_CASES[case]
+    p = -(-(cols + max(offsets)) // 16) * 16 + extra
+    x = _probe_int8(cuda, (s, i, p), 8)
+    if off8:
+        buf = torch.empty(x.numel() + 16, dtype=torch.int8, device=cuda)
+        x = buf[8:8 + x.numel()].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == 8
+    before = dict(p8.launches)
+    got = p8.slice_sum_int8(x, offsets, o, cols)
+    torch.cuda.synchronize()
+    want = p8.slice_sum_int8_plain(x, offsets, o, cols)
+    assert p8.launches == {**before, "slice_sum": before["slice_sum"] + 1}
+    assert got.shape == want.shape == (s, o, cols) and got.dtype == torch.bfloat16
+    assert int((_bits(got) != _bits(want)).sum()) == 0
+
+
+def test_probe_slice_plan_of_the_kernel_is_plan_slice_sum(cuda):
+    """csrc/probe_int8.cu's make_slice_plan, exported by
+    afcm_slice_sum_plan, against its Python mirror plan_slice_sum."""
+    from afcm_tpu_torch.ops.cuda import probe_int8 as p8
+    for o, i, p, n in [(512, 384, 2304, 1920), (128, 64, 256, 128), (16, 16, 16, 8),
+                       (20, 12, 256, 128), (64, 48, 592, 256), (16, 12, 4272, 256),
+                       (8, 8, 14000, 6000), (4, 4, 30000, 20000)]:
+        assert p8.kernel_slice_plan(o, i, p, n) == p8.plan_slice_sum(o, i, p, n), (o, i, p, n)
+
+
 # taps_matmul_kernel (K8, K9) at taps 1 and 9: (offsets, cols, raw, out
 # dtype, S, O, I, P beyond cols + max offset, x a view 8 bytes off 16).
 # Offsets cover every residue mod 16 and reach past the 256-column tile;

@@ -640,6 +640,96 @@ def test_taps_plan_limits_match_the_kernel_source():
     assert "(232448 - 4 * 8 * AFCM_P8_MAX_STAGES)" in src
 
 
+# slice_sum_kernel (K9 sliceonly): (S, O, I, P, N) of the probe, its small
+# size, and edge cases: I > O, I not a multiple of the unit, a unit
+# straddling I, P % 16 == 8, rows too wide for three stages, for two CTAs
+# an SM, for units of 8 rows.
+SLICE_SHAPES = {"probe": (208, 512, 384, 2304, 1920), "probe_small": (2, 128, 64, 256, 128),
+                "i_greater_than_o": (2, 24, 40, 96, 64), "i_of_13": (3, 16, 13, 80, 64),
+                "straddling_i": (2, 20, 12, 144, 128), "p_mod_16_is_8": (3, 24, 24, 456, 128),
+                "far_apart": (2, 16, 12, 4280, 256), "wide": (1, 8, 8, 14000, 6000),
+                "widest": (1, 4, 4, 30000, 20000)}
+
+
+def _slice_units(rows, s, o, i):
+    """slice_sum_kernel's units in its order (csrc/probe_int8.cu), as (step,
+    first row, end of the summed rows, end of the rows): rows below min(O,
+    I) are summed, the rest zero; CTA b of a grid of g takes units b, b + g,
+    ..."""
+    return [(step, o0, max(o0, min(o0 + rows, o, i)), min(o0 + rows, o))
+            for step in range(s) for o0 in range(0, o, rows)]
+
+
+def _slice_fits(rows, ctas, stages, p, n):
+    smem = stages * (-(-(rows * p + 32) // 128) * 128) + 4 * rows * n + 4096 + 128
+    return smem + p8.SLICE_STATIC <= min(232448, SM_SHARED // ctas - 1024)
+
+
+@pytest.mark.parametrize("case", list(SLICE_SHAPES))
+def test_slice_plan_fits_the_sm_and_covers_every_row(case):
+    """The x ring, two staging buffers and the zero rows fit the SM's
+    shared memory ctas times, 1 KB a CTA kept for the system; an x stage
+    holds a unit's rows, a 16-byte realignment and the one word the last
+    column's tap reads past them; the plan is the first that fits of the
+    most rows a unit, CTAs an SM and stages, in that order. Every row of
+    every step is in one unit, summed below min(O, I) and zero above, and
+    the persistent grid gives each CTA its share of units within one."""
+    s, o, i, p, n = SLICE_SHAPES[case]
+    pl = p8.plan_slice_sum(o, i, p, n)
+    assert pl.in_bytes % 128 == 0 and pl.in_bytes >= pl.rows * p + 8 + 4 + 8
+    assert pl.out_bytes == pl.rows * n * 2 and pl.out_bytes % 16 == 0
+    assert pl.smem == pl.stages * pl.in_bytes + 2 * pl.out_bytes + p8.SLICE_ZERO + 128
+    assert pl.smem + p8.SLICE_STATIC <= 232448
+    assert pl.ctas * (pl.smem + p8.SLICE_STATIC + 1024) <= SM_SHARED
+    assert _slice_fits(pl.rows, pl.ctas, pl.stages, p, n)
+    if pl.rows < 8:
+        assert not any(_slice_fits(2 * pl.rows, c, t, p, n) for c in (1, 2) for t in (2, 3))
+    if pl.ctas == 1:
+        assert not _slice_fits(pl.rows, 2, 2, p, n)
+    if pl.stages == 2:
+        assert not _slice_fits(pl.rows, pl.ctas, 3, p, n)
+    units = _slice_units(pl.rows, s, o, i)
+    seen = np.zeros((s, o), dtype=int)
+    for step, o0, l1, o1 in units:
+        assert o0 <= l1 <= o1 <= o0 + pl.rows and o1 <= o
+        assert l1 == max(o0, min(o1, i))
+        seen[step, o0:o1] += 1
+    assert (seen == 1).all()
+    grid = min(len(units), 132 * pl.ctas)
+    shares = [len(range(b, len(units), grid)) for b in range(grid)]
+    assert sum(shares) == len(units) and max(shares) - min(shares) <= 1
+
+
+def test_slice_plan_at_the_probes_shape():
+    """w9 [9,512,384], x [208,384,2304] -> [208,512,1920]: units of 8 rows
+    (18 KB of x, 30 KB of bf16 out), two CTAs an SM of 100.4 KB each with a
+    two-stage ring (three do not fit beside two staging buffers); 13,312
+    units, 9,984 of them live, on 264 CTAs."""
+    pl = p8.plan_slice_sum(512, 384, 2304, 1920)
+    assert (pl.rows, pl.stages, pl.ctas, pl.in_bytes, pl.out_bytes, pl.smem) == \
+        (8, 2, 2, 18560, 30720, 102784)
+    units = _slice_units(pl.rows, 208, 512, 384)
+    assert len(units) == 13312 and sum(o0 < l1 for _, o0, l1, _ in units) == 9984
+
+
+@pytest.mark.parametrize("o,i,p,n", [(0, 8, 64, 64), (8, 0, 64, 64), (8, 8, 64, 60),
+                                     (8, 8, 68, 64), (8, 8, 56, 64), (8, 8, 64, 0),
+                                     (8, 8, 120000, 60000)])
+def test_slice_plan_refuses_what_the_kernel_does_not_take(o, i, p, n):
+    with pytest.raises(ValueError, match="slice_sum plan"):
+        p8.plan_slice_sum(o, i, p, n)
+
+
+def test_slice_plan_limits_match_the_kernel_source():
+    src = open(os.path.join(os.path.dirname(p8.__file__), "..", "..", "csrc",
+                            "probe_int8.cu")).read()
+    defines = dict(re.findall(r"#define (AFCM_SL_\w+) (\d+)", src))
+    assert int(defines["AFCM_SL_ZERO"]) == p8.SLICE_ZERO
+    assert int(defines["AFCM_SL_SMEM_SM"]) == p8.SLICE_SMEM_SM == SM_SHARED
+    assert 2 * 8 * int(defines["AFCM_SL_MAX_STAGES"]) == p8.SLICE_STATIC
+    assert "#define AFCM_SL_STATIC (2 * 8 * AFCM_SL_MAX_STAGES)" in src
+
+
 @pytest.mark.parametrize("mode", ["dot1", "aligned", "slices"])
 def test_taps_plain_is_the_probes_plain_versions(mode):
     """The shared product's plain version (raw and K-major x, int32 and bf16)

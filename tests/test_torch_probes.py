@@ -209,6 +209,34 @@ def test_nine_tap_matches_jax(scripts, rng, monkeypatch, mode, o, i):
     np.testing.assert_array_equal(f32(got), f32(want))
 
 
+# (offsets, O, I): unsorted, far apart, one tap and nine, I above and
+# below O
+SLICE_SUMS = {"unsorted_nine": ([44, 0, 23, 1, 42, 2, 21, 22, 43], 24, 16),
+              "far_apart": ([0, 1, 150, 299, 301, 17, 400, 407, 2], 8, 12),
+              "one_tap": ([5], 6, 6), "i_greater_than_o": ([3, 1, 2], 5, 9),
+              "repeated_offset": ([7, 7, 0], 10, 4)}
+
+
+@pytest.mark.parametrize("case", list(SLICE_SUMS))
+def test_slice_sum_plain_matches_a_numpy_loop(rng, case):
+    """slice_sum_int8 (K9 sliceonly at any offsets) on the CPU against the
+    sum written out element by element and rounded once to bf16, exactly."""
+    offsets, o, i = SLICE_SUMS[case]
+    cols, steps = 16, 2
+    x = rng.randint(-128, 128, (steps, i, max(offsets) + cols + 3)).astype(np.int8)
+    want = np.zeros((steps, o, cols), dtype=np.int64)
+    for s in range(steps):
+        for r in range(min(o, i)):
+            for n in range(cols):
+                want[s, r, n] = sum(int(x[s, r, off + n]) for off in offsets)
+    before = dict(p8.launches)
+    got = p8.slice_sum_int8(torch.from_numpy(x), offsets, o, cols)
+    assert p8.launches == before
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (steps, o, cols)
+    rounded = torch.from_numpy(want.astype(np.float32)).to(torch.bfloat16)
+    np.testing.assert_array_equal(f32(got), f32(rounded))
+
+
 def test_int_to_bf16_rounds_through_float32():
     """The cast the kernels and their plain versions share, at sums beyond
     2^24 where the order of the two roundings shows."""
@@ -249,6 +277,12 @@ BAD_CALLS = {
     "matmul_ragged_on_device": lambda: p8.stacked_matmul_int8(
         torch.zeros((16, 64), dtype=torch.int8, device="meta"),
         torch.zeros((2, 64, 128), dtype=torch.int8, device="meta")),
+    "slice_sum_offsets": lambda: p8.slice_sum_int8(
+        torch.zeros((1, 8, 24), dtype=torch.int8), [0, 9], 8, 16),
+    "slice_sum_ten_taps": lambda: p8.slice_sum_int8(
+        torch.zeros((1, 8, 24), dtype=torch.int8), [0] * 10, 8, 16),
+    "slice_sum_ragged_on_device": lambda: p8.slice_sum_int8(
+        torch.zeros((1, 8, 36), dtype=torch.int8, device="meta"), [0, 1], 8, 12),
     "nine_tap_ragged_on_device": lambda: p8.nine_tap_int8(
         torch.zeros((9, 128, 32), dtype=torch.int8, device="meta"),
         torch.zeros((1, 32, 256), dtype=torch.int8, device="meta"), "aligned", 128, 8),
