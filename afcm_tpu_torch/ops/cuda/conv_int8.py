@@ -8,9 +8,15 @@ shifted int8 x int8 products accumulated in int32 and dequantized to bf16
 in one kernel. The quantizers are plain XLA ops around the ``pallas_call``
 there (``:258-262``, ``:276-280``) that the compiler fuses; on a CUDA tensor
 they are the two kernels of ``csrc/quantize_int8.cu``, which also write
-K3's packed layouts (``quantize_pack_activations_cuda``,
-``quantize_pack_weights_cuda``). ``launches`` counts K3's launches,
-``quantize_launches`` and ``weight_quantize_launches`` the quantizers'.
+K3's packed layouts (``quantize_pack_activations_cuda``: one persistent
+kernel whose CTAs take each sample's maximum and then its quantize tiles in
+the order of tickets, after one memset of its scratch;
+``quantize_pack_weights_cuda``: one kernel writing 16-byte runs).
+``plan_quantize_activations`` and ``plan_quantize_weights`` mirror the
+plans the C side computes (``kernel_activation_plan`` and
+``kernel_weight_plan`` read those on the card). ``launches`` counts K3's
+launches, ``quantize_launches`` and ``weight_quantize_launches`` the
+quantizers'.
 ``conv3x3_int8_plain`` beside it is the plain PyTorch version K3 must
 reproduce bit for bit, and ``quantize_pack_*_plain`` the quantizers': the
 CPU path and the oracles of the card's checks. ``conv3x3_int8_ste`` (K4,
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,8 +43,7 @@ import torch.nn.functional as F
 from .. import conv2d_gradfix
 
 # Launches in this process (tests and chip_smoke.py read and reset them): K3,
-# the activation quantizer (its two kernels count as one) and the weight
-# quantizer.
+# the activation quantizer and the weight quantizer (one kernel each).
 launches = 0
 quantize_launches = 0
 weight_quantize_launches = 0
@@ -48,6 +54,15 @@ _M_TILE = 64        # AFCM_C8_BM: output channels per CTA and per weight block
 _TILE_COLS = 8      # AFCM_C8_TW: K3's pixel tile is 8 columns wide
 _TILE_ROWS = (18, 20)   # ... and 18 or 20 rows high (wgmma N = 144 or 160)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/quantize_int8.cu's constants
+_Q8_THREADS = 256           # AFCM_Q8_THREADS
+_Q8_WARPS = _Q8_THREADS // 32
+_Q8_CTAS_PER_SM = 3         # AFCM_Q8_CTAS_PER_SM
+_Q8_GROUP = 64              # AFCM_Q8_GROUP: channels of a quantize tile
+_Q8_A_VECS = 8              # AFCM_Q8_A_VECS: 16-byte loads a thread makes in an amax tile
+_Q8_W_BAR = 16              # W_BAR_BYTES: the weight kernel's mbarrier, padded
+SMEM_LIMIT = 232448         # a CTA's shared memory on sm_90
+H100_SMS = 132
 
 
 def int8_supported(x_shape, w_shape) -> bool:
@@ -185,6 +200,110 @@ def tile_idle_share(out_h: int, out_w: int) -> float:
     return 1.0 - out_h * out_w / covered
 
 
+def _static_smem(nbytes: int) -> int:
+    """A kernel's static shared memory of ``nbytes`` as compiled for sm_90:
+    rounded up to 16 bytes."""
+    return _rup(nbytes, 16)
+
+
+class ActivationPlan(NamedTuple):
+    """``plan_activations`` of ``csrc/quantize_int8.cu``."""
+    n: int
+    i: int
+    ip: int
+    h: int
+    w: int
+    p: int
+    vec: int            # pixels a lane loads at once (V)
+    chunks: int         # quantize tiles along the plane ...
+    groups: int         # ... x channel groups of 64
+    halo: int           # zero pixels of a padded plane
+    halo_share: int     # ... a chunk's share
+    count: int          # elements of a sample
+    a_elems: int        # elements of an amax tile
+    ta: int             # amax tiles a sample
+    tq: int             # quantize tiles a sample
+    lag: int            # L: A(0..L-1) come before Q(0)
+    grid: int           # persistent CTAs
+    tickets: int
+    smem: int           # static shared memory of a CTA
+
+
+def plan_quantize_activations(n: int, i: int, h: int, w: int, p: int, itemsize: int,
+                              address: int = 0, sms: int = H100_SMS) -> ActivationPlan:
+    """The activation kernel's plan for x ``[n, i, h, w]`` of ``itemsize``
+    bytes an element at device ``address`` (only its remainder mod 16
+    matters) on a card of ``sms`` SMs."""
+    ip, hw = _rup(i, _K_ALIGN), h * w
+    vec = next((v for v in (16 // itemsize, 8 // itemsize, 4 // itemsize)
+                if v > 1 and hw % v == 0 and address % (v * itemsize) == 0), 1)
+    passes = -(-hw // (4 * vec))
+    chunks, groups = -(-passes // _Q8_WARPS), -(-ip // _Q8_GROUP)
+    halo = (h + 2 * p) * (w + 2 * p) - hw
+    count, a_elems = i * hw, _Q8_THREADS * _Q8_A_VECS * 16 // itemsize
+    ta, tq = -(-count // a_elems), chunks * groups
+    tickets = n * (ta + tq)
+    grid = min(tickets, sms * _Q8_CTAS_PER_SM)
+    lag = min(n, -(-grid // ta) + 1)
+    return ActivationPlan(n, i, ip, h, w, p, vec, chunks, groups, halo, -(-halo // chunks),
+                          count, a_elems, ta, tq, lag, grid, tickets,
+                          smem=_static_smem(2 * 8 + 4 + 4))
+
+
+class WeightPlan(NamedTuple):
+    """``plan_weights`` of ``csrc/quantize_int8.cu``: one CTA an output
+    channel of O'."""
+    o: int
+    op: int
+    i: int
+    ip: int
+    smem: int           # dynamic (the mbarrier, the row) + static shared memory
+    bulk: int           # the row comes by a bulk copy
+
+
+def plan_quantize_weights(o: int, i: int, itemsize: int, address: int = 0) -> WeightPlan:
+    """The weight kernel's plan for w ``[o, i, 3, 3]`` of ``itemsize`` bytes
+    an element at device ``address``. Raises where the kernel refuses (a
+    row larger than a CTA's shared memory)."""
+    op, ip = _rup(o, _M_ALIGN), _rup(i, _K_ALIGN)
+    row = i * 9 * itemsize
+    smem = _Q8_W_BAR + row + _static_smem(4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"quantize_pack_weights_cuda: {i} input channels: a row of {row} "
+                         f"bytes does not fit a CTA's shared memory")
+    return WeightPlan(o, op, i, ip, smem, int(row % 16 == 0 and address % 16 == 0))
+
+
+def kernel_activation_plan(n: int, i: int, h: int, w: int, p: int, itemsize: int,
+                           address: int = 0) -> ActivationPlan:
+    """The C side's plan (``afcm_quantize_activations_plan``) on the current
+    card, with the kernel's static shared memory as compiled, to hold
+    ``plan_quantize_activations`` to."""
+    from ._build import load_library
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    info = (ctypes.c_longlong * len(ActivationPlan._fields))()
+    c = ctypes.c_int
+    err = load_library("quantize_int8")[0].afcm_quantize_activations_plan(
+        c(n), c(i), c(_rup(i, _K_ALIGN)), c(h), c(w), c(p), c(itemsize),
+        ctypes.c_longlong(address), c(sms), info)
+    if err != 0:
+        raise RuntimeError(f"afcm_quantize_activations_plan: CUDA error {err}")
+    return ActivationPlan(*info)
+
+
+def kernel_weight_plan(o: int, i: int, itemsize: int, address: int = 0) -> WeightPlan:
+    """The C side's plan (``afcm_quantize_weights_plan``), with the kernel's
+    static shared memory as compiled, to hold ``plan_quantize_weights``
+    to."""
+    from ._build import load_library
+    info = (ctypes.c_int * len(WeightPlan._fields))()
+    err = load_library("quantize_int8")[0].afcm_quantize_weights_plan(
+        o, _rup(o, _M_ALIGN), i, _rup(i, _K_ALIGN), itemsize, ctypes.c_longlong(address), info)
+    if err != 0:
+        raise RuntimeError(f"afcm_quantize_weights_plan: CUDA error {err}")
+    return WeightPlan(*info)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(name: str = "conv"):
     """A C entry point, built at first use: K3 ("conv"), the activation
@@ -198,7 +317,7 @@ def _kernel(name: str = "conv"):
                        i, p]                    # tile rows, stream
     elif name == "activations":
         fn = load_library("quantize_int8")[0].afcm_quantize_activations
-        fn.argtypes = [p, p, p, p,              # x, amax scratch, x_scale, out
+        fn.argtypes = [p, p, p, p,              # x, scratch, x_scale, out
                        i, i, i, i, i, i, i,     # dtype, n, i, i', h, w, padding
                        p]                       # stream
     else:
@@ -226,19 +345,20 @@ def quantize_pack_activations_cuda(x, padding: int):
     _check_quantizer_input("quantize_pack_activations_cuda", x)
     p = int(padding)
     n, i, h, w = x.shape
-    if p < 0 or n > 65535:
-        raise ValueError(f"quantize_pack_activations_cuda: padding {padding}, batch {n}")
+    if p < 0:
+        raise ValueError(f"quantize_pack_activations_cuda: padding {padding}")
     ip = _rup(i, _K_ALIGN)
     out = torch.empty((n, h + 2 * p, w + 2 * p, ip), dtype=torch.int8, device=x.device)
     x_scale = torch.empty((n,), dtype=torch.float32, device=x.device)
-    amax = torch.empty((n,), dtype=torch.int32, device=x.device)
+    # the ticket counter, done[n], amax[n], the published scales: each call its own
+    scratch = torch.empty((3 * n + 1,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):           # the launch goes to the current device
         err = _kernel("activations")(
-            x.data_ptr(), amax.data_ptr(), x_scale.data_ptr(), out.data_ptr(),
+            x.data_ptr(), scratch.data_ptr(), x_scale.data_ptr(), out.data_ptr(),
             _DTYPES[x.dtype], n, i, ip, h, w, p,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"quantize_int8 activation kernels failed: CUDA error {err}")
+        raise RuntimeError(f"quantize_int8 activation kernel failed: CUDA error {err}")
     quantize_launches += 1
     return out, x_scale
 

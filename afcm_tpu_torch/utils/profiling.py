@@ -21,6 +21,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+# time_windows' device sleep before a window, per call of the window: ~0.2 ms
+# at the card's clock, longer than a wrapper's host dispatch
+LEAD_CYCLES_PER_CALL = 400_000
+
 
 def profiled_function(fn):
     """Wrap a function in a profiler span carrying its name."""
@@ -155,11 +159,12 @@ def time_windows(fns, device, windows: int = 5, iters: int = 10, warmup: int = 2
     fn is warmed, then timed over ``windows`` windows of ``iters`` calls,
     the fns taking turns in alternating order (a b c, c b a, ...) so that a
     drifting clock falls on all of them. On the card a window is CUDA
-    events around its calls, recorded behind a short device sleep during
-    which the host enqueues the first calls: the window times the device,
-    not the first call's dispatch (a wrapper in Python takes tens of
-    microseconds a call to enqueue). Returns {name: {"ms": median, "lo": fastest window,
-    "hi": slowest window}}."""
+    events around its calls, recorded behind a device sleep of ~0.2 ms a
+    call during which the host enqueues all of them: the window times the
+    device, not the calls' dispatch (a wrapper in Python takes tens of
+    microseconds a call to enqueue, more than a short kernel runs).
+    Returns {name: {"ms": median, "lo": fastest window, "hi": slowest
+    window}}."""
     on_card = torch.device(device).type == "cuda"
 
     def window(fn):
@@ -168,7 +173,7 @@ def time_windows(fns, device, windows: int = 5, iters: int = 10, warmup: int = 2
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(200_000)          # ~0.1 ms at the card's clock
+        torch.cuda._sleep(iters * LEAD_CYCLES_PER_CALL)
         start.record()
         for _ in range(iters):
             fn()

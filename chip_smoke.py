@@ -67,8 +67,8 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    generator, saved as
    latest_net_G_ema.pth, served through serve_and_score. With --trace DIR
    one bf16 train step is traced too;
-8. the int8 path: (a) K3 against its plain version on quantized inputs made
-   with numpy from the seed, batch 2, at the path's shapes (512 -> 512 at
+8. the int8 path: (a) K3 against its plain version on quantized inputs drawn
+   on the card from the seed, batch 2, at the path's shapes (512 -> 512 at
    36^2 and 52^2, padding 2, and 38^2 without padding), at 362 -> 512 148^2,
    91 -> 128 and 64 -> 64 at 276^2, and with padding 1 and 0 and an
    extra_scale, and at batch 16 at the CoModGAN path's shapes (512 -> 512
@@ -80,10 +80,16 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    float32 and bfloat16, with an all-zero sample: 0 unequal elements;
    (b) timing at batch 16 of every distinct 3x3 conv shape of the
    generator: K3 alone with the idle share of its pixel tiles, the
-   quantizer kernels and their plain versions, quantize + K3 (the fused
-   path the wrapper takes), the float conv the path makes with the knob off
+   quantizer kernels (the activations' beside both bounds, x read once and
+   twice, and torch.linalg.vector_norm(x, inf) as the time of their amax
+   half alone) and their plain versions, quantize + K3 (the fused path the
+   wrapper takes), the float conv the path makes with the knob off
    (conv2d_gradfix.conv2d in bf16), cuDNN's bf16 conv of the same quantized
-   integers, and the plain version, beside the bound; (c) K4's dx and dw
+   integers, and the plain version, beside the bound; the calls in turns
+   by utils/profiling.time_windows (median of 5 windows of 10 behind a
+   device sleep long enough for the host to enqueue them: device time, not
+   dispatch; the same x each call, so warm in L2), the plain versions the
+   median of 3 calls; (c) K4's dx and dw
    against the plain path's within 1e-4 * max + 1e-5, and K4's backward
    (the fp32 conv adjoint, TF32 off and on) timed at the three routed
    shapes, batch 16, beside its bound; (d) the generator
@@ -129,7 +135,8 @@ kernels K5-K9 (stream, copy, window-load and int8 matrix-rate probes):
    (a) the phantom through serve_and_score under compute dtype bf16 (G in
    float32, TF32 on): finite volume and scores, no K1 launch, the forward
    timed at b16 (with --trace DIR traced too); (b) the routed conv shapes
-   timed as in 8b; (c) the phantom under tpu.conv_int8 True: 9 launches of
+   timed as in 8b, the activation quantizer also on the float32 x this
+   path quantizes; (c) the phantom under tpu.conv_int8 True: 9 launches of
    K3 and of each quantizer per batch, >= 30 dB from the float volume; (d)
    the train CLI's loop on the config at bf16 b16: finite losses, no K1 or
    K2, w_avg moved in G and G_ema, ms/step and img/s (median of 3 windows),
@@ -285,7 +292,7 @@ from afcm_tpu_torch.probes import (element_windows, fir_roofline, int8_kernel,
                                    int8_matmul, stream_diag)
 from afcm_tpu_torch.utils.nifti import read_nifti
 from afcm_tpu_torch.utils.port import DROP_LEAVES
-from afcm_tpu_torch.utils.profiling import cuda_median_ms, cuda_ms
+from afcm_tpu_torch.utils.profiling import cuda_median_ms, cuda_ms, time_windows
 
 SEED = 0
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -843,12 +850,13 @@ def serve_trained(device, run_dir):
 
 
 def int8_case(n, i, o, h, p, extra, seed):
-    """Seeded numpy (x, w, extra_scale) of one conv on the card, and the
-    quantized operands: integer values, scale, packed int8 tensors."""
-    rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randn(n, i, h, h).astype(np.float32)).cuda()
-    w = torch.from_numpy((rng.randn(o, i, 3, 3) / np.sqrt(9 * i)).astype(np.float32)).cuda()
-    es = torch.from_numpy((rng.rand(n, o) + 0.5).astype(np.float32)).cuda() if extra else None
+    """Seeded (x, w, extra_scale) of one conv, drawn on the card (phase 8b
+    draws up to 156 M values a shape at batch 16), and the quantized
+    operands: integer values, scale, packed int8 tensors."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, i, h, h), generator=gen, device="cuda")
+    w = torch.randn((o, i, 3, 3), generator=gen, device="cuda") / float(np.sqrt(9 * i))
+    es = torch.rand((n, o), generator=gen, device="cuda") + 0.5 if extra else None
     xq, x_scale = k3.quantize_activations(x)
     wq, w_scale = k3.quantize_weights(w)
     scale = k3.dequant_scale(x_scale, w_scale, es)
@@ -1000,8 +1008,12 @@ def conv_shape_row(i, o, h, p, seed):
     tiles, the quantizer kernels and their plain versions, quantize + K3
     (the fused path the wrapper takes), the float conv of the path with the
     knob off (conv2d_gradfix.conv2d in bf16), cuDNN's bf16 conv of the same
-    quantized integers, and the plain version, beside the bound. Returns
-    the row and the bound (ms, bound_by)."""
+    quantized integers, and the plain version, beside the bound. The calls
+    take turns in time_windows (device time: median and the fastest and
+    slowest of 5 windows), the plain versions the median of 3 calls. At
+    the CoModGAN path's shapes the activation quantizer is also timed on
+    the float32 x that path quantizes, and the TF32 float conv it runs.
+    Returns the row and the bound (ms, bound_by)."""
     x, w, _, xq, wq, scale, xp, wp = int8_case(SERVE_BATCH, i, o, h, p, False, seed)
     size = h + 2 * p - 2
     ops = 2 * 9 * o * i * size * size * SERVE_BATCH
@@ -1011,59 +1023,86 @@ def conv_shape_row(i, o, h, p, seed):
     least = (max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes")
     xb, wb = x.bfloat16(), w.bfloat16()
     xqb, wqb = xq.bfloat16(), wq.bfloat16()     # the integers are exact in bf16
-    # the quantizers move x (or w) in once and the packed tensor and scales out
-    qx_bytes = xb.numel() * 2 + xp.numel() + 4 * SERVE_BATCH
+    comodgan = i == o == 512 and p == 0 and h in COMOD_INT8_SIZES
+    calls = {"k3": lambda: k3.int8_conv_cuda(xp, wp, scale, o),
+             "quantize_k3": lambda: k3.conv3x3_int8_cuda(x, w, p),
+             "quantize_x_bf16": lambda: k3.quantize_pack_activations_cuda(xb, p),
+             "quantize_x_amax_library": lambda: torch.linalg.vector_norm(
+                 xb, float("inf"), dim=(1, 2, 3)),
+             "quantize_w": lambda: k3.quantize_pack_weights_cuda(w),
+             "float_conv_bf16": lambda: conv2d_gradfix.conv2d(xb, wb, padding=p),
+             "library": lambda: torch.nn.functional.conv2d(xqb, wqb, padding=p)}
+    if comodgan:
+        calls["quantize_x_fp32"] = lambda: k3.quantize_pack_activations_cuda(x, p)
+        calls["quantize_x_amax_library_fp32"] = lambda: torch.linalg.vector_norm(
+            x, float("inf"), dim=(1, 2, 3))
+    timed = time_windows(calls, "cuda")
+    # the quantizers move x (or w) in once and the packed tensor and scales
+    # out; the activations' two-read bound reads x twice
+    out_x = xp.numel() + 4 * SERVE_BATCH
     qw_bytes = w.numel() * 4 + wp.numel() + 4 * o
     row = dict(channels=[i, o], size=h, padding=p, batch=SERVE_BATCH,
                routed_by_int8_gate=modulated_conv._int8_gate(x.shape, w.shape),
                g_ops=ops / 1e9, mbytes=moved / 1e6,
                tile_rows=k3.plan_tile_rows(size),
-               tile_idle_share=k3.tile_idle_share(size, size),
-               k3_ms=cuda_median_ms(lambda: k3.int8_conv_cuda(xp, wp, scale, o)),
-               quantize_k3_ms=cuda_median_ms(lambda: k3.conv3x3_int8_cuda(x, w, p)),
-               quantize_k3_bf16_x_ms=cuda_median_ms(
-                   lambda: k3.conv3x3_int8_cuda(xb, w, p)),
-               quantize_x_bf16_ms=cuda_median_ms(
-                   lambda: k3.quantize_pack_activations_cuda(xb, p)),
-               quantize_x_plain_ms=cuda_median_ms(
-                   lambda: k3.quantize_pack_activations_plain(xb, p), repeats=3, warmup=1),
-               quantize_x_bound_ms=1e3 * qx_bytes / HBM_BYTES_PER_S,
-               quantize_w_ms=cuda_median_ms(lambda: k3.quantize_pack_weights_cuda(w)),
-               quantize_w_plain_ms=cuda_median_ms(
-                   lambda: k3.quantize_pack_weights_plain(w), repeats=3, warmup=1),
-               quantize_w_bound_ms=1e3 * qw_bytes / HBM_BYTES_PER_S,
-               float_conv_bf16_ms=cuda_median_ms(
-                   lambda: conv2d_gradfix.conv2d(xb, wb, padding=p)),
-               library_ms=cuda_median_ms(
-                   lambda: torch.nn.functional.conv2d(xqb, wqb, padding=p)),
-               plain_ms=cuda_median_ms(
-                   lambda: k3.int8_conv_plain(xq, wq, scale, p), repeats=3, warmup=1),
-               bound_ms=least[0], bound_by=least[1])
+               tile_idle_share=k3.tile_idle_share(size, size))
+    for name, t in timed.items():
+        row[name + "_ms"], row[name + "_ms_spread"] = t["ms"], [t["lo"], t["hi"]]
+    row.update(
+        quantize_x_plain_ms=cuda_median_ms(
+            lambda: k3.quantize_pack_activations_plain(xb, p), repeats=3, warmup=1),
+        quantize_x_bound_ms=1e3 * (xb.numel() * 2 + out_x) / HBM_BYTES_PER_S,
+        quantize_x_two_read_bound_ms=1e3 * (xb.numel() * 4 + out_x) / HBM_BYTES_PER_S,
+        quantize_w_plain_ms=cuda_median_ms(
+            lambda: k3.quantize_pack_weights_plain(w), repeats=3, warmup=1),
+        quantize_w_bound_ms=1e3 * qw_bytes / HBM_BYTES_PER_S,
+        plain_ms=cuda_median_ms(
+            lambda: k3.int8_conv_plain(xq, wq, scale, p), repeats=3, warmup=1),
+        bound_ms=least[0], bound_by=least[1])
     row["k3_top_per_s"] = ops / row["k3_ms"] / 1e9
-    if i == o == 512 and p == 0 and h in COMOD_INT8_SIZES:
+    if comodgan:
+        row["quantize_x_fp32_plain_ms"] = cuda_median_ms(
+            lambda: k3.quantize_pack_activations_plain(x, p), repeats=3, warmup=1)
+        row["quantize_x_fp32_bound_ms"] = 1e3 * (x.numel() * 4 + out_x) / HBM_BYTES_PER_S
+        row["quantize_x_fp32_two_read_bound_ms"] = \
+            1e3 * (x.numel() * 8 + out_x) / HBM_BYTES_PER_S
         # the CoModGAN generator's float conv: fp32, TF32 as its config sets
         set_matmul_precision("bfloat16")
-        row["float_conv_tf32_ms"] = cuda_median_ms(
-            lambda: conv2d_gradfix.conv2d(x, w, padding=p))
+        tf32 = time_windows({"tf32": lambda: conv2d_gradfix.conv2d(x, w, padding=p)},
+                            "cuda")["tf32"]
+        row["float_conv_tf32_ms"], row["float_conv_tf32_ms_spread"] = \
+            tf32["ms"], [tf32["lo"], tf32["hi"]]
         set_matmul_precision("float32")
     return row, least
 
 
-def add_conv_sums(sums, row, least):
-    """Add a routed shape's K3 and quantizer times to the kernels line's sums."""
+def add_conv_sums(sums, row, least, x_dtype="bf16"):
+    """Add a routed shape's K3 and quantizer times to the kernels line's
+    sums; the activation quantizer's of x in ``x_dtype``."""
     for key in ("ms", "plain_ms", "library_ms"):
         sums[key] += row["k3_ms" if key == "ms" else key]
     sums["bound"] = add_bound(sums["bound"], least)
-    for q, name in (("qx", "quantize_x"), ("qw", "quantize_w")):
-        sums[q + "_ms"] += row[name + ("_bf16_ms" if q == "qx" else "_ms")]
-        sums[q + "_plain_ms"] += row[name + "_plain_ms"]
-        sums[q + "_bound_ms"] += row[name + "_bound_ms"]
+    qx = "quantize_x_" + x_dtype
+    plain = "quantize_x_plain" if x_dtype == "bf16" else qx + "_plain"
+    bound = "quantize_x" if x_dtype == "bf16" else qx
+    for key, src in (("qx_ms", qx + "_ms"), ("qx_plain_ms", plain + "_ms"),
+                     ("qx_bound_ms", bound + "_bound_ms"),
+                     ("qx_two_read_bound_ms", bound + "_two_read_bound_ms"),
+                     ("qx_amax_library_ms", "quantize_x_amax_library"
+                      + ("" if x_dtype == "bf16" else "_fp32") + "_ms"),
+                     ("qw_ms", "quantize_w_ms"), ("qw_plain_ms", "quantize_w_plain_ms"),
+                     ("qw_bound_ms", "quantize_w_bound_ms")):
+        sums[key] += row[src]
+    for key, src in (("qx", qx), ("qw", "quantize_w")):
+        lo, hi = row[src + "_ms_spread"]
+        sums[key + "_spread"] = [sums[key + "_spread"][0] + lo, sums[key + "_spread"][1] + hi]
 
 
 def conv_sums():
     return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=(0.0, "operations", 0.0),
-                qx_ms=0.0, qx_plain_ms=0.0, qx_bound_ms=0.0,
-                qw_ms=0.0, qw_plain_ms=0.0, qw_bound_ms=0.0)
+                qx_ms=0.0, qx_plain_ms=0.0, qx_bound_ms=0.0, qx_two_read_bound_ms=0.0,
+                qx_amax_library_ms=0.0, qx_spread=[0.0, 0.0],
+                qw_ms=0.0, qw_plain_ms=0.0, qw_bound_ms=0.0, qw_spread=[0.0, 0.0])
 
 
 def time_conv_int8():
@@ -1094,7 +1133,7 @@ def time_comodgan_convs():
     for idx, h in enumerate(COMOD_INT8_SIZES):
         row, least = conv_shape_row(512, 512, h, 0, SEED + 70 + idx)
         phase("12b CoModGAN conv shapes", layers=3, **row)
-        add_conv_sums(sums, row, least)
+        add_conv_sums(sums, row, least, x_dtype="fp32")
     return sums
 
 
@@ -3566,8 +3605,10 @@ def main(argv=None):
          "library_ms": int8_sums["library_ms"],
          "library": "cuDNN's bf16 conv (F.conv2d) of the same quantized integers",
          "timed_at": "the int8 path's three conv shapes (512 -> 512 at 36^2 and "
-                     "52^2 p2, 38^2 p0), batch 16, one call each, summed",
-         "comodgan": {"timed_at": comodgan_timed + ", batch 16, one call each, summed",
+                     "52^2 p2, 38^2 p0), batch 16, device time of one call each "
+                     "(median of 5 windows of 10), summed",
+         "comodgan": {"timed_at": comodgan_timed + ", batch 16, device time of one call "
+                                  "each, summed",
                       "ms": comodgan_sums["ms"], "plain_ms": comodgan_sums["plain_ms"],
                       "bound_ms": comodgan_sums["bound"][0],
                       "bound_by": comodgan_sums["bound"][1],
@@ -3581,14 +3622,25 @@ def main(argv=None):
          + int8_train_launches["quantize_int8"] + sum(q for _, q, _ in tp_int8_launches),
          "max_abs_err": quantizer_worst["activations"],
          "unequal_elements": quantizer_unequal["activations"],
-         "ms": int8_sums["qx_ms"], "plain_ms": int8_sums["qx_plain_ms"],
-         "bound_ms": int8_sums["qx_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "ms": int8_sums["qx_ms"], "ms_spread": int8_sums["qx_spread"],
+         "plain_ms": int8_sums["qx_plain_ms"],
+         "bound_ms": int8_sums["qx_bound_ms"], "bound_by": "bytes",
+         "two_read_bound_ms": int8_sums["qx_two_read_bound_ms"], "library_ms": None,
+         "amax_library_ms": int8_sums["qx_amax_library_ms"],
+         "amax_library": "torch.linalg.vector_norm(x, inf, dim=(1, 2, 3)): the amax "
+                         "half alone, not the same function",
          "timed_at": "the int8 path's three conv inputs (512 channels at 36^2 and 52^2 "
-                     "p2, 38^2 p0), batch 16, bf16, one call each (amax and "
-                     "quantize-and-pack kernels), summed",
-         "comodgan": {"ms": comodgan_sums["qx_ms"], "plain_ms": comodgan_sums["qx_plain_ms"],
+                     "p2, 38^2 p0), batch 16, bf16, device time of one call each (one "
+                     "kernel after a memset of its scratch; median of 5 windows of 10, "
+                     "the spread the sums of the fastest and the slowest windows), "
+                     "summed; bound: x read once, two_read_bound: x read twice",
+         "comodgan": {"ms": comodgan_sums["qx_ms"], "ms_spread": comodgan_sums["qx_spread"],
+                      "plain_ms": comodgan_sums["qx_plain_ms"],
                       "bound_ms": comodgan_sums["qx_bound_ms"], "bound_by": "bytes",
-                      "timed_at": comodgan_timed + " inputs, batch 16, bf16"}},
+                      "two_read_bound_ms": comodgan_sums["qx_two_read_bound_ms"],
+                      "amax_library_ms": comodgan_sums["qx_amax_library_ms"],
+                      "timed_at": comodgan_timed + " inputs, batch 16, float32 (the "
+                                  "x that path quantizes)"}},
         {"name": "quantize_weights_int8", "route": "cuda",
          "source": "afcm_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "afcm_tpu/ops/pallas/conv_int8.py:276-280",
@@ -3597,11 +3649,13 @@ def main(argv=None):
          + sum(w for _, _, w in tp_int8_launches),
          "max_abs_err": quantizer_worst["weights"],
          "unequal_elements": quantizer_unequal["weights"],
-         "ms": int8_sums["qw_ms"], "plain_ms": int8_sums["qw_plain_ms"],
+         "ms": int8_sums["qw_ms"], "ms_spread": int8_sums["qw_spread"],
+         "plain_ms": int8_sums["qw_plain_ms"],
          "bound_ms": int8_sums["qw_bound_ms"], "bound_by": "bytes", "library_ms": None,
-         "timed_at": "the int8 path's 512 -> 512 3x3 weights, float32, one call per "
-                     "routed shape, summed",
-         "comodgan": {"ms": comodgan_sums["qw_ms"], "plain_ms": comodgan_sums["qw_plain_ms"],
+         "timed_at": "the int8 path's 512 -> 512 3x3 weights, float32, device time of "
+                     "one call per routed shape (median of 5 windows of 10), summed",
+         "comodgan": {"ms": comodgan_sums["qw_ms"], "ms_spread": comodgan_sums["qw_spread"],
+                      "plain_ms": comodgan_sums["qw_plain_ms"],
                       "bound_ms": comodgan_sums["qw_bound_ms"], "bound_by": "bytes",
                       "timed_at": comodgan_timed + " weights, float32"}},
         *probe_entries]}))

@@ -618,6 +618,170 @@ def test_quantizer_kernels_raise_on_what_they_do_not_take(cuda):
     assert torch.equal(got, k3.conv3x3_int8_plain(x.transpose(2, 3).half(), w, 1))
 
 
+# The activation quantizer at the edges of its plan, one launch each:
+# (n, i, h, p, dtype, elements x lies past a 16-byte boundary).
+QUANT_X_CASES = {
+    "n64_36_p2_bf16": (64, 512, 36, 2, torch.bfloat16, 0),   # tickets wrap many times
+    "view_2_bytes_off_16_bf16": (3, 512, 36, 2, torch.bfloat16, 1),
+    "view_2_bytes_off_16_ragged_bf16": (2, 91, 41, 1, torch.bfloat16, 1),
+    "i200_p1_bf16": (3, 200, 20, 1, torch.bfloat16, 0),      # I' = 224 > I
+    "i200_p2_fp32": (3, 200, 20, 2, torch.float32, 0),
+    "38_p0_bf16": (4, 512, 38, 0, torch.bfloat16, 0),        # rows, planes not 16-byte multiples
+    "13_p0_fp32": (3, 96, 13, 0, torch.float32, 0),
+    "13_p1_fp32": (3, 96, 13, 1, torch.float32, 0),
+    "13_p2_fp32": (3, 96, 13, 2, torch.float32, 0),
+    "13_p0_bf16": (3, 96, 13, 0, torch.bfloat16, 0),
+    "13_p1_bf16": (3, 96, 13, 1, torch.bfloat16, 0),
+    "13_p2_bf16": (3, 96, 13, 2, torch.bfloat16, 0),
+    "h4_p2_bf16": (2, 40, 4, 2, torch.bfloat16, 0),
+}
+
+
+def _quant_x(cuda, n, i, h, dtype, offset, seed):
+    """x [n, i, h, h] from numpy: sample 0 all zero (the scale's floor),
+    sample 1 halves with a maximum of 127 (scale 1: rounding ties), as a
+    contiguous view ``offset`` elements into a larger tensor."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, i, h, h).astype(np.float32)
+    x[0] = 0
+    x[1] = (x[1] * 40).round().clip(-250, 250) / 2
+    x[1, 0, 0, 0] = 127.0
+    base = torch.empty(x.size + offset + 8, dtype=dtype, device=cuda)
+    view = base[offset:offset + x.size].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    return view
+
+
+@pytest.mark.parametrize("name", sorted(QUANT_X_CASES))
+def test_activation_quantizer_equals_plain_at_its_plan_edges(cuda, name):
+    """The activation quantizer kernel bit for bit against its plain
+    version (packed tensor and scales) where its plan changes: many tickets
+    per CTA, x off a 16-byte boundary (narrower loads), I' > I, planes that
+    are no multiple of 16 bytes, p = 0, 1, 2 in both dtypes, H = 4."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    n, i, h, p, dtype, offset = QUANT_X_CASES[name]
+    x = _quant_x(cuda, n, i, h, dtype, offset, seed=n + i + h)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2 * offset % 16
+    before = k3.quantize_launches
+    xp, x_scale = k3.quantize_pack_activations_cuda(x, p)
+    torch.cuda.synchronize()
+    assert k3.quantize_launches == before + 1
+    want_xp, want_xs = k3.quantize_pack_activations_plain(x, p)
+    assert xp.shape == want_xp.shape and xp.dtype == torch.int8
+    assert int((xp != want_xp).sum()) == 0
+    assert torch.equal(x_scale.view(torch.int32), want_xs.view(torch.int32))
+    assert int(xp[0].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("o,i", [(200, 64), (64, 33), (256, 512), (200, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_quantizer_equals_plain_at_its_plan_edges(cuda, o, i, dtype):
+    """The weight quantizer kernel bit for bit against its plain version
+    where its plan changes: pad channels (O = 200), rows that are no
+    multiple of 16 bytes (I = 33: plain loads instead of bulk copies), one
+    channel a CTA (O = 256), an all-zero channel."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    rng = np.random.RandomState(o + i)
+    w = torch.from_numpy((rng.randn(o, i, 3, 3) / np.sqrt(9 * i)).astype(np.float32))
+    w[1] = 0
+    w = w.to(cuda, dtype)
+    before = k3.weight_quantize_launches
+    wp, w_scale = k3.quantize_pack_weights_cuda(w)
+    torch.cuda.synchronize()
+    assert k3.weight_quantize_launches == before + 1
+    want_wp, want_ws = k3.quantize_pack_weights_plain(w)
+    assert wp.shape == want_wp.shape and int((wp != want_wp).sum()) == 0
+    assert torch.equal(w_scale.view(torch.int32), want_ws.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantizers_equal_plain_at_near_ties(cuda, dtype):
+    """Values whose quotient by the scale lies a few units in the last place
+    from a half-integer, on both sides (the kernels divide only where the
+    rounding can depend on the IEEE quotient): both quantizers bit-equal to
+    their plain versions, at scales near 1, at the floor and near float32's
+    largest."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    rng = np.random.RandomState(11)
+    amaxes = [127.0, 100.0, 3.7, 1e-9, 2e36, 0.0123]
+
+    def near_ties(shape, amax):
+        scale = np.float32(max(np.float32(amax), np.float32(1e-8))) / np.float32(127)
+        k = rng.randint(-127, 127, size=int(np.prod(shape))) + 0.5
+        v = (k * np.float64(scale)).astype(np.float32)
+        v = (v.view(np.int32) + rng.randint(-4, 5, size=v.size).astype(np.int32)).view(np.float32)
+        v = np.clip(v, -np.float32(amax), np.float32(amax))
+        v[0] = amax
+        return v.reshape(shape)
+
+    x = np.stack([near_ties((64, 12, 12), a) for a in amaxes])
+    w = np.stack([near_ties((64, 3, 3), amaxes[o % len(amaxes)]) for o in range(200)])
+    xt = torch.from_numpy(x).to(cuda, dtype)
+    wt = torch.from_numpy(w).to(cuda, dtype)
+    xp, x_scale = k3.quantize_pack_activations_cuda(xt, 1)
+    want_xp, want_xs = k3.quantize_pack_activations_plain(xt, 1)
+    assert int((xp != want_xp).sum()) == 0
+    assert torch.equal(x_scale.view(torch.int32), want_xs.view(torch.int32))
+    wp, w_scale = k3.quantize_pack_weights_cuda(wt)
+    want_wp, want_ws = k3.quantize_pack_weights_plain(wt)
+    assert int((wp != want_wp).sum()) == 0
+    assert torch.equal(w_scale.view(torch.int32), want_ws.view(torch.int32))
+
+
+def test_activation_quantizer_on_two_streams_at_once(cuda):
+    """Two calls on two streams at once, each with its own scratch: both
+    bit-equal to the plain version."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    xs = [_quant_x(cuda, 16, 512, 36, torch.bfloat16, 0, seed=7),
+          _quant_x(cuda, 16, 512, 38, torch.bfloat16, 0, seed=8)]
+    pads = [2, 0]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    got = []
+    for x, p, st in zip(xs, pads, streams):
+        with torch.cuda.stream(st):
+            got.append(k3.quantize_pack_activations_cuda(x, p))
+    torch.cuda.synchronize()
+    for x, p, (xp, x_scale) in zip(xs, pads, got):
+        want_xp, want_xs = k3.quantize_pack_activations_plain(x, p)
+        assert int((xp != want_xp).sum()) == 0
+        assert torch.equal(x_scale.view(torch.int32), want_xs.view(torch.int32))
+
+
+# (n, i, h, p, itemsize, address % 16) of x and (o, i, itemsize, address %
+# 16) of w: the routed inputs and the edges tests/test_torch_quantizer_plans.py
+# replays the kernels' stores at
+QUANT_PLAN_X = [(16, 512, 36, 2, 2, 0), (16, 512, 52, 2, 2, 0), (16, 512, 38, 0, 2, 0),
+                (16, 512, 10, 0, 4, 0), (16, 512, 18, 0, 4, 0), (16, 512, 34, 0, 4, 0),
+                (1, 512, 36, 2, 2, 0), (3, 200, 9, 1, 2, 0), (2, 200, 4, 2, 4, 0),
+                (2, 91, 41, 1, 4, 8), (64, 512, 36, 2, 2, 0), (3, 48, 38, 2, 2, 2),
+                (3, 33, 7, 0, 2, 0), (2, 40, 4, 1, 2, 4)]
+QUANT_PLAN_W = [(512, 512, 4, 0), (256, 512, 4, 0), (512, 512, 2, 0), (200, 33, 4, 0),
+                (200, 200, 2, 0), (96, 40, 4, 8), (40, 48, 2, 2)]
+
+
+def test_quantizer_plans_of_the_kernels_are_the_mirrors(cuda):
+    """csrc/quantize_int8.cu's plans, exported by afcm_quantize_*_plan with
+    the kernels' shared memory as compiled, against their Python mirrors
+    plan_quantize_activations / plan_quantize_weights on this card's SMs;
+    both refuse a weight row beyond a CTA's shared memory, and so does the
+    weight quantizer's wrapper."""
+    from afcm_tpu_torch.ops.cuda import conv_int8 as k3
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, i, h, p, itemsize, address in QUANT_PLAN_X:
+        assert k3.kernel_activation_plan(n, i, h, h, p, itemsize, address) == \
+            k3.plan_quantize_activations(n, i, h, h, p, itemsize, address, sms)
+    for o, i, itemsize, address in QUANT_PLAN_W:
+        assert k3.kernel_weight_plan(o, i, itemsize, address) == \
+            k3.plan_quantize_weights(o, i, itemsize, address)
+    with pytest.raises(ValueError, match="shared memory"):
+        k3.plan_quantize_weights(64, 7000, 4)
+    with pytest.raises(RuntimeError, match="afcm_quantize_weights_plan"):
+        k3.kernel_weight_plan(64, 7000, 4)
+    with pytest.raises(RuntimeError, match="weight kernel failed"):
+        k3.quantize_pack_weights_cuda(torch.zeros((64, 7000, 3, 3), device=cuda))
+
+
 def test_conv_int8_kernel_matches_jax_full_size(cuda, jax_ops):
     """K3 at the serving path's shape (512 -> 512 at 36^2, padding 2)
     against the JAX package's kernel in interpret mode on JAX's CPU backend:
