@@ -37,6 +37,7 @@ from .models.gan_model import eval_forward
 from .ops.modulated_conv import set_conv_impl
 from .utils.metrics import evaluate_3D, evaluate_slice
 from .utils.nifti import read_nifti, write_nifti
+from .utils.profiling import span
 
 
 def normalize_uint8(a, lo: float, hi: float):
@@ -100,12 +101,17 @@ def mesh_forward(run, device, a, s, z, mesh=None):
     ``z``) through ``run(replica_index, a, s, z) -> tensor``: on ``device``,
     or, over a ``mesh`` of several devices, cut into one contiguous chunk
     per device of its data axis, every chunk launched on its device before
-    any is waited on. Returns a ``DeviceResult``, or a ``MeshResult``."""
+    any is waited on. The copies to the devices run in the span
+    ``afcm.serve.h2d``. Returns a ``DeviceResult``, or a ``MeshResult``."""
+    with span("afcm.serve.h2d"):
+        placed = ([a.to(device), s.to(device)] if mesh is None
+                  else parallel.shard_batch({"a": a, "s": s, "z": z}, mesh))
     if mesh is None:
-        return DeviceResult(run(0, a.to(device), s.to(device), z))
-    chunks = parallel.shard_batch({"a": a, "s": s, "z": z}, mesh)
+        # popped, so that ``run`` holds the only reference to the batch on
+        # the device and frees it once normalized, before the forward's peak
+        return DeviceResult(run(0, placed.pop(0), placed.pop(0), z))
     return MeshResult([DeviceResult(run(i, c["a"], c["s"], c["z"]))
-                       for i, c in enumerate(chunks)])
+                       for i, c in enumerate(placed)])
 
 
 class ModelAxisServer:
@@ -272,14 +278,15 @@ def make_forward_fn(model: GANModel, device, seed: int = 0, norm_range=None,
         return torch.randn((n, model.z_dim), generator=rng, device=device)
 
     def run(i, a, s, z):
-        if a.dtype == torch.uint8:
-            a = normalize_uint8(a, float(norm_range[0]), float(norm_range[1]))
-        if server is not None:
-            out = server.forward(a, s, z)
-        else:
-            with torch.inference_mode():
-                out = eval_forward(replicas[i], model.c_dim, a, s, z)
-        return out if out_dtype is None else out.to(out_dtype)
+        with span("afcm.serve.g_ema"):
+            if a.dtype == torch.uint8:
+                a = normalize_uint8(a, float(norm_range[0]), float(norm_range[1]))
+            if server is not None:
+                out = server.forward(a, s, z)
+            else:
+                with torch.inference_mode():
+                    out = eval_forward(replicas[i], model.c_dim, a, s, z)
+            return out if out_dtype is None else out.to(out_dtype)
 
     def forward(a_batch, slice_idx):
         a = torch.from_numpy(np.ascontiguousarray(a_batch))

@@ -14,10 +14,16 @@ of head 0 so downstream tooling indexed on three heads keeps working.
 
 The port's own copy of ``afcm_tpu/infer/predictor.py`` (host code, numpy only): the port imports
 nothing of the JAX package.
+
+Each phase of the loop (load, dispatch, fetch, stitch, finalize) runs in one
+context (``_phase``) that adds its host seconds to ``timings`` and, while a
+profiler captures, opens its span (``afcm.serve.<phase>``, the batch's
+``#s<subject>.b<batch>``, the subject's ``#s<subject>``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -29,6 +35,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import numpy as np
 
 from ..utils.nifti import write_nifti
+from ..utils.profiling import profiler_on, span
 
 
 def remove_halo(patch: np.ndarray, index, shape, patch_halo):
@@ -95,10 +102,11 @@ class StandardPredictor:
         self.patch_halo = tuple(patch_halo)
         self.out_channels = out_channels
         self.output_heads = output_heads
-        # per-phase wall-clock accumulators (seconds), for serving profiling
-        # (scripts/bench_predictor_e2e.py); negligible overhead.
+        # per-phase host seconds (``_phase``), read by the benchmark's
+        # predictor_* metrics (portbench/metrics/)
         self.timings = {"load": 0.0, "dispatch": 0.0, "fetch": 0.0,
                         "stitch": 0.0, "save": 0.0}
+        self._subjects = 0
         self._writer: Optional[ThreadPoolExecutor] = None
         self._write_futures: list = []
         # finalized head-0 volume of the most recent subject (numpy, float32)
@@ -136,7 +144,6 @@ class StandardPredictor:
         """
         if depth is None:
             depth = self._config_depth()
-        t = self.timings
 
         def _stream():
             for loader in loaders:
@@ -151,9 +158,8 @@ class StandardPredictor:
         in_flight = 0  # real (non-marker) batches dispatched but not fetched
         while not exhausted or pending:
             if not exhausted:
-                t0 = time.perf_counter()
-                nxt = next(stream, None)
-                t["load"] += time.perf_counter() - t0
+                with self._phase("load", "afcm.serve.load"):
+                    nxt = next(stream, None)
                 if nxt is None:
                     exhausted = True
                     continue  # drain loop below takes over
@@ -161,22 +167,37 @@ class StandardPredictor:
                 if item is None:
                     pending.append((ctx, None))
                 else:
-                    t1 = time.perf_counter()
-                    pending.append((ctx, self._dispatch(ctx, item)))
+                    ctx.batches += 1
+                    with self._phase("dispatch", "afcm.serve.dispatch",
+                                     ctx.index, ctx.batches - 1):
+                        pending.append((ctx, self._dispatch(ctx, item)))
                     in_flight += 1
-                    t["dispatch"] += time.perf_counter() - t1
             # Finalize any subject whose last batch has been fetched
             # (markers never count against depth — they hold no device work).
             while pending and pending[0][1] is None:
                 mctx, _ = pending.popleft()
-                t4 = time.perf_counter()
-                self._finalize_subject(mctx)
-                t["save"] += time.perf_counter() - t4
+                with self._phase("save", "afcm.serve.finalize", mctx.index):
+                    self._finalize_subject(mctx)
                 yield mctx.loader
             if pending and (in_flight > depth or exhausted):
                 ctx, entry = pending.popleft()
                 in_flight -= 1
                 self._fetch_and_stitch(ctx, entry)
+
+    @contextlib.contextmanager
+    def _phase(self, key: str, name: str, subject: Optional[int] = None,
+               batch: Optional[int] = None):
+        """One phase of the loop: its host seconds go to ``timings[key]``,
+        and while a profiler captures it runs in the span ``name``."""
+        ident = None
+        if subject is not None and profiler_on():
+            ident = f"s{subject}" if batch is None else f"s{subject}.b{batch}"
+        t0 = time.perf_counter()
+        try:
+            with span(name, ident):
+                yield
+        finally:
+            self.timings[key] += time.perf_counter() - t0
 
     def _config_depth(self) -> int:
         try:
@@ -193,12 +214,13 @@ class StandardPredictor:
                                 dict(self.config.loaders.test.slice_builder))
         maps_shape = (self.out_channels,) + tuple(volume_shape)
         heads = self.output_heads
+        self._subjects += 1
         # Head 1 (the reference's phantom ``pred_mask``) is by construction
-        # identical to head 0 (see _fetch_and_stitch) — it is never
+        # identical to head 0 (see _stitch) — it is never
         # accumulated and its file is written as a copy of head 0's.
         return SimpleNamespace(
             loader=test_loader, dataset=dataset, volume_shape=volume_shape,
-            batch_size=test_loader.batch_size,
+            batch_size=test_loader.batch_size, index=self._subjects - 1, batches=0,
             prediction_maps=[None if h == 1 else np.zeros(maps_shape,
                                                           np.float32)
                              for h in range(heads)],
@@ -223,19 +245,20 @@ class StandardPredictor:
             out.copy_to_host_async()
         except AttributeError:  # a forward_fn that returns host arrays
             pass
-        return out, a_batch, n, indices
+        return out, a_batch, n, indices, ctx.batches - 1
 
     def _fetch_and_stitch(self, ctx, entry):
-        out_dev, a_batch, n, indices = entry
-        t = self.timings
-        t2 = time.perf_counter()
-        # bf16 fetch (tpu.fetch_dtype) arrives as ml_dtypes bfloat16;
-        # stitching accumulates float32 either way.
-        predictions = np.asarray(out_dev)[:n]
-        if predictions.dtype != np.float32:
-            predictions = predictions.astype(np.float32)
-        t3 = time.perf_counter()
-        t["fetch"] += t3 - t2
+        out_dev, a_batch, n, indices, batch = entry
+        with self._phase("fetch", "afcm.serve.fetch", ctx.index, batch):
+            # bf16 fetch (tpu.fetch_dtype) arrives as ml_dtypes bfloat16;
+            # stitching accumulates float32 either way.
+            predictions = np.asarray(out_dev)[:n]
+            if predictions.dtype != np.float32:
+                predictions = predictions.astype(np.float32)
+        with self._phase("stitch", "afcm.serve.stitch", ctx.index, batch):
+            self._stitch(ctx, predictions, a_batch, n, indices)
+
+    def _stitch(self, ctx, predictions, a_batch, n, indices):
         if predictions.ndim == 4:  # 2-D model output -> add depth axis
             predictions = predictions[:, :, None]  # [N, C, 1, H, W]
 
@@ -267,7 +290,6 @@ class StandardPredictor:
                                               self.patch_halo)
                 pmap[u_index] += u_pred
                 nmask[u_index] += 1
-        t["stitch"] += time.perf_counter() - t3
 
     def _finalize_subject(self, ctx):
         self._last_out_path = self._save_results(

@@ -59,8 +59,14 @@ from torch import nn
 
 from .. import parallel
 from ..ops import gaussian_blur2d
+from ..utils.profiling import span
 from . import losses
 from .train_state import ema_beta, ema_update, make_optimizer, with_lr
+
+
+# the spans of ``GANModel._step`` per net: its backward, then its update
+_STEP_SPANS = {"D": ("afcm.train.D.backward", "afcm.train.D.update"),
+               "G": ("afcm.train.G.backward", "afcm.train.G.update")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,50 +261,57 @@ class GANModel:
             return self._run_g(z, c, real_a, real_b, generator, mix)
 
         # ---- D phase (G frozen; reference stylegan3_model.py:117-125) ----
-        if cfg.shared_g_fwd:
-            # One forward serves both phases: its graph is kept and the G
-            # head's gradient flows back through it after the D update.
-            fake_shared = run_g(mixes[0])
-            fake_d = fake_shared.detach()
-        else:
-            with torch.no_grad():
-                fake_d = run_g(mixes[0])
+        with span("afcm.train.d_fake"):
+            if cfg.shared_g_fwd:
+                # One forward serves both phases: its graph is kept and the G
+                # head's gradient flows back through it after the D update.
+                fake_shared = run_g(mixes[0])
+                fake_d = fake_shared.detach()
+            else:
+                with torch.no_grad():
+                    fake_d = run_g(mixes[0])
 
-        real_ab = self._d_input(real_a, real_b)
-        r1_on = cfg.lambda_r1 > 0 and with_r1
+        with span("afcm.train.d_loss"):
+            real_ab = self._d_input(real_a, real_b)
+            r1_on = cfg.lambda_r1 > 0 and with_r1
+            if r1_on:
+                real_ab = real_ab.detach().requires_grad_(True)
+            fake_logits = self._run_d(self._d_input(real_a, fake_d), c, sigma)
+            real_logits = self._run_d(real_ab, c, sigma)
+            loss_d_fake, loss_d_real = losses.softplus_d_loss(fake_logits, real_logits)
+            loss_d = loss_d_fake + loss_d_real
+            loss_r1 = torch.zeros((), device=real_a.device)
         if r1_on:
-            real_ab = real_ab.detach().requires_grad_(True)
-        fake_logits = self._run_d(self._d_input(real_a, fake_d), c, sigma)
-        real_logits = self._run_d(real_ab, c, sigma)
-        loss_d_fake, loss_d_real = losses.softplus_d_loss(fake_logits, real_logits)
-        loss_d = loss_d_fake + loss_d_real
-        loss_r1 = torch.zeros((), device=real_a.device)
-        if r1_on:
-            loss_r1 = losses.r1_penalty(real_logits, real_ab)
-            # Lazy R1 scales by the interval so the sum over steps matches
-            # the every-step schedule (interval 1 => the same loss).
-            loss_d = loss_d + loss_r1 * cfg.lambda_r1 * max(1, cfg.r1_interval)
+            with span("afcm.train.r1"):
+                loss_r1 = losses.r1_penalty(real_logits, real_ab)
+                # Lazy R1 scales by the interval so the sum over steps matches
+                # the every-step schedule (interval 1 => the same loss).
+                loss_d = loss_d + loss_r1 * cfg.lambda_r1 * max(1, cfg.r1_interval)
         self._step(self.opt_D, params_d, loss_d, disc)
 
         # ---- G phase, through the updated D (stylegan3_model.py:126-135) ----
-        fake_b = fake_shared if cfg.shared_g_fwd else run_g(mixes[-1])
-        gen_logits = self._run_d(self._d_input(real_a, fake_b), c, sigma)
-        loss_g_gan = losses.softplus_g_loss(gen_logits)
-        loss_g_l1 = losses.l1_loss(self._blur(fake_b, sigma),
-                                   self._blur(real_b, sigma)) * cfg.lambda_l1
+        with span("afcm.train.g_fake"):
+            fake_b = fake_shared if cfg.shared_g_fwd else run_g(mixes[-1])
+        with span("afcm.train.g_loss"):
+            gen_logits = self._run_d(self._d_input(real_a, fake_b), c, sigma)
+            loss_g_gan = losses.softplus_g_loss(gen_logits)
+            loss_g_l1 = losses.l1_loss(self._blur(fake_b, sigma),
+                                       self._blur(real_b, sigma)) * cfg.lambda_l1
         # Gradients w.r.t. G's parameters only: D's weights get none from
         # the G head, so nothing reaches D's optimizer.
         self._step(self.opt_G, params_g, loss_g_gan + loss_g_l1, gen)
 
         # ---- EMA (reference train.py:67-77) ----
         if cfg.ema_enabled:
-            beta = ema_beta(cfg.batch_size, cfg.ema_kimgs, cfg.ema_ramp, cur_nimg)
-            ema_update(self.generator_ema, gen, beta)
+            with span("afcm.train.ema"):
+                beta = ema_beta(cfg.batch_size, cfg.ema_kimgs, cfg.ema_ramp, cur_nimg)
+                ema_update(self.generator_ema, gen, beta)
         self.step += 1
-        metrics = {"G_GAN": loss_g_gan, "G_L1": loss_g_l1, "D_real": loss_d_real,
-                   "D_fake": loss_d_fake, "D_r1": loss_r1}
-        metrics = global_metrics(metrics, self.group)
-        metrics["blur_sigma"] = torch.tensor(sigma)
+        with span("afcm.train.metrics"):
+            metrics = {"G_GAN": loss_g_gan, "G_L1": loss_g_l1, "D_real": loss_d_real,
+                       "D_fake": loss_d_fake, "D_r1": loss_r1}
+            metrics = global_metrics(metrics, self.group)
+            metrics["blur_sigma"] = torch.tensor(sigma)
         return metrics
 
     def _step(self, optimizer, params, loss, net):
@@ -306,18 +319,21 @@ class GANModel:
         does not reach the loss, as JAX gives, so every Adam state steps
         together), the replicated ones of ``net`` reduced over the model
         group, all averaged over the data group, NaN/Inf scrubbing, one
-        Adam step."""
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        if self.model_group is not None:
-            self.model_group.reduce_replicated_(net, params, grads)
-        if self.group is not None:
-            self.group.average_(grads, "grads")
-        for p, g in zip(params, grads):
-            p.grad = g
-        losses.nan_to_num_grads(params)
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
+        Adam step, in the spans of ``net`` (D's or G's)."""
+        backward, update = _STEP_SPANS["D" if net is self.discriminator else "G"]
+        with span(backward):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with span(update):
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            if self.model_group is not None:
+                self.model_group.reduce_replicated_(net, params, grads)
+            if self.group is not None:
+                self.group.average_(grads, "grads")
+            for p, g in zip(params, grads):
+                p.grad = g
+            losses.nan_to_num_grads(params)
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
 
     # -- inference -----------------------------------------------------------
 

@@ -62,6 +62,7 @@ from .models import GANModel, build_model
 from .models.schedulers import LRScheduler
 from .utils import checkpoint as ckpt
 from .utils.metrics import evaluate_2D
+from .utils.profiling import span
 from .utils.visualizer import Visualizer
 
 
@@ -88,8 +89,9 @@ def _slice_idx_of(batch) -> np.ndarray:
 def to_device(batch, device) -> Dict[str, torch.Tensor]:
     """The step's inputs of a numpy batch as tensors on ``device``."""
     arrays = {"A": batch["A"], "B": batch["B"], "slice_idx": _slice_idx_of(batch)}
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
-            for k, v in arrays.items()}
+    with span("afcm.train.h2d"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+                for k, v in arrays.items()}
 
 
 def validate(model, val_loader, device,
@@ -263,8 +265,9 @@ def train(cfg, max_iters: Optional[int] = None, loaders=None, device=None,
             if isinstance(model, GANModel):
                 step_kwargs["with_r1"] = r1_interval <= 1 or opt_steps % r1_interval == 0
             local = {k: v[rows] for k, v in batch.items()}
-            metrics = model.train_step(to_device(local, device), float(total_iters),
-                                       generator=rng, **step_kwargs)
+            with span("afcm.train.step", opt_steps + 1):
+                metrics = model.train_step(to_device(local, device), float(total_iters),
+                                           generator=rng, **step_kwargs)
             opt_steps += 1
             if on_step is not None:
                 on_step(opt_steps, metrics)

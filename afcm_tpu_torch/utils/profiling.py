@@ -1,10 +1,8 @@
 """Profiling and timing helpers of the port (``afcm_tpu/utils/profiling.py``).
 
-``profiled_function`` / ``named_scope`` put a ``torch.profiler.
-record_function`` span around a call, ``trace`` captures a chrome trace of a
-block, ``host_sync`` / ``StepTimer`` / ``bench_rates`` time on the host clock
-around a device synchronize (the same median-of-windows rule as the JAX
-package), ``cuda_ms`` / ``cuda_median_ms`` time a kernel on the card with
+``span`` marks a phase of the serve loop or the train step in a profiler's
+trace, ``trace`` captures a chrome trace of a block, ``host_sync`` waits for
+the device, ``cuda_ms`` / ``cuda_median_ms`` time a kernel on the card with
 CUDA events and ``time_windows`` several in turns (median and spread).
 ``hlo_dump`` of the JAX package has no counterpart: PyTorch runs eagerly and
 has no compiled program to print.
@@ -13,10 +11,8 @@ has no compiled program to print.
 from __future__ import annotations
 
 import contextlib
-import functools
 import os
 import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -26,17 +22,27 @@ import torch
 LEAD_CYCLES_PER_CALL = 400_000
 
 
-def profiled_function(fn):
-    """Wrap a function in a profiler span carrying its name."""
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(fn.__name__):
-            return fn(*args, **kwargs)
-    return wrapper
+_NO_SPAN = contextlib.nullcontext()
 
 
-named_scope = torch.profiler.record_function
+def profiler_on() -> bool:
+    """Whether a ``torch.profiler`` is capturing in this process."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def span(name: str, ident=None):
+    """A phase span: ``torch.profiler.record_function`` while a profiler
+    captures, so that the phase lands on the kernels' clock in the same
+    trace; otherwise a shared null context, at the cost of one flag check
+    (``record_function`` alone costs microseconds with no profiler).
+    ``ident`` names the request (a batch, a step) and goes into the span's
+    name after ``#``, built only while capturing: readers group spans by
+    the part before ``#``."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    if ident is not None:
+        name = f"{name}#{ident}"
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -81,42 +87,6 @@ def host_sync(x=None) -> None:
         torch.cuda.synchronize(leaf.device)
     elif leaf is None and torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Host-clock step timing, stopped after a device synchronize."""
-
-    def __init__(self):
-        self._t0: Optional[float] = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self, result=None) -> float:
-        if self._t0 is None:
-            raise RuntimeError("StepTimer.stop() before start()")
-        host_sync(result)
-        dt = time.perf_counter() - self._t0
-        self._t0 = None
-        return dt
-
-
-def bench_rates(fn, args, iters: int = 20, repeats: int = 3):
-    """Median items/sec over ``repeats`` timing windows of ``iters`` calls,
-    each window closed by ``host_sync``. Returns (median_rate, last_output);
-    the rate counts ``args[1].shape[0]`` items per call when there is such a
-    batch dimension, else calls per second."""
-    out = fn(*args)
-    host_sync(out)
-    batch = getattr(args[1], "shape", [1])[0] if len(args) > 1 else 1
-    rates = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = fn(*args)
-        host_sync(out)
-        rates.append(batch / ((time.perf_counter() - t0) / iters))
-    return float(np.median(rates)), out
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
