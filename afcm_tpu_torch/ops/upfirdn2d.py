@@ -19,6 +19,14 @@ depthwise convs go through ``conv2d_gradfix`` instead, for a reason of
 PyTorch's own: R1 differentiates the discriminator's resampling and the blur
 twice, and autograd's double backward of a grouped conv runs one conv per
 channel.
+
+``depthwise_conv2d`` keeps the depthwise weight of numpy taps on the device,
+looked up by content (the taps' bytes and shape, the channel count, the
+dtype and the device): a copy from pageable host memory waits for the
+stream, so copying the taps on every call would drain the card's queue once
+a resampling pass. ``tap_uploads`` counts the copies (the cache's misses,
+each in the span ``afcm.fir.upload``), ``tap_hits`` the calls that found
+their weight.
 """
 
 from __future__ import annotations
@@ -27,8 +35,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import conv2d_gradfix
 from .filter_design import filter_size
+
+# Copies of numpy taps to a device in this process (the weight cache's
+# misses) and calls that found their weight in the cache (tests read them).
+tap_uploads = 0
+tap_hits = 0
+
+# (taps' bytes, shape and dtype, channels, dtype, device) -> the [C, 1, kh, kw]
+# depthwise weight; the oldest entry goes first once full
+_WEIGHTS = {}
+_MAX_WEIGHTS = 1024
 
 
 def parse_scaling(scaling):
@@ -73,15 +92,54 @@ def _zero_stuff(x, up: int, axis: int):
     return out
 
 
-def depthwise_conv2d(x, taps, stride=(1, 1), padding=(0, 0)):
-    """Correlate every channel of NCHW ``x`` with the 2-D ``taps`` (a tensor
-    or numpy array, never trained) through ``conv2d_gradfix``."""
-    channels = x.shape[1]
+def _depthwise_weight(taps, channels, like):
+    """The [C, 1, kh, kw] weight of ``taps`` in ``like``'s dtype and on its
+    device."""
     # copy(): a reversed 1x1 view keeps its negative strides through
     # np.ascontiguousarray, which torch rejects.
     taps = taps.copy() if isinstance(taps, np.ndarray) else taps.detach()
-    weight = torch.as_tensor(taps, dtype=x.dtype, device=x.device)
-    weight = weight[None, None].expand(channels, 1, *taps.shape).contiguous()
+    weight = torch.as_tensor(taps, dtype=like.dtype, device=like.device)
+    return weight[None, None].expand(channels, 1, *taps.shape).contiguous()
+
+
+def _cached_weight(taps, channels, x):
+    """The weight of numpy ``taps`` from the cache, made on a miss. Entries
+    are plain tensors that need no gradient, made outside inference mode so
+    that a training step may save one for its backward after a served
+    batch made it; nothing writes to them in place."""
+    global tap_uploads, tap_hits
+    key = (taps.tobytes(), taps.shape, taps.dtype.str, channels, x.dtype, x.device)
+    weight = _WEIGHTS.get(key)
+    if weight is not None:
+        tap_hits += 1
+        return weight
+    with span("afcm.fir.upload"), torch.inference_mode(False), torch.no_grad():
+        weight = _depthwise_weight(taps, channels, x)
+    if len(_WEIGHTS) >= _MAX_WEIGHTS:
+        del _WEIGHTS[next(iter(_WEIGHTS))]
+    _WEIGHTS[key] = weight
+    tap_uploads += 1
+    return weight
+
+
+def _traced(x) -> bool:
+    """Whether torch.export or torch.compile traces this call: ``x`` is then
+    a fake or functional tensor, or dynamo runs the Python. The cache is
+    neither read nor written then, so that no traced tensor lands in it and
+    the graph holds the taps as it did without the cache."""
+    return type(x) is not torch.Tensor or torch.compiler.is_compiling()
+
+
+def depthwise_conv2d(x, taps, stride=(1, 1), padding=(0, 0)):
+    """Correlate every channel of NCHW ``x`` with the 2-D ``taps`` (a tensor
+    or numpy array, never trained) through ``conv2d_gradfix``. The weight of
+    numpy taps comes from the module's cache (the module docstring); tensor
+    taps (the blur's) are made into a weight on every call."""
+    channels = x.shape[1]
+    if isinstance(taps, np.ndarray) and not _traced(x):
+        weight = _cached_weight(taps, channels, x)
+    else:
+        weight = _depthwise_weight(taps, channels, x)
     return conv2d_gradfix.conv2d(x, weight, stride=stride, padding=padding,
                                  groups=channels)
 
@@ -174,10 +232,15 @@ def gaussian_blur2d(x, sigma, max_radius: int):
     ``floor(3 * sigma)`` are zero, which equals the reference's filter of
     size ``2 * floor(3 * sigma) + 1`` and is the identity for sigma < 1/3
     (``afcm_tpu/ops/upfirdn2d.py:306-333``). Differentiable in ``x`` to any
-    order (R1 differentiates through it)."""
+    order (R1 differentiates through it). A float ``sigma`` is filled in on
+    the device, not copied there from the host; the taps are not cached,
+    since the training blur's sigma fades every step."""
     t = torch.arange(-max_radius, max_radius + 1, dtype=torch.float32,
                      device=x.device)
-    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+    if isinstance(sigma, torch.Tensor):
+        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+    else:
+        sigma = torch.full((), float(sigma), dtype=torch.float32, device=x.device)
     blur_size = torch.floor(sigma * 3.0)
     taps = torch.exp2(-torch.square(t / torch.clamp(sigma, min=1e-8)))
     taps = torch.where(t.abs() <= blur_size, taps, torch.zeros_like(taps))

@@ -1208,3 +1208,57 @@ def test_exported_generator_launches_k1(cuda):
     torch.cuda.synchronize()
     assert nodes == 16 and k1.launches - before == nodes
     torch.testing.assert_close(got, model.eval_step(a, s, z=z), rtol=0, atol=1e-6)
+
+
+def _bench_config(name):
+    """The config tree a benchmark cell runs (``portbench/configs``)."""
+    import json
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs", f"{name}.json")) as f:
+        return json.load(f)["config"]
+
+
+def test_fir_resampling_enqueues_without_waiting_for_the_card(cuda):
+    """After one warm-up call, the CCSR EMA generator's forward at batch 16
+    and the CMSR discriminator behind the blur at sigma 10 (its start in
+    training) run on inputs already on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
+    that waits for the card: the FIR weights come from ``ops/upfirdn2d``'s
+    cache, the blur's sigma is filled in on the card."""
+    import importlib
+
+    from afcm_tpu_torch.models import build_discriminator, build_eval_model
+    from afcm_tpu_torch.models.gan_model import eval_forward
+    from afcm_tpu_torch.ops import gaussian_blur2d
+    fir = importlib.import_module("afcm_tpu_torch.ops.upfirdn2d")
+    ccsr, cmsr = _bench_config("ccsr_adni"), _bench_config("cmsr_adni")
+    g_ema = build_eval_model(dict(ccsr["model"]["G"]),
+                             generator=torch.Generator().manual_seed(0)).generator_ema
+    g_ema.to(cuda)
+    d = build_discriminator(dict(cmsr["model"]["D"], compute_dtype="bfloat16"),
+                            generator=torch.Generator().manual_seed(1)).to(cuda)
+    sigma = float(cmsr["loss"]["blur_init_sigma"])
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.rand((16, 4, 256, 256), generator=gen, device=cuda) * 2 - 1
+    s = torch.rand((16, 1), generator=gen, device=cuda)
+    z = torch.randn((16, 512), generator=gen, device=cuda)
+    img = torch.rand((16, 5, 256, 256), generator=gen, device=cuda) * 2 - 1
+
+    def serve():
+        with torch.inference_mode():
+            return eval_forward(g_ema, 1, a, s, z)
+
+    def discriminate():
+        return d(gaussian_blur2d(img, sigma, max_radius=int(np.floor(sigma * 3))), s)
+
+    for run in (serve, discriminate):
+        run()
+        torch.cuda.synchronize()
+        uploads, hits = fir.tap_uploads, fir.tap_hits
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(out).all()
+        assert fir.tap_uploads == uploads and fir.tap_hits > hits, run.__name__

@@ -113,9 +113,13 @@ def test_serve_path_emits_every_span_nested_with_identifiers(tiny_forward, tmp_p
     h2d = [s for s in spans if s[0] == "afcm.serve.h2d"]
     g_ema = [s for s in spans if s[0] == "afcm.serve.g_ema"]
     assert all(a[2] <= b[1] for a, b in zip(h2d, g_ema))             # copies, then G_ema
+    # a copy of FIR taps to the device (a cold weight cache) lies in G_ema's forward
+    uploads = [s for s in spans if s[0] == "afcm.fir.upload"]
+    assert all(any(_inside(u, g) for g in g_ema) for u in uploads)
     # the other phases hold no span of the port and lie in no other phase
     top = [s for s in spans if s[0].split("#")[0] not in ("afcm.serve.h2d",
-                                                           "afcm.serve.g_ema")]
+                                                           "afcm.serve.g_ema",
+                                                           "afcm.fir.upload")]
     for a, b in zip(top, top[1:]):
         assert a[2] <= b[1], (a, b)
     # a batch is dispatched before it is fetched, fetched before it is stitched
